@@ -1,0 +1,351 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch / CUDA port (``sup3r_tpu_torch``).
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises and the script
+exits non-zero:
+
+1. environment and build: the card's name and power limit (as
+   ``nvidia-smi`` gives them), then every CUDA kernel built from
+   ``sup3r_tpu_torch/csrc/`` (into ``build/kernels/``);
+2. each kernel against its plain PyTorch version on the card (TF32 off),
+   at the shapes the flagship's serving path gives it and at ragged
+   ones; tolerance max|kernel - plain| <= 1e-5 * max|plain| (fp32
+   accumulation order);
+3. the main path: the flagship ``spatiotemporal/gen_3x_4x_2f`` generator
+   at full width (64 filters, 16 residual blocks, seeded random
+   weights) serves 3 requests of ``Sup3rGan.generate`` on a
+   (16, 20, 20, 24, 2) low-res batch; the output must be finite, of
+   shape (16, 60, 60, 96, 2), and ``small_reflect_conv`` must launch
+   once per request. On a small input the served output is held against
+   the port's unfused generator on the CPU (rtol 1e-4 of the output's
+   max, the repository's fp32 parity bar);
+4. the opt-in kernel path (``inference_pallas=True``): 3 more requests,
+   ``reflect_conv`` launching 36 times per request, output equal to
+   phase 3's within phase 2's tolerance;
+5. one request of each path under ``torch.profiler`` (device-busy
+   time, idle share, the kernels that take the time), then the
+   ``kernels`` line: each kernel's time at its main-path shape
+   beside its bound on this card, its plain version's time and one
+   cuDNN convolution's time (a yardstick the port never calls).
+
+The last line is ``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sup3r_tpu_torch.configs import get_config
+from sup3r_tpu_torch.models import Sup3rGan
+from sup3r_tpu_torch.models.fuse import FusedReflectConv
+from sup3r_tpu_torch.ops import build
+from sup3r_tpu_torch.ops.kernels import (
+    reflect_conv_cf,
+    reflect_conv_reference,
+    small_reflect_conv_cf,
+)
+from sup3r_tpu_torch.utilities import Timer, exact_fp32
+
+#: (memory bytes/s, fp32 CUDA-core FLOP/s) from NVIDIA's data sheets,
+#: by a substring of the card's name; the H100 SXM's when none matches
+PEAKS = (('H200', 4.8e12, 67e12), ('H100 NVL', 3.9e12, 60e12),
+         ('H100 PCIe', 2.0e12, 51e12), ('H100', 3.35e12, 67e12))
+REPLACES = {
+    'small_reflect_conv': 'sup3r_tpu/ops/pallas_kernels.py:206',
+    'reflect_conv': 'sup3r_tpu/ops/pallas_kernels.py:87',
+}
+SOURCES = {
+    'small_reflect_conv': 'sup3r_tpu_torch/csrc/small_reflect_conv.cu',
+    'reflect_conv': 'sup3r_tpu_torch/csrc/reflect_conv.cu',
+}
+KERNEL_RTOL = 1e-5
+PARITY_RTOL = 1e-4
+LR_SHAPE = (16, 20, 20, 24, 2)
+HR_SHAPE = (16, 60, 60, 96, 2)
+N_REQUESTS = 3
+#: fused blocks of the flagship that are not its 8 -> 2 tail
+N_BODY_BLOCKS = 36
+
+
+def emit(**record):
+    print(json.dumps(record), flush=True)
+
+
+def peaks(name):
+    for key, bw, flops in PEAKS:
+        if key in name:
+            return bw, flops
+    return PEAKS[-1][1:]
+
+
+def bound(name, x_shape, co, n_weights):
+    """(bound_ms, bound_by) of one reflect conv: each input read once,
+    the output written once; 2 * taps * ci FLOP per output value."""
+    bw, flops = peaks(name)
+    n, ci, *spatial = x_shape
+    cells = n * int(np.prod(spatial))
+    nbytes = 4 * (cells * ci + cells * co + n_weights + co)
+    ops = 2 * cells * co * ci * 3 ** len(spatial)
+    t_bytes, t_ops = nbytes / bw, ops / flops
+    return (1e3 * max(t_bytes, t_ops),
+            'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def cuda_ms(fn, iters):
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls,
+    after one warm-up call (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def conv_inputs(gen, x_shape, co, scale=1.0):
+    """Seeded input, weight and bias on the card; weights scaled by
+    1/sqrt(fan-in) so the outputs stay O(1)."""
+    ci, n_spatial = x_shape[1], len(x_shape) - 2
+    x = torch.randn(x_shape, device='cuda', generator=gen) * scale
+    w = torch.randn((co, ci) + (3,) * n_spatial, device='cuda',
+                    generator=gen) / np.sqrt(ci * 3 ** n_spatial)
+    b = torch.randn((co,), device='cuda', generator=gen) * 0.1
+    return x, w, b
+
+
+def check_kernel(name, fn, x, w, b, alpha):
+    """Kernel vs plain on the same inputs; returns max |diff|."""
+    with torch.inference_mode(), exact_fp32():
+        got = fn(x, w, b, alpha)
+        want = reflect_conv_reference(x, w, b, alpha)
+        torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
+    emit(phase='kernel_check', kernel=name, shape=list(x.shape),
+         co=w.shape[0], alpha=alpha, max_abs_err=err, max_abs_plain=scale,
+         tol=KERNEL_RTOL * scale, ok=ok)
+    if not ok:
+        raise AssertionError(f'{name} disagrees with its plain version at '
+                             f'{tuple(x.shape)}: {err} > '
+                             f'{KERNEL_RTOL} * {scale}')
+    return err
+
+
+def flagship(device):
+    model = Sup3rGan(get_config('spatiotemporal/gen_3x_4x_2f'),
+                     get_config('spatiotemporal/disc_test'),
+                     meta={'lr_features': ['u_100m', 'v_100m'],
+                           'hr_out_features': ['u_100m', 'v_100m']},
+                     means={'u_100m': 0.5, 'v_100m': 0.5},
+                     stdevs={'u_100m': 0.3, 'v_100m': 0.3}, device=device)
+    model.init_weights((1,) + LR_SHAPE[1:], (1,) + HR_SHAPE[1:], seed=0)
+    return model
+
+
+def serve(model, lr, phase):
+    """N_REQUESTS timed generate calls; returns the last output and the
+    per-request host times (ms)."""
+    times = []
+    out = None
+    for _ in range(N_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(lr)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    if out.shape != HR_SHAPE or not np.isfinite(out).all():
+        raise AssertionError(f'{phase}: output {out.shape} not finite '
+                             f'{HR_SHAPE}')
+    return out, times
+
+
+def profile_request(model, lr):
+    """One request under ``torch.profiler``: device-busy and idle share
+    of the wall time, the kernels and copies that took the most device
+    time (device-side events only: a CPU op's device time is its
+    kernels'), and the fp32 operations of the request's fused convs
+    (2 * taps * ci per output value, counted by forward hooks)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flops = []
+
+    def count(module, args, out):
+        w = module.weight
+        flops.append(2 * out.numel() * w[0].numel())
+
+    hooks = [m.register_forward_hook(count)
+             for m in model._get_fused_apply().layers
+             if isinstance(m, FusedReflectConv)]
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.generate(lr)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for h in hooks:
+            h.remove()
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = [{'name': e.key[:90], 'calls': e.count,
+            'device_ms': e.self_device_time_total / 1e3}
+           for e in events[:8]]
+    return wall_ms, busy_ms, top, sum(flops)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke.py needs a CUDA device: '
+                         'torch.cuda.is_available() is False')
+    # 1. environment and build
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    name = torch.cuda.get_device_name(0)
+    timer = Timer()
+    with timer:
+        build.build_all()
+    emit(phase='build', device=name, nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, build_s=timer.elapsed,
+         build_dir=str(build.build_dir()))
+
+    # 2. kernel vs plain
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    tail = conv_inputs(gen, (16, 8, 60, 60, 96), 2)
+    body = conv_inputs(gen, (16, 64, 20, 20, 96), 64)
+    errs = {
+        'small_reflect_conv': check_kernel(
+            'small_reflect_conv', small_reflect_conv_cf, *tail, None),
+        'reflect_conv': check_kernel(
+            'reflect_conv', reflect_conv_cf, *body, 0.2),
+    }
+    check_kernel('small_reflect_conv', small_reflect_conv_cf,
+                 *conv_inputs(gen, (2, 4, 7, 5, 9), 5), 0.2)
+    check_kernel('reflect_conv', reflect_conv_cf,
+                 *conv_inputs(gen, (16, 64, 60, 60), 64), None)
+    check_kernel('reflect_conv', reflect_conv_cf,
+                 *conv_inputs(gen, (2, 5, 3, 7, 33), 70), 0.2)
+
+    # 3. the main path
+    model = flagship('cuda')
+    lr = np.random.default_rng(0).standard_normal(LR_SHAPE).astype(
+        np.float32) * 0.3 + 0.5
+    torch.cuda.reset_peak_memory_stats()
+    small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+    out, times = serve(model, lr, 'main path')
+    launches = {'small_reflect_conv': small_reflect_conv_cf.launches}
+    if launches['small_reflect_conv'] != N_REQUESTS or (
+            reflect_conv_cf.launches):
+        raise AssertionError(
+            f'main path launches: small_reflect_conv '
+            f'{small_reflect_conv_cf.launches}, reflect_conv '
+            f'{reflect_conv_cf.launches}; expected {N_REQUESTS} and 0')
+    hr_voxels = int(np.prod(HR_SHAPE[:-1]))
+    emit(phase='main_path', model='spatiotemporal/gen_3x_4x_2f',
+         filters=64, n_resblocks=16, lr_shape=list(LR_SHAPE),
+         hr_shape=list(out.shape), requests=N_REQUESTS, request_ms=times,
+         hr_voxels_per_s=hr_voxels / (float(np.median(times)) / 1e3),
+         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches={'small_reflect_conv': small_reflect_conv_cf.launches,
+                   'reflect_conv': reflect_conv_cf.launches})
+
+    # the served output against the port's unfused generator on the CPU
+    small = np.random.default_rng(1).standard_normal(
+        (2, 8, 8, 6, 2)).astype(np.float32) * 0.3 + 0.5
+    ref_model = flagship('cpu')
+    ref_model.inference_fuse = False
+    ref = ref_model.generate(small)
+    tol = PARITY_RTOL * float(np.abs(ref).max())
+    for pallas in (False, True):
+        model.inference_pallas = pallas
+        err = float(np.abs(model.generate(small) - ref).max())
+        emit(phase='reference_check', inference_pallas=pallas,
+             shape=list(small.shape), max_abs_err=err, tol=tol,
+             ok=err <= tol)
+        if not err <= tol:
+            raise AssertionError(f'served output differs from the CPU '
+                                 f'reference by {err} > {tol}')
+
+    # 4. the opt-in kernel path
+    model.inference_pallas = True
+    small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+    out_k, times_k = serve(model, lr, 'kernel path')
+    launches['reflect_conv'] = reflect_conv_cf.launches
+    if (reflect_conv_cf.launches != N_BODY_BLOCKS * N_REQUESTS
+            or small_reflect_conv_cf.launches != N_REQUESTS):
+        raise AssertionError(
+            f'kernel path launches: reflect_conv '
+            f'{reflect_conv_cf.launches}, small_reflect_conv '
+            f'{small_reflect_conv_cf.launches}; expected '
+            f'{N_BODY_BLOCKS * N_REQUESTS} and {N_REQUESTS}')
+    err = float(np.abs(out_k - out).max())
+    tol = KERNEL_RTOL * float(np.abs(out).max())
+    emit(phase='kernel_path', inference_pallas=True, requests=N_REQUESTS,
+         request_ms=times_k, hr_voxels_per_s=hr_voxels / (
+             float(np.median(times_k)) / 1e3),
+         launches={'small_reflect_conv': small_reflect_conv_cf.launches,
+                   'reflect_conv': reflect_conv_cf.launches},
+         max_abs_err_vs_main_path=err, tol=tol, ok=err <= tol)
+    if not err <= tol:
+        raise AssertionError(f'inference_pallas output differs from the '
+                             f'main path by {err} > {tol}')
+    for pallas in (False, True):
+        model.inference_pallas = pallas
+        wall_ms, busy_ms, top, flops = profile_request(model, lr)
+        emit(phase='profile', inference_pallas=pallas, wall_ms=wall_ms,
+             device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+             conv_gflop=flops / 1e9,
+             conv_fp32_bound_ms=1e3 * flops / peaks(name)[1],
+             top_device=top)
+    del model, out, out_k
+
+    # 5. the kernels line, at the main-path shapes
+    kernels = []
+    for kname, fn, (x, w, b), alpha in (
+            ('small_reflect_conv', small_reflect_conv_cf, tail, None),
+            ('reflect_conv', reflect_conv_cf, body, 0.2)):
+        with torch.inference_mode(), exact_fp32():
+            ms = cuda_ms(lambda: fn(x, w, b, alpha), 20)
+            plain_ms = cuda_ms(
+                lambda: reflect_conv_reference(x, w, b, alpha), 20)
+            xp = F.pad(x, (1,) * 6, mode='reflect')
+            library_ms = cuda_ms(lambda: F.conv3d(xp, w, b), 20)
+        bound_ms, bound_by = bound(name, tuple(x.shape), w.shape[0],
+                                   w.numel())
+        kernels.append({
+            'name': kname, 'route': 'cuda', 'source': SOURCES[kname],
+            'replaces': REPLACES[kname], 'launches': launches[kname],
+            'launches_per_request': launches[kname] // N_REQUESTS,
+            'shape': list(x.shape), 'co': w.shape[0],
+            'max_abs_err': errs[kname], 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by,
+            'library_ms': library_ms})
+    print(json.dumps({'kernels': kernels}), flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name,
+        'count': torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,215 @@
+"""Inference-time network optimization: rewrite
+``FlexiblePadding(reflect) -> Conv(k3,s1) -> Cropping (-> LeakyReLU)``
+sequences into single fused reflect-pad-1 convolutions (the port of
+``sup3r_tpu/models/fuse.py``).
+
+Shape algebra (why this is exact): with inner reflect pad p and crop c,
+the retained output pixels only ever read a 1-pixel reflect halo:
+  * Conv(k3, valid):  centered window iff p = c + 1  (configs: p3/c2)
+  * ConvT(k3, valid): centered window of the full-padding correlation
+    iff c = p + 1 (configs: p3/c4)
+so both reduce to a k3/s1 reflect-boundary conv. Inline 'relu'
+activations fold in as LeakyReLU(alpha=0).
+
+Routing of a fused block (``FusedReflectConv.forward``), on a CUDA
+tensor:
+  * ``small_channel_kernel`` (on by default): 3D, fp32, ``ci * co <=
+    32`` blocks (the flagship's HR 8 -> 2 tail) launch the hand-written
+    ``small_reflect_conv`` kernel;
+  * ``use_pallas`` (``Sup3rGan.inference_pallas``): EVERY other fused
+    block launches the hand-written ``reflect_conv`` kernel. The JAX
+    package also gated this on ``_fits_vmem``, a TPU VMEM-residency
+    rule with no counterpart here;
+  * otherwise the block runs ``reflect_conv_ad``: ``F.pad`` + cuDNN.
+On a CPU tensor every block runs ``reflect_conv_ad``, the kernels'
+plain version.
+
+``SubpixelTailConv`` / ``fuse_subpixel_tail`` (fast mode) come with a
+later slice (ROADMAP queue 1 item 3).
+"""
+
+import logging
+
+import torch
+
+from sup3r_tpu_torch.models.layers import (
+    ACTIVATIONS,
+    Activation,
+    Conv2D,
+    Conv2DTranspose,
+    Conv3D,
+    Conv3DTranspose,
+    Cropping2D,
+    Cropping3D,
+    FlexiblePadding,
+    Layer,
+    LeakyReLU,
+    SpatialExpansion,
+    SpatioTemporalExpansion,
+)
+from sup3r_tpu_torch.ops.conv_ad import reflect_conv_ad
+from sup3r_tpu_torch.ops.kernels import reflect_conv_cf, small_reflect_conv_cf
+
+logger = logging.getLogger(__name__)
+
+
+class FusedReflectConv(Layer):
+    """Fused reflect-pad + k3 conv + crop + activation block.
+
+    The shipped generators wrap every conv in FlexiblePadding(3,
+    REFLECT) -> Conv(valid) -> Cropping(2), which computes a 2-cell
+    halo ring that is immediately cropped away. This block is the
+    algebraic simplification (reflect-pad-1 + valid conv). It holds
+    the conv's weight (OI.. layout) and bias by reference."""
+
+    #: route every fused block the small kernel does not take to the
+    #: hand-written ``reflect_conv`` kernel (set from
+    #: ``Sup3rGan.inference_pallas``)
+    use_pallas = False
+
+    #: route tiny-channel 3D convs (ci*co <= 32, e.g. the flagship
+    #: generator's final 8->2 conv at HR resolution) to the
+    #: ``small_reflect_conv`` kernel
+    small_channel_kernel = True
+
+    def __init__(self, n_spatial, weight, bias, alpha=None):
+        super().__init__()
+        self.n_spatial = n_spatial
+        self.alpha = alpha
+        self.weight = weight
+        self.bias = bias
+
+    def out_shape(self, in_shape):
+        raise NotImplementedError(
+            'FusedReflectConv is created by fuse_network with existing '
+            'params; shape inference happens pre-fusion')
+
+    def _small_ok(self, x):
+        co, ci = self.weight.shape[:2]
+        return (self.n_spatial == 3 and x.ndim == 5
+                and x.dtype == torch.float32 and ci * co <= 32)
+
+    def forward(self, x, ctx):
+        on_cuda = x.is_cuda
+        if self.small_channel_kernel and on_cuda and self._small_ok(x):
+            return small_reflect_conv_cf(x, self.weight, self.bias,
+                                         self.alpha)
+        if self.use_pallas and on_cuda:
+            return reflect_conv_cf(x, self.weight, self.bias, self.alpha)
+        return reflect_conv_ad(x, self.weight, self.bias, self.n_spatial,
+                               self.alpha)
+
+
+def _inner_pads(pad_layer):
+    """(n_spatial, pad width), or None if not all-equal reflect."""
+    if pad_layer.mode != 'reflect':
+        return None
+    inner = pad_layer.paddings[1:-1]
+    widths = {w for pair in inner for w in pair}
+    if len(widths) != 1:
+        return None
+    return len(inner), widths.pop()
+
+
+def fuse_network(layers):
+    """Rewrite fusable sequences; returns the new layer list.
+
+    Non-matching layers pass through untouched (the same module
+    objects), so this is safe to run on any network."""
+    new_layers = []
+    i = 0
+    n_fused = 0
+    while i < len(layers):
+        match = _match_sequence(layers, i)
+        if match is None:
+            new_layers.append(layers[i])
+            i += 1
+            continue
+        emitted, consumed = match
+        new_layers.extend(emitted)
+        i += consumed
+        n_fused += 1
+    if n_fused:
+        logger.info('Fused %d reflect-conv blocks for inference', n_fused)
+    return new_layers
+
+
+def _match_sequence(layers, i):
+    """Try to match a fusable sequence starting at layer i; returns
+    (emitted layers, number consumed) or None."""
+    if not isinstance(layers[i], FlexiblePadding):
+        return None
+    pads = _inner_pads(layers[i])
+    if pads is None:
+        return None
+    n_spatial, p = pads
+    if i + 2 >= len(layers):
+        return None
+    conv = layers[i + 1]
+    crop = layers[i + 2]
+    conv_types = {2: (Conv2D, Conv2DTranspose),
+                  3: (Conv3D, Conv3DTranspose)}.get(n_spatial)
+    crop_type = {2: Cropping2D, 3: Cropping3D}.get(n_spatial)
+    if conv_types is None or not isinstance(conv, conv_types) or (
+            not isinstance(crop, crop_type)):
+        return None
+    if conv.kernel_size != (3,) * n_spatial or conv.strides != (
+            1,) * n_spatial or conv.padding != 'VALID':
+        return None
+    crops = {w for pair in crop.crops for w in pair}
+    if len(crops) != 1:
+        return None
+    c = crops.pop()
+    if conv.transpose and c != p + 1:
+        return None
+    if not conv.transpose and c != p - 1:
+        return None
+
+    # activation: inline on the conv, or a following LeakyReLU /
+    # Activation('relu') layer
+    alpha = None
+    consumed = 3
+    trailing = []
+    if conv._act is not None:
+        if conv._act is not ACTIVATIONS['relu']:
+            return None
+        alpha = 0.0
+    elif i + 3 < len(layers):
+        nxt = layers[i + 3]
+        alpha = _activation_alpha(nxt)
+        if alpha is not None:
+            consumed = 4
+        elif _movement_only_expansion(nxt) and i + 4 < len(layers):
+            # conv -> EXPANSION -> activation: pixel shuffles / frame
+            # repeats only MOVE or DUPLICATE values, so the elementwise
+            # activation commutes exactly across them and folds into
+            # the fused conv's epilogue
+            alpha = _activation_alpha(layers[i + 4])
+            if alpha is not None:
+                consumed = 5
+                trailing = [nxt]
+
+    fused = FusedReflectConv(n_spatial, conv.fused_weight(), conv.bias,
+                             alpha=alpha)
+    return [fused, *trailing], consumed
+
+
+def _activation_alpha(layer):
+    """LeakyReLU slope of an activation layer (0 for ReLU), else None."""
+    if isinstance(layer, LeakyReLU):
+        return layer.alpha
+    if isinstance(layer, Activation) and layer.name == 'relu':
+        return 0.0
+    return None
+
+
+def _movement_only_expansion(layer):
+    """Whether ``layer`` only MOVES or DUPLICATES values (pixel
+    shuffle / frame repeat) — the condition under which an elementwise
+    activation commutes exactly across it. Linear temporal
+    interpolation averages values and does NOT qualify."""
+    if isinstance(layer, SpatialExpansion):
+        return True
+    return (isinstance(layer, SpatioTemporalExpansion)
+            and (layer.temporal_mult == 1
+                 or layer.temporal_method in ('nearest', 'depth_to_time')))

@@ -1,0 +1,112 @@
+"""Network: an ordered list of DSL layer modules, with the
+introspection hooks the models rely on (enhancement factors, exo feature
+order). The port of ``sup3r_tpu/models/network.py``.
+
+The public arrays keep the JAX package's channels-last layout
+``(n, s1, s2[, t], c)``: ``apply`` permutes once at entry and once at
+exit, and the layers run channels-first in between.
+"""
+
+import json
+
+import numpy as np
+from torch import nn
+
+from sup3r_tpu_torch.models.layers import EXO_LAYERS, build_layers
+
+
+class Network(nn.Module):
+    """A generator or discriminator: layer modules + init/apply."""
+
+    def __init__(self, hidden_layers):
+        """``hidden_layers``: a JSON list, a path to a JSON file with a
+        ``hidden_layers`` key, or an already-built list of layer
+        modules (a fused layer list shares the modules' parameters).
+        """
+        super().__init__()
+        if isinstance(hidden_layers, str):
+            with open(hidden_layers) as f:
+                config = json.load(f)
+            hidden_layers = config['hidden_layers']
+        if hidden_layers and isinstance(hidden_layers[0], dict):
+            self.config = list(hidden_layers)
+            layers = build_layers(hidden_layers)
+        else:
+            self.config = None
+            layers = list(hidden_layers)
+        self.layers = nn.ModuleList(layers)
+
+    # ------------------------------------------------------------------
+    # introspection used by models
+    @property
+    def s_enhance(self):
+        """Product of layer spatial multipliers."""
+        return int(np.prod([lyr.spatial_mult for lyr in self.layers]))
+
+    @property
+    def t_enhance(self):
+        """Product of layer temporal multipliers."""
+        return int(np.prod([lyr.temporal_mult for lyr in self.layers]))
+
+    @property
+    def is_5d(self):
+        """Whether the network consumes 5D (spatiotemporal) input."""
+        return any(
+            type(lyr).__name__ in ('Conv3D', 'Conv3DTranspose', 'Cropping3D')
+            or getattr(lyr, 'n_spatial', 2) == 3
+            for lyr in self.layers
+        ) or any(len(getattr(lyr, 'paddings', [])) == 5
+                 for lyr in self.layers)
+
+    @property
+    def input_dims(self):
+        """4 for spatial-only nets, 5 for spatiotemporal."""
+        return 5 if self.is_5d else 4
+
+    @property
+    def exo_features(self):
+        """Names of mid-network exogenous features, in layer order."""
+        return [lyr.name for lyr in self.layers
+                if isinstance(lyr, EXO_LAYERS)]
+
+    # ------------------------------------------------------------------
+    def init(self, in_shape, generator):
+        """Create every layer's parameters (on the CPU, from the seeded
+        ``torch.Generator``) for a channels-last input shape; returns the
+        output shape. Move the network with ``.to(device)`` after."""
+        shape = tuple(in_shape)
+        for lyr in self.layers:
+            shape = lyr.init(shape, generator)
+        return shape
+
+    def forward(self, x, exo=None):
+        """Run the layers on a channels-first tensor. ``exo`` maps
+        feature name -> channels-last raster for the injection layers."""
+        ctx = {'exo': exo or {}, 'skips': {}}
+        for lyr in self.layers:
+            x = lyr(x, ctx)
+        if ctx['skips']:
+            raise ValueError(
+                'Unclosed skip connections: '
+                f'{sorted(ctx["skips"])} — each SkipConnection name must '
+                'appear exactly twice')
+        return x
+
+    def apply(self, x, exo=None):
+        """Run the network on a channels-last tensor; returns the
+        channels-last output (a view of the channels-first result).
+        Shadows ``nn.Module.apply(fn)``, as the JAX package's
+        ``Network.apply`` runs the network."""
+        x = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1)).contiguous()
+        out = self(x, exo)
+        return out.permute(0, *range(2, out.ndim), 1)
+
+    def out_shape(self, in_shape):
+        """Static output shape for a given input shape (no params)."""
+        shape = tuple(in_shape)
+        for lyr in self.layers:
+            shape = lyr.out_shape(shape)
+        return shape
+
+    def __len__(self):
+        return len(self.layers)

@@ -1,0 +1,197 @@
+"""Hand-written Hopper kernels for the fused reflect-conv blocks, with
+their plain PyTorch versions and launch counters.
+
+Both kernels compute the same function: a 1-cell reflect pad, a k3/s1
+convolution, the bias and an optional LeakyReLU.
+
+- ``small_reflect_conv_cf`` (``csrc/small_reflect_conv.cu``) replaces
+  ``sup3r_tpu/ops/pallas_kernels.py::_small_conv_core`` (reached through
+  ``small_reflect_conv``), for 3D convs with ``ci * co <= 32``: the
+  flagship generator's HR 8 -> 2 tail. On an H100 SXM its bytes and
+  its fp32 operations bound it alike (~0.07 ms at the flagship tail);
+  one thread per output voxel with the CO accumulators in registers
+  and the halo done by index math streams the input from device memory
+  once.
+- ``reflect_conv_cf`` (``csrc/reflect_conv.cu``) replaces
+  ``sup3r_tpu/ops/pallas_kernels.py::reflect_conv``, in 2D and 3D.
+  Bound by fp32 operations on the card (~2 ms per flagship body conv
+  on an H100 SXM); a shared-memory tiled direct convolution whose
+  threads each keep 8 cells x 8 channels of fp32 FMA accumulators in
+  registers (no TF32).
+
+The source files carry each kernel's bound and design in full.
+
+Wrappers take channels-first tensors (``(n, c, *spatial)``, OI.. weights):
+the layout the port's network runs in. A tensor on the CPU takes the
+plain version (``reflect_conv_reference``); a CUDA tensor launches the
+kernel or raises. Each wrapper's ``launches`` attribute counts its kernel
+launches. ``small_reflect_conv`` and ``reflect_conv`` keep the JAX
+package's channels-last signatures for tests and callers holding JAX
+layouts.
+"""
+
+import ctypes
+
+import torch
+
+from sup3r_tpu_torch.ops import build
+from sup3r_tpu_torch.ops.conv_ad import reflect_conv_ad
+
+#: output-channel counts ``csrc/small_reflect_conv.cu`` is instantiated for
+SMALL_CONV_MAX_CO = 32
+#: static shared memory a block may use without an opt-in attribute
+_SMEM_LIMIT = 48 * 1024
+
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    'small_reflect_conv_f32': [_PTR] * 4 + [_INT] * 7 + [_FLOAT, _INT, _PTR],
+    'reflect_conv_f32': [_PTR] * 4 + [_INT] * 8 + [_FLOAT, _INT, _PTR],
+}
+
+
+_FUNCTIONS = {}
+
+
+def _c_function(lib_name, fn_name):
+    """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``, built
+    and loaded at first use."""
+    fn = _FUNCTIONS.get(fn_name)
+    if fn is None:
+        fn = getattr(build.load(lib_name), fn_name)
+        fn.argtypes = _SIGNATURES[fn_name]
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[fn_name] = fn
+    return fn
+
+
+def reflect_conv_reference(x, weight, bias, alpha=None):
+    """Plain PyTorch version of both kernels: ``F.pad(mode='reflect')``,
+    ``F.conv3d`` / ``F.conv2d`` with the bias, ``F.leaky_relu``."""
+    return reflect_conv_ad(x, weight, bias, x.ndim - 2, alpha)
+
+
+def _check_args(name, x, weight, bias, n_spatial):
+    """Common validation; returns True when the kernel should launch
+    (a CUDA tensor), False for the plain version (a CPU tensor)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, weight, bias)):
+        raise NotImplementedError(
+            f'{name} is forward-only: its autograd.Function comes with '
+            'the training slice (ROADMAP queue 2). Run under '
+            'torch.inference_mode() or torch.no_grad().')
+    if x.ndim != 2 + n_spatial:
+        raise ValueError(f'{name}: expected a {2 + n_spatial}D input, got '
+                         f'shape {tuple(x.shape)}')
+    co, ci = weight.shape[:2]
+    if (tuple(weight.shape) != (co, x.shape[1]) + (3,) * n_spatial
+            or tuple(bias.shape) != (co,)):
+        raise ValueError(
+            f'{name}: weight {tuple(weight.shape)} / bias '
+            f'{tuple(bias.shape)} do not fit input {tuple(x.shape)}')
+    if x.device.type == 'cpu':
+        return False
+    if x.device.type != 'cuda':
+        raise ValueError(f'{name}: unsupported device {x.device}')
+    for t in (x, weight, bias):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(
+                f'{name}: the CUDA kernel takes float32 tensors on one '
+                f'device; got {t.dtype} on {t.device} beside x on '
+                f'{x.device}')
+    if min(x.shape[2:]) < 2:
+        raise ValueError(f'{name}: reflect padding needs every spatial dim '
+                         f'>= 2, got {tuple(x.shape[2:])}')
+    return True
+
+
+def _launch_args(x, weight, bias):
+    """Contiguous operands in the kernels' (CI, taps, CO) weight layout,
+    and the device index and stream to launch on."""
+    x = x.contiguous()
+    wt = weight.permute(1, *range(2, weight.ndim), 0).contiguous()
+    b = bias.contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return x, wt, b, x.device.index, stream
+
+
+def small_reflect_conv_cf(x, weight, bias, alpha=None):
+    """Reflect-pad-1 + k3 3D conv + bias (+LeakyReLU) for tiny channel
+    counts. x: (B, CI, H, W, T) float32; weight: (CO, CI, 3, 3, 3);
+    bias: (CO,). Returns (B, CO, H, W, T)."""
+    if not _check_args('small_reflect_conv', x, weight, bias, 3):
+        return reflect_conv_reference(x, weight, bias, alpha)
+    co, ci = weight.shape[:2]
+    if not 1 <= co <= SMALL_CONV_MAX_CO or ci * 27 * co * 4 > _SMEM_LIMIT:
+        raise ValueError(
+            f'small_reflect_conv is built for 1 <= co <= '
+            f'{SMALL_CONV_MAX_CO} with ci * co <= 455; got ci={ci}, '
+            f'co={co}')
+    fn = _c_function('small_reflect_conv', 'small_reflect_conv_f32')
+    x, wt, b, device, stream = _launch_args(x, weight, bias)
+    B, _, H, W, T = x.shape
+    y = torch.empty((B, co, H, W, T), device=x.device, dtype=x.dtype)
+    err = fn(x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
+             B, ci, H, W, T, co, alpha is not None,
+             0.0 if alpha is None else float(alpha), device, stream)
+    if err:
+        raise RuntimeError(f'small_reflect_conv launch failed: CUDA error '
+                           f'{err}')
+    small_reflect_conv_cf.launches += 1
+    return y
+
+
+small_reflect_conv_cf.launches = 0
+
+
+def reflect_conv_cf(x, weight, bias, alpha=None):
+    """Reflect-pad-1 + k3/s1 conv + bias (+LeakyReLU), 2D or 3D.
+    x: (n, ci, *spatial) float32; weight: (co, ci, 3, 3[, 3]);
+    bias: (co,). Returns (n, co, *spatial)."""
+    n_spatial = x.ndim - 2
+    if n_spatial not in (2, 3):
+        raise ValueError(f'reflect_conv: bad input rank {x.ndim}')
+    if not _check_args('reflect_conv', x, weight, bias, n_spatial):
+        return reflect_conv_reference(x, weight, bias, alpha)
+    fn = _c_function('reflect_conv', 'reflect_conv_f32')
+    x, wt, b, device, stream = _launch_args(x, weight, bias)
+    co, ci = weight.shape[:2]
+    spatial = tuple(x.shape[2:])
+    s0, s1, s2 = (1,) * (3 - n_spatial) + spatial
+    y = torch.empty((x.shape[0], co, *spatial), device=x.device,
+                    dtype=x.dtype)
+    err = fn(x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
+             n_spatial, x.shape[0], ci, co, s0, s1, s2, alpha is not None,
+             0.0 if alpha is None else float(alpha), device, stream)
+    if err:
+        raise RuntimeError(f'reflect_conv launch failed: CUDA error {err}')
+    reflect_conv_cf.launches += 1
+    return y
+
+
+reflect_conv_cf.launches = 0
+
+
+def _to_cf(x, kernel):
+    """Channels-last input and DHWIO/HWIO kernel -> channels-first input
+    and OIDHW/OIHW weight."""
+    n = kernel.ndim - 2
+    return (x.permute(0, x.ndim - 1, *range(1, x.ndim - 1)),
+            kernel.permute(n + 1, n, *range(n)))
+
+
+def _to_cl(y):
+    return y.permute(0, *range(2, y.ndim), 1)
+
+
+def small_reflect_conv(x, kernel, bias, alpha=None):
+    """JAX-signature form: x (B, H, W, T, CI), kernel (3, 3, 3, CI, CO)
+    -> (B, H, W, T, CO)."""
+    xc, w = _to_cf(x, kernel)
+    return _to_cl(small_reflect_conv_cf(xc, w, bias, alpha))
+
+
+def reflect_conv(x, kernel, bias, alpha=None):
+    """JAX-signature form: x (n, s1, s2[, t], ci), kernel
+    (3, 3[, 3], ci, co) -> (n, s1, s2[, t], co)."""
+    xc, w = _to_cf(x, kernel)
+    return _to_cl(reflect_conv_cf(xc, w, bias, alpha))

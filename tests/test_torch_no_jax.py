@@ -1,0 +1,79 @@
+"""The port stands alone: ``sup3r_tpu_torch`` imports and serves with
+jax, jaxlib, flax, optax, the JAX package, pandas, h5py and msgpack all
+unimportable, and it never drops quietly to the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from sup3r_tpu_torch.configs import generator_st
+from sup3r_tpu_torch.models import Sup3rGan
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'sup3r_tpu', 'pandas', 'h5py',
+           'msgpack')
+
+_SCRIPT = f'''
+import importlib.abc
+import sys
+
+BLOCKED = {BLOCKED!r}
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in BLOCKED:
+            raise ModuleNotFoundError(f'{{name}} is blocked')
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+from sup3r_tpu_torch.configs import generator_st
+from sup3r_tpu_torch.models import Sup3rGan
+
+model = Sup3rGan(generator_st(2, (3,), (2, 2), filters=8, n_resblocks=1),
+                 [{{'class': 'Flatten'}}, {{'class': 'Dense', 'units': 1}}],
+                 meta={{'lr_features': ['u', 'v'],
+                       'hr_out_features': ['u', 'v']}},
+                 means={{'u': 1.0, 'v': 0.0}}, stdevs={{'u': 2.0, 'v': 1.0}},
+                 device='cpu')
+lr = np.random.default_rng(0).standard_normal((1, 4, 4, 3, 2))
+out = model.generate(lr.astype(np.float32))
+assert out.shape == (1, 12, 12, 12, 2) and np.isfinite(out).all()
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not loaded, loaded
+print('SERVED', out.shape)
+'''
+
+
+def test_port_serves_with_jax_and_friends_blocked():
+    env = dict(os.environ)
+    env['PYTHONPATH'] = os.pathsep.join(
+        [ROOT] + [p for p in env.get('PYTHONPATH', '').split(os.pathsep)
+                  if p])
+    proc = subprocess.run([sys.executable, '-c', _SCRIPT], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'SERVED (1, 12, 12, 12, 2)' in proc.stdout
+
+
+def test_no_card_without_explicit_cpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    gen = generator_st(2, (3,), (2, 2), filters=8, n_resblocks=1)
+    disc = [{'class': 'Flatten'}, {'class': 'Dense', 'units': 1}]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Sup3rGan(gen, disc)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Sup3rGan(gen, disc, device='cuda:0')
+    assert Sup3rGan(gen, disc, device='cpu').device.type == 'cpu'

@@ -12,9 +12,10 @@ exits non-zero:
    ``nvidia-smi`` gives them), then every CUDA kernel built from
    ``sup3r_tpu_torch/csrc/`` (into ``build/kernels/``);
 2. each kernel against its plain PyTorch version on the card (TF32 off),
-   at the shapes the flagship's serving path gives it and at ragged
+   at every shape the flagship's serving path gives it and at ragged
    ones; tolerance max|kernel - plain| <= 1e-5 * max|plain| (fp32
-   accumulation order);
+   accumulation order; ``reflect_conv`` runs 3xTF32 on the tensor cores,
+   whose split drops ~2^-22 relative per product);
 3. the main path: the flagship ``spatiotemporal/gen_3x_4x_2f`` generator
    at full width (64 filters, 16 residual blocks, seeded random
    weights) serves 3 requests of ``Sup3rGan.generate`` on a
@@ -25,12 +26,14 @@ exits non-zero:
    max, the repository's fp32 parity bar);
 4. the opt-in kernel path (``inference_pallas=True``): 3 more requests,
    ``reflect_conv`` launching 36 times per request, output equal to
-   phase 3's within phase 2's tolerance;
+   phase 3's within the parity bar (two fp32-accurate routes through
+   37 layers);
 5. one request of each path under ``torch.profiler`` (device-busy
    time, idle share, the kernels that take the time), then the
    ``kernels`` line: each kernel's time at its main-path shape
    beside its bound on this card, its plain version's time and one
-   cuDNN convolution's time (a yardstick the port never calls).
+   cuDNN convolution's time (a yardstick the port never calls);
+   ``reflect_conv`` also at each of its four main-path shapes.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -55,10 +58,13 @@ from sup3r_tpu_torch.ops.kernels import (
 )
 from sup3r_tpu_torch.utilities import Timer, exact_fp32
 
-#: (memory bytes/s, fp32 CUDA-core FLOP/s) from NVIDIA's data sheets,
-#: by a substring of the card's name; the H100 SXM's when none matches
-PEAKS = (('H200', 4.8e12, 67e12), ('H100 NVL', 3.9e12, 60e12),
-         ('H100 PCIe', 2.0e12, 51e12), ('H100', 3.35e12, 67e12))
+#: (memory bytes/s, fp32 CUDA-core FLOP/s, dense TF32 tensor-core
+#: FLOP/s) from NVIDIA's data sheets, by a substring of the card's name;
+#: the H100 SXM's when none matches
+PEAKS = (('H200', 4.8e12, 67e12, 495e12),
+         ('H100 NVL', 3.9e12, 60e12, 417.5e12),
+         ('H100 PCIe', 2.0e12, 51e12, 378e12),
+         ('H100', 3.35e12, 67e12, 495e12))
 REPLACES = {
     'small_reflect_conv': 'sup3r_tpu/ops/pallas_kernels.py:206',
     'reflect_conv': 'sup3r_tpu/ops/pallas_kernels.py:87',
@@ -74,6 +80,12 @@ HR_SHAPE = (16, 60, 60, 96, 2)
 N_REQUESTS = 3
 #: fused blocks of the flagship that are not its 8 -> 2 tail
 N_BODY_BLOCKS = 36
+#: the flagship's fused blocks on the opt-in route: (input shape, co,
+#: LeakyReLU alpha, launches per request)
+BODY_SHAPES = (((16, 2, 20, 20, 24), 64, 0.2, 1),
+               ((16, 64, 20, 20, 48), 64, 0.2, 1),
+               ((16, 64, 20, 20, 96), 64, 0.2, 33),
+               ((16, 64, 20, 20, 96), 72, 0.2, 1))
 
 
 def emit(**record):
@@ -81,23 +93,29 @@ def emit(**record):
 
 
 def peaks(name):
-    for key, bw, flops in PEAKS:
+    for key, *rates in PEAKS:
         if key in name:
-            return bw, flops
+            return rates
     return PEAKS[-1][1:]
 
 
 def bound(name, x_shape, co, n_weights):
-    """(bound_ms, bound_by) of one reflect conv: each input read once,
-    the output written once; 2 * taps * ci FLOP per output value."""
-    bw, flops = peaks(name)
+    """(bound_ms, bound_by, peak) of one reflect conv: each input read
+    once, the output written once; 2 * taps * ci FLOP per output value.
+    The lesser of two ways to do that work in fp32 accuracy: on the
+    CUDA cores in fp32, or on the tensor cores as 3xTF32 (three times
+    the operations at the dense TF32 rate). So the bound reads the same
+    work whichever implementation runs; ``peak`` names the one that
+    binds ('fp32' or 'tf32x3')."""
+    bw, fp32, tf32 = peaks(name)
     n, ci, *spatial = x_shape
     cells = n * int(np.prod(spatial))
     nbytes = 4 * (cells * ci + cells * co + n_weights + co)
     ops = 2 * cells * co * ci * 3 ** len(spatial)
-    t_bytes, t_ops = nbytes / bw, ops / flops
-    return (1e3 * max(t_bytes, t_ops),
-            'bytes' if t_bytes >= t_ops else 'operations')
+    t_bytes = nbytes / bw
+    t, peak = min((max(t_bytes, ops / fp32), 'fp32'),
+                  (max(t_bytes, 3 * ops / tf32), 'tf32x3'))
+    return 1e3 * t, 'bytes' if t_bytes >= t else 'operations', peak
 
 
 def cuda_ms(fn, iters):
@@ -233,12 +251,16 @@ def main():
     # 2. kernel vs plain
     gen = torch.Generator(device='cuda').manual_seed(0)
     tail = conv_inputs(gen, (16, 8, 60, 60, 96), 2)
-    body = conv_inputs(gen, (16, 64, 20, 20, 96), 64)
+    body_inputs = [conv_inputs(gen, x_shape, co)
+                   for x_shape, co, _, _ in BODY_SHAPES]
+    body_errs = [check_kernel('reflect_conv', reflect_conv_cf, *inputs,
+                              alpha)
+                 for inputs, (_, _, alpha, _) in zip(body_inputs,
+                                                     BODY_SHAPES)]
     errs = {
         'small_reflect_conv': check_kernel(
             'small_reflect_conv', small_reflect_conv_cf, *tail, None),
-        'reflect_conv': check_kernel(
-            'reflect_conv', reflect_conv_cf, *body, 0.2),
+        'reflect_conv': body_errs[2],
     }
     check_kernel('small_reflect_conv', small_reflect_conv_cf,
                  *conv_inputs(gen, (2, 4, 7, 5, 9), 5), 0.2)
@@ -300,7 +322,7 @@ def main():
             f'{small_reflect_conv_cf.launches}; expected '
             f'{N_BODY_BLOCKS * N_REQUESTS} and {N_REQUESTS}')
     err = float(np.abs(out_k - out).max())
-    tol = KERNEL_RTOL * float(np.abs(out).max())
+    tol = PARITY_RTOL * float(np.abs(out).max())
     emit(phase='kernel_path', inference_pallas=True, requests=N_REQUESTS,
          request_ms=times_k, hr_voxels_per_s=hr_voxels / (
              float(np.median(times_k)) / 1e3),
@@ -317,30 +339,41 @@ def main():
              device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
              conv_gflop=flops / 1e9,
              conv_fp32_bound_ms=1e3 * flops / peaks(name)[1],
+             conv_tf32x3_bound_ms=1e3 * 3 * flops / peaks(name)[2],
              top_device=top)
     del model, out, out_k
 
     # 5. the kernels line, at the main-path shapes
-    kernels = []
-    for kname, fn, (x, w, b), alpha in (
-            ('small_reflect_conv', small_reflect_conv_cf, tail, None),
-            ('reflect_conv', reflect_conv_cf, body, 0.2)):
+    def timing(fn, x, w, b, alpha):
         with torch.inference_mode(), exact_fp32():
             ms = cuda_ms(lambda: fn(x, w, b, alpha), 20)
             plain_ms = cuda_ms(
                 lambda: reflect_conv_reference(x, w, b, alpha), 20)
             xp = F.pad(x, (1,) * 6, mode='reflect')
             library_ms = cuda_ms(lambda: F.conv3d(xp, w, b), 20)
-        bound_ms, bound_by = bound(name, tuple(x.shape), w.shape[0],
-                                   w.numel())
-        kernels.append({
-            'name': kname, 'route': 'cuda', 'source': SOURCES[kname],
-            'replaces': REPLACES[kname], 'launches': launches[kname],
-            'launches_per_request': launches[kname] // N_REQUESTS,
-            'shape': list(x.shape), 'co': w.shape[0],
-            'max_abs_err': errs[kname], 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by,
-            'library_ms': library_ms})
+        bound_ms, bound_by, peak = bound(name, tuple(x.shape), w.shape[0],
+                                         w.numel())
+        return {'shape': list(x.shape), 'co': w.shape[0], 'alpha': alpha,
+                'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                'bound_by': bound_by, 'bound_peak': peak,
+                'library_ms': library_ms}
+
+    body_times = [timing(reflect_conv_cf, *inputs, alpha)
+                  for inputs, (_, _, alpha, _) in zip(body_inputs,
+                                                      BODY_SHAPES)]
+    shapes = [dict(t, launches_per_request=shape[3], max_abs_err=err)
+              for t, shape, err in zip(body_times, BODY_SHAPES, body_errs)]
+
+    def record(kname, times, **extra):
+        return {'name': kname, 'route': 'cuda', 'source': SOURCES[kname],
+                'replaces': REPLACES[kname], 'launches': launches[kname],
+                'launches_per_request': launches[kname] // N_REQUESTS,
+                'max_abs_err': errs[kname], **times, **extra}
+
+    kernels = [record('small_reflect_conv',
+                      timing(small_reflect_conv_cf, *tail, None)),
+               record('reflect_conv', body_times[2],
+                      main_path_shapes=shapes)]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

@@ -13,11 +13,15 @@ convolution, the bias and an optional LeakyReLU.
   and the halo done by index math streams the input from device memory
   once.
 - ``reflect_conv_cf`` (``csrc/reflect_conv.cu``) replaces
-  ``sup3r_tpu/ops/pallas_kernels.py::reflect_conv``, in 2D and 3D.
-  Bound by fp32 operations on the card (~2 ms per flagship body conv
-  on an H100 SXM); a shared-memory tiled direct convolution whose
-  threads each keep 8 cells x 8 channels of fp32 FMA accumulators in
-  registers (no TF32).
+  ``sup3r_tpu/ops/pallas_kernels.py::reflect_conv``, in 2D and 3D: an
+  implicit GEMM on the tensor cores (``wgmma``) in 3xTF32, fed by a
+  cp.async / mbarrier ring. Each operand splits into a TF32 ``hi`` and
+  ``lo`` (``split_tf32``); lo*hi + hi*lo + hi*hi keeps fp32-class
+  accuracy (the dropped lo*lo is ~2^-22 relative), not bit equality
+  with cuDNN. Bound by operations: ~0.82 ms per flagship body conv at
+  an H100 SXM's dense TF32 rate, against ~2.0 ms for fp32 on the CUDA
+  cores. The wrapper splits and lays out the weights once per launch
+  (``pack_weights``).
 
 The source files carry each kernel's bound and design in full.
 
@@ -33,6 +37,7 @@ layouts.
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from sup3r_tpu_torch.ops import build
 from sup3r_tpu_torch.ops.conv_ad import reflect_conv_ad
@@ -41,11 +46,15 @@ from sup3r_tpu_torch.ops.conv_ad import reflect_conv_ad
 SMALL_CONV_MAX_CO = 32
 #: static shared memory a block may use without an opt-in attribute
 _SMEM_LIMIT = 48 * 1024
+#: output-channel tiles ``csrc/reflect_conv.cu`` is instantiated for
+REFLECT_CONV_N_TILES = (32, 64, 72, 128)
+#: input channels per K-step of ``csrc/reflect_conv.cu`` (tf32 wgmma k8)
+REFLECT_CONV_K_STEP = 8
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     'small_reflect_conv_f32': [_PTR] * 4 + [_INT] * 7 + [_FLOAT, _INT, _PTR],
-    'reflect_conv_f32': [_PTR] * 4 + [_INT] * 8 + [_FLOAT, _INT, _PTR],
+    'reflect_conv_tf32x3': [_PTR] * 4 + [_INT] * 9 + [_FLOAT, _INT, _PTR],
 }
 
 
@@ -104,14 +113,11 @@ def _check_args(name, x, weight, bias, n_spatial):
     return True
 
 
-def _launch_args(x, weight, bias):
-    """Contiguous operands in the kernels' (CI, taps, CO) weight layout,
-    and the device index and stream to launch on."""
-    x = x.contiguous()
-    wt = weight.permute(1, *range(2, weight.ndim), 0).contiguous()
-    b = bias.contiguous()
+def _launch_args(x, bias):
+    """Contiguous input and bias, and the device index and stream to
+    launch on."""
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    return x, wt, b, x.device.index, stream
+    return x.contiguous(), bias.contiguous(), x.device.index, stream
 
 
 def small_reflect_conv_cf(x, weight, bias, alpha=None):
@@ -127,7 +133,9 @@ def small_reflect_conv_cf(x, weight, bias, alpha=None):
             f'{SMALL_CONV_MAX_CO} with ci * co <= 455; got ci={ci}, '
             f'co={co}')
     fn = _c_function('small_reflect_conv', 'small_reflect_conv_f32')
-    x, wt, b, device, stream = _launch_args(x, weight, bias)
+    x, b, device, stream = _launch_args(x, bias)
+    # the kernel's (CI, taps, CO) weight layout
+    wt = weight.permute(1, *range(2, weight.ndim), 0).contiguous()
     B, _, H, W, T = x.shape
     y = torch.empty((B, co, H, W, T), device=x.device, dtype=x.dtype)
     err = fn(x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
@@ -143,6 +151,44 @@ def small_reflect_conv_cf(x, weight, bias, alpha=None):
 small_reflect_conv_cf.launches = 0
 
 
+def split_tf32(v):
+    """``(hi, lo)`` of a float32 tensor: ``hi = tf32(v)`` rounded to
+    nearest, ties away from zero (PTX ``cvt.rna.tf32.f32``: the low 13
+    mantissa bits cleared), and ``lo = tf32(v - hi)``. ``hi + lo``
+    rebuilds ``v`` to about 2^-22 relative."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
+def reflect_conv_n_tile(co):
+    """Output-channel tile ``csrc/reflect_conv.cu`` runs ``co`` channels
+    in: the smallest instantiated tile that holds them, else tiles of
+    the largest."""
+    return next((n for n in REFLECT_CONV_N_TILES if co <= n),
+                REFLECT_CONV_N_TILES[-1])
+
+
+def pack_weights(weight, n_tile):
+    """OI.. weight (co, ci, [3,] 3, 3) -> the kernel's order (co tiles,
+    ci chunks, k0, 9 taps, hi/lo, 2 k-halves, n_tile, 4): K-major TF32
+    halves, zero-padded to whole tiles and chunks of
+    ``REFLECT_CONV_K_STEP`` channels."""
+    co, ci = weight.shape[:2]
+    k0 = 3 if weight.ndim == 5 else 1
+    n_tiles = -(-co // n_tile)
+    chunks = -(-ci // REFLECT_CONV_K_STEP)
+    w = F.pad(weight.reshape(co, ci, k0, 9),
+              (0, 0, 0, 0, 0, chunks * REFLECT_CONV_K_STEP - ci,
+               0, n_tiles * n_tile - co))
+    w = torch.stack(split_tf32(w)).view(
+        2, n_tiles, n_tile, chunks, 2, REFLECT_CONV_K_STEP // 2, k0, 9)
+    return w.permute(1, 3, 6, 7, 0, 4, 2, 5).contiguous()
+
+
 def reflect_conv_cf(x, weight, bias, alpha=None):
     """Reflect-pad-1 + k3/s1 conv + bias (+LeakyReLU), 2D or 3D.
     x: (n, ci, *spatial) float32; weight: (co, ci, 3, 3[, 3]);
@@ -152,16 +198,19 @@ def reflect_conv_cf(x, weight, bias, alpha=None):
         raise ValueError(f'reflect_conv: bad input rank {x.ndim}')
     if not _check_args('reflect_conv', x, weight, bias, n_spatial):
         return reflect_conv_reference(x, weight, bias, alpha)
-    fn = _c_function('reflect_conv', 'reflect_conv_f32')
-    x, wt, b, device, stream = _launch_args(x, weight, bias)
+    fn = _c_function('reflect_conv', 'reflect_conv_tf32x3')
+    x, b, device, stream = _launch_args(x, bias)
     co, ci = weight.shape[:2]
+    n_tile = reflect_conv_n_tile(co)
+    wp = pack_weights(weight, n_tile)
     spatial = tuple(x.shape[2:])
     s0, s1, s2 = (1,) * (3 - n_spatial) + spatial
     y = torch.empty((x.shape[0], co, *spatial), device=x.device,
                     dtype=x.dtype)
-    err = fn(x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
-             n_spatial, x.shape[0], ci, co, s0, s1, s2, alpha is not None,
-             0.0 if alpha is None else float(alpha), device, stream)
+    err = fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
+             n_spatial, x.shape[0], ci, co, s0, s1, s2, n_tile,
+             alpha is not None, 0.0 if alpha is None else float(alpha),
+             device, stream)
     if err:
         raise RuntimeError(f'reflect_conv launch failed: CUDA error {err}')
     reflect_conv_cf.launches += 1

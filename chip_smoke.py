@@ -15,7 +15,9 @@ exits non-zero:
    at every shape the flagship's serving path gives it and at ragged
    ones; tolerance max|kernel - plain| <= 1e-5 * max|plain| (fp32
    accumulation order; ``reflect_conv`` runs 3xTF32 on the tensor cores,
-   whose split drops ~2^-22 relative per product);
+   whose split drops ~2^-22 relative per product). ``small_reflect_conv``
+   also at the shipped 8 -> 1 and 8 -> 3 tails and at the edges of its
+   tiling (``SMALL_CHECKS``);
 3. the main path: the flagship ``spatiotemporal/gen_3x_4x_2f`` generator
    at full width (64 filters, 16 residual blocks, seeded random
    weights) serves 3 requests of ``Sup3rGan.generate`` on a
@@ -32,8 +34,15 @@ exits non-zero:
    time, idle share, the kernels that take the time), then the
    ``kernels`` line: each kernel's time at its main-path shape
    beside its bound on this card, its plain version's time and one
-   cuDNN convolution's time (a yardstick the port never calls);
-   ``reflect_conv`` also at each of its four main-path shapes.
+   cuDNN convolution's time (a yardstick the port never calls).
+   ``ms`` times the wrapper (CUDA events, weight packing and launch
+   included), ``launch_ms`` the launch alone on weights packed once
+   (CUDA events), ``kernel_ms`` the kernel alone (torch.profiler device
+   events of its name; ``launch_ms``, and ``kernel_ms_by`` says
+   ``cuda_events``, where three profiler sessions lost launches),
+   ``share_of_bound`` is bound_ms / kernel_ms.
+   ``reflect_conv`` also at each of its four main-path shapes,
+   ``small_reflect_conv`` at the 8 -> 1, 2 and 3 tails.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -52,9 +61,14 @@ from sup3r_tpu_torch.models import Sup3rGan
 from sup3r_tpu_torch.models.fuse import FusedReflectConv
 from sup3r_tpu_torch.ops import build
 from sup3r_tpu_torch.ops.kernels import (
+    pack_weights,
     reflect_conv_cf,
+    reflect_conv_n_tile,
+    reflect_conv_packed,
     reflect_conv_reference,
+    small_conv_pack_weights,
     small_reflect_conv_cf,
+    small_reflect_conv_packed,
 )
 from sup3r_tpu_torch.utilities import Timer, exact_fp32
 
@@ -73,6 +87,11 @@ SOURCES = {
     'small_reflect_conv': 'sup3r_tpu_torch/csrc/small_reflect_conv.cu',
     'reflect_conv': 'sup3r_tpu_torch/csrc/reflect_conv.cu',
 }
+#: each kernel's CUDA function name (held by its device events)
+KERNEL_NAMES = {
+    'small_reflect_conv': 'small_reflect_conv_kernel',
+    'reflect_conv': 'reflect_conv_tc_kernel',
+}
 KERNEL_RTOL = 1e-5
 PARITY_RTOL = 1e-4
 LR_SHAPE = (16, 20, 20, 24, 2)
@@ -86,6 +105,23 @@ BODY_SHAPES = (((16, 2, 20, 20, 24), 64, 0.2, 1),
                ((16, 64, 20, 20, 48), 64, 0.2, 1),
                ((16, 64, 20, 20, 96), 64, 0.2, 33),
                ((16, 64, 20, 20, 96), 72, 0.2, 1))
+#: the HR tail's input; the flagship's tail goes to 2 channels, the
+#: shipped gen_3x_4x_1f's to 1, gen_4x_24x_3f's to 3
+TAIL_SHAPE = (16, 8, 60, 60, 96)
+#: ``small_reflect_conv`` checks beyond the three tails without
+#: LeakyReLU: (x shape, co, alpha). The kernel tiles (h, w, t) by (6, 10,
+#: 32) at co <= 2 (4 and 2 rows at co = 3, 4), 4 t per thread, tensor
+#: copies only for T % 4 == 0
+SMALL_CHECKS = (
+    (TAIL_SHAPE, 2, 0.2), (TAIL_SHAPE, 1, 0.2), (TAIL_SHAPE, 3, 0.2),
+    ((2, 8, 12, 10, 33), 2, 0.2),    # T = 33: no tensor copies, ragged t
+    ((2, 8, 2, 2, 40), 2, None),     # H = W = 2, the smallest that reflects
+    ((1, 8, 20, 30, 64), 3, 0.2),    # B = 1
+    ((2, 1, 13, 11, 40), 32, None),  # ci = 1, co = 32: eight groups
+    ((2, 32, 13, 11, 40), 1, 0.2),   # ci = 32, co = 1
+    ((2, 8, 13, 17, 64), 2, None),   # (H, W) the tile does not divide
+    ((2, 4, 7, 5, 9), 5, 0.2),       # ragged everywhere, ci * co = 20
+)
 
 
 def emit(**record):
@@ -131,6 +167,35 @@ def cuda_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, kname, iters, attempts=3):
+    """Device time of one launch of kernel ``kname`` alone, without the
+    wrapper's host work and weight packing: the mean of its own device
+    events under ``torch.profiler`` over ``iters`` calls of ``fn``
+    (after one warm-up call). The profiler can lose a session's device
+    events; None after ``attempts`` sessions that miss a launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(attempts):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and KERNEL_NAMES[kname] in e.key]
+        launches = sum(e.count for e in events)
+        total = sum(e.self_device_time_total for e in events)
+        if launches == iters and total > 0:
+            return total / 1e3 / iters
+        print(f'{kname}: profiler session {attempt + 1} saw {launches} '
+              f'launches of {iters}', file=sys.stderr, flush=True)
+    return None
 
 
 def conv_inputs(gen, x_shape, co, scale=1.0):
@@ -250,20 +315,22 @@ def main():
 
     # 2. kernel vs plain
     gen = torch.Generator(device='cuda').manual_seed(0)
-    tail = conv_inputs(gen, (16, 8, 60, 60, 96), 2)
+    tails = {co: conv_inputs(gen, TAIL_SHAPE, co) for co in (2, 1, 3)}
     body_inputs = [conv_inputs(gen, x_shape, co)
                    for x_shape, co, _, _ in BODY_SHAPES]
     body_errs = [check_kernel('reflect_conv', reflect_conv_cf, *inputs,
                               alpha)
                  for inputs, (_, _, alpha, _) in zip(body_inputs,
                                                      BODY_SHAPES)]
-    errs = {
-        'small_reflect_conv': check_kernel(
-            'small_reflect_conv', small_reflect_conv_cf, *tail, None),
-        'reflect_conv': body_errs[2],
-    }
-    check_kernel('small_reflect_conv', small_reflect_conv_cf,
-                 *conv_inputs(gen, (2, 4, 7, 5, 9), 5), 0.2)
+    tail_errs = {co: check_kernel('small_reflect_conv',
+                                  small_reflect_conv_cf, *inputs, None)
+                 for co, inputs in tails.items()}
+    errs = {'small_reflect_conv': tail_errs[2], 'reflect_conv': body_errs[2]}
+    for x_shape, co, alpha in SMALL_CHECKS:
+        inputs = (tails[co] if x_shape == TAIL_SHAPE
+                  else conv_inputs(gen, x_shape, co))
+        check_kernel('small_reflect_conv', small_reflect_conv_cf, *inputs,
+                     alpha)
     check_kernel('reflect_conv', reflect_conv_cf,
                  *conv_inputs(gen, (16, 64, 60, 60), 64), None)
     check_kernel('reflect_conv', reflect_conv_cf,
@@ -344,9 +411,27 @@ def main():
     del model, out, out_k
 
     # 5. the kernels line, at the main-path shapes
-    def timing(fn, x, w, b, alpha):
+    def timing(kname, fn, x, w, b, alpha):
+        co = w.shape[0]
         with torch.inference_mode(), exact_fp32():
             ms = cuda_ms(lambda: fn(x, w, b, alpha), 20)
+            if kname == 'small_reflect_conv':
+                packed = small_conv_pack_weights(w)
+
+                def bare():
+                    small_reflect_conv_packed(x, packed, b, co, alpha)
+            else:
+                n_tile = reflect_conv_n_tile(co)
+                packed = pack_weights(w, n_tile)
+
+                def bare():
+                    reflect_conv_packed(x, packed, b, co, n_tile, alpha)
+            launch_ms = cuda_ms(bare, 20)
+            kernel_ms = kernel_device_ms(lambda: fn(x, w, b, alpha), kname,
+                                         20)
+            kernel_ms_by = 'profiler'
+            if kernel_ms is None:
+                kernel_ms, kernel_ms_by = launch_ms, 'cuda_events'
             plain_ms = cuda_ms(
                 lambda: reflect_conv_reference(x, w, b, alpha), 20)
             xp = F.pad(x, (1,) * 6, mode='reflect')
@@ -354,11 +439,13 @@ def main():
         bound_ms, bound_by, peak = bound(name, tuple(x.shape), w.shape[0],
                                          w.numel())
         return {'shape': list(x.shape), 'co': w.shape[0], 'alpha': alpha,
-                'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-                'bound_by': bound_by, 'bound_peak': peak,
+                'ms': ms, 'launch_ms': launch_ms, 'kernel_ms': kernel_ms,
+                'kernel_ms_by': kernel_ms_by, 'plain_ms': plain_ms,
+                'bound_ms': bound_ms, 'bound_by': bound_by,
+                'bound_peak': peak, 'share_of_bound': bound_ms / kernel_ms,
                 'library_ms': library_ms}
 
-    body_times = [timing(reflect_conv_cf, *inputs, alpha)
+    body_times = [timing('reflect_conv', reflect_conv_cf, *inputs, alpha)
                   for inputs, (_, _, alpha, _) in zip(body_inputs,
                                                       BODY_SHAPES)]
     shapes = [dict(t, launches_per_request=shape[3], max_abs_err=err)
@@ -370,8 +457,12 @@ def main():
                 'launches_per_request': launches[kname] // N_REQUESTS,
                 'max_abs_err': errs[kname], **times, **extra}
 
-    kernels = [record('small_reflect_conv',
-                      timing(small_reflect_conv_cf, *tail, None)),
+    tail_times = {co: dict(timing('small_reflect_conv',
+                                  small_reflect_conv_cf, *inputs, None),
+                           max_abs_err=tail_errs[co])
+                  for co, inputs in tails.items()}
+    kernels = [record('small_reflect_conv', tail_times[2],
+                      tails=list(tail_times.values())),
                record('reflect_conv', body_times[2],
                       main_path_shapes=shapes)]
     print(json.dumps({'kernels': kernels}), flush=True)

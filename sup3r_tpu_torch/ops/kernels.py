@@ -9,9 +9,10 @@ convolution, the bias and an optional LeakyReLU.
   ``small_reflect_conv``), for 3D convs with ``ci * co <= 32``: the
   flagship generator's HR 8 -> 2 tail. On an H100 SXM its bytes and
   its fp32 operations bound it alike (~0.07 ms at the flagship tail);
-  one thread per output voxel with the CO accumulators in registers
-  and the halo done by index math streams the input from device memory
-  once.
+  each block stages its input window in shared memory one channel at a
+  time (one tensor copy each), and each thread keeps a register
+  block of outputs for up to 4 output channels. The wrapper lays out
+  the weights per launch (``small_conv_pack_weights``).
 - ``reflect_conv_cf`` (``csrc/reflect_conv.cu``) replaces
   ``sup3r_tpu/ops/pallas_kernels.py::reflect_conv``, in 2D and 3D: an
   implicit GEMM on the tensor cores (``wgmma``) in 3xTF32, fed by a
@@ -42,10 +43,13 @@ import torch.nn.functional as F
 from sup3r_tpu_torch.ops import build
 from sup3r_tpu_torch.ops.conv_ad import reflect_conv_ad
 
-#: output-channel counts ``csrc/small_reflect_conv.cu`` is instantiated for
+#: output channels ``small_reflect_conv_cf`` takes
 SMALL_CONV_MAX_CO = 32
-#: static shared memory a block may use without an opt-in attribute
-_SMEM_LIMIT = 48 * 1024
+#: largest ci * co it takes; the network's gate is ci * co <= 32
+SMALL_CONV_MAX_CI_CO = 455
+#: output channels per block of ``csrc/small_reflect_conv.cu``; a larger
+#: co runs in groups of this many
+SMALL_CONV_CO_TILE = 4
 #: output-channel tiles ``csrc/reflect_conv.cu`` is instantiated for
 REFLECT_CONV_N_TILES = (32, 64, 72, 128)
 #: input channels per K-step of ``csrc/reflect_conv.cu`` (tf32 wgmma k8)
@@ -120,6 +124,20 @@ def _launch_args(x, bias):
     return x.contiguous(), bias.contiguous(), x.device.index, stream
 
 
+def small_conv_pack_weights(weight):
+    """OIDHW weight (co, ci, 3, 3, 3) -> the small kernel's order
+    (co groups, ci, 9 (dh, dw), g): per (dh, dw), the 3 dt taps times
+    ``cot = min(co, SMALL_CONV_CO_TILE)`` channels of a group, zero-padded
+    to ``g``, the next multiple of 4 floats."""
+    co, ci = weight.shape[:2]
+    cot = min(co, SMALL_CONV_CO_TILE)
+    groups = -(-co // cot)
+    w = F.pad(weight, (0,) * 8 + (0, groups * cot - co))
+    w = w.reshape(groups, cot, ci, 9, 3).permute(0, 2, 3, 4, 1)
+    w = w.reshape(groups, ci, 9, 3 * cot)
+    return F.pad(w, (0, -(-3 * cot // 4) * 4 - 3 * cot)).contiguous()
+
+
 def small_reflect_conv_cf(x, weight, bias, alpha=None):
     """Reflect-pad-1 + k3 3D conv + bias (+LeakyReLU) for tiny channel
     counts. x: (B, CI, H, W, T) float32; weight: (CO, CI, 3, 3, 3);
@@ -127,18 +145,26 @@ def small_reflect_conv_cf(x, weight, bias, alpha=None):
     if not _check_args('small_reflect_conv', x, weight, bias, 3):
         return reflect_conv_reference(x, weight, bias, alpha)
     co, ci = weight.shape[:2]
-    if not 1 <= co <= SMALL_CONV_MAX_CO or ci * 27 * co * 4 > _SMEM_LIMIT:
+    if not 1 <= co <= SMALL_CONV_MAX_CO or ci * co > SMALL_CONV_MAX_CI_CO:
         raise ValueError(
             f'small_reflect_conv is built for 1 <= co <= '
-            f'{SMALL_CONV_MAX_CO} with ci * co <= 455; got ci={ci}, '
-            f'co={co}')
+            f'{SMALL_CONV_MAX_CO} with ci * co <= {SMALL_CONV_MAX_CI_CO}; '
+            f'got ci={ci}, co={co}')
+    return small_reflect_conv_packed(x, small_conv_pack_weights(weight),
+                                     bias, co, alpha)
+
+
+small_reflect_conv_cf.launches = 0
+
+
+def small_reflect_conv_packed(x, packed, bias, co, alpha=None):
+    """The launch of ``small_reflect_conv_cf`` alone, on a CUDA input it
+    has checked and weights laid out by ``small_conv_pack_weights``."""
     fn = _c_function('small_reflect_conv', 'small_reflect_conv_f32')
     x, b, device, stream = _launch_args(x, bias)
-    # the kernel's (CI, taps, CO) weight layout
-    wt = weight.permute(1, *range(2, weight.ndim), 0).contiguous()
-    B, _, H, W, T = x.shape
+    B, ci, H, W, T = x.shape
     y = torch.empty((B, co, H, W, T), device=x.device, dtype=x.dtype)
-    err = fn(x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
+    err = fn(x.data_ptr(), packed.data_ptr(), b.data_ptr(), y.data_ptr(),
              B, ci, H, W, T, co, alpha is not None,
              0.0 if alpha is None else float(alpha), device, stream)
     if err:
@@ -146,9 +172,6 @@ def small_reflect_conv_cf(x, weight, bias, alpha=None):
                            f'{err}')
     small_reflect_conv_cf.launches += 1
     return y
-
-
-small_reflect_conv_cf.launches = 0
 
 
 def split_tf32(v):
@@ -198,26 +221,33 @@ def reflect_conv_cf(x, weight, bias, alpha=None):
         raise ValueError(f'reflect_conv: bad input rank {x.ndim}')
     if not _check_args('reflect_conv', x, weight, bias, n_spatial):
         return reflect_conv_reference(x, weight, bias, alpha)
+    co = weight.shape[0]
+    n_tile = reflect_conv_n_tile(co)
+    return reflect_conv_packed(x, pack_weights(weight, n_tile), bias, co,
+                               n_tile, alpha)
+
+
+reflect_conv_cf.launches = 0
+
+
+def reflect_conv_packed(x, packed, bias, co, n_tile, alpha=None):
+    """The launch of ``reflect_conv_cf`` alone, on a CUDA input it has
+    checked and weights laid out by ``pack_weights(weight, n_tile)``."""
     fn = _c_function('reflect_conv', 'reflect_conv_tf32x3')
     x, b, device, stream = _launch_args(x, bias)
-    co, ci = weight.shape[:2]
-    n_tile = reflect_conv_n_tile(co)
-    wp = pack_weights(weight, n_tile)
+    n_spatial = x.ndim - 2
     spatial = tuple(x.shape[2:])
     s0, s1, s2 = (1,) * (3 - n_spatial) + spatial
     y = torch.empty((x.shape[0], co, *spatial), device=x.device,
                     dtype=x.dtype)
-    err = fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
-             n_spatial, x.shape[0], ci, co, s0, s1, s2, n_tile,
+    err = fn(x.data_ptr(), packed.data_ptr(), b.data_ptr(), y.data_ptr(),
+             n_spatial, x.shape[0], x.shape[1], co, s0, s1, s2, n_tile,
              alpha is not None, 0.0 if alpha is None else float(alpha),
              device, stream)
     if err:
         raise RuntimeError(f'reflect_conv launch failed: CUDA error {err}')
     reflect_conv_cf.launches += 1
     return y
-
-
-reflect_conv_cf.launches = 0
 
 
 def _to_cf(x, kernel):

@@ -43,13 +43,31 @@ exits non-zero:
    ``share_of_bound`` is bound_ms / kernel_ms.
    ``reflect_conv`` also at each of its four main-path shapes,
    ``small_reflect_conv`` at the 8 -> 1, 2 and 3 tails.
+6. the chunked forward pass (printed before the ``kernels`` line): a
+   NetCDF3 input of (64, 64, 40) low-res cells written with the port's
+   helper, the full-width flagship saved and loaded through
+   ``ForwardPassStrategy`` (chunks of (16, 16, 20), pads 2, so 32 chunks
+   of (20, 20, 24) padded in 2 device batches of 16), ``ForwardPass.run``
+   to NetCDF output: one warm-up pass, then 3 timed passes on each route
+   (wall seconds, HR voxels/s, the prep / dispatch / drain split, the
+   fetched MB, the kernels' launches: ``small_reflect_conv`` once per
+   dispatch, ``reflect_conv`` 36 times per dispatch on the opt-in route
+   only). Every output file is read back (finite, the full (192, 192,
+   160) domain tiled); on a small domain the card's per-chunk outputs
+   equal the port's CPU forward pass and the batched ones the serial
+   ones (the parity bar); one dispatched batch's device pack agrees
+   with the host transform within one storage quantum and its stats
+   with ``_output_check``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -60,6 +78,18 @@ from sup3r_tpu_torch.configs import get_config
 from sup3r_tpu_torch.models import Sup3rGan
 from sup3r_tpu_torch.models.fuse import FusedReflectConv
 from sup3r_tpu_torch.ops import build
+from sup3r_tpu_torch.ops.output_pack import (
+    fetch_stats,
+    pack_chunks,
+    pack_plan,
+    theta_for,
+)
+from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
+from sup3r_tpu_torch.postprocessing import OutputHandlerH5, OutputHandlerNC
+from sup3r_tpu_torch.postprocessing.writers import write_nc_file
+from sup3r_tpu_torch.preprocessing import LoaderNC
+from sup3r_tpu_torch.utilities import get_dset_attrs
+from sup3r_tpu_torch.utilities.test_helpers import make_fake_nc_file
 from sup3r_tpu_torch.ops.kernels import (
     pack_weights,
     reflect_conv_cf,
@@ -295,6 +325,295 @@ def profile_request(model, lr):
     return wall_ms, busy_ms, top, sum(flops)
 
 
+#: the forward-pass phase: low-res domain (s1, s2, t), chunk shape, pads,
+#: device batch and timed passes per route
+FWP_DOMAIN = (64, 64, 40)
+FWP_CHUNK = (16, 16, 20)
+FWP_PAD = 2
+FWP_BATCH = 16
+N_FWP_PASSES = 3
+FWP_FEATURES = ['u_100m', 'v_100m']
+
+
+class RecordedForwardPass(ForwardPass):
+    """``ForwardPass`` that keeps its last instance, so a run through the
+    ``ForwardPass.run`` entry point can report its timer and stats."""
+
+    last = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        type(self).last = self
+
+
+def fwp_strategy(input_file, model_dir, out_pattern, device='cuda',
+                 **kwargs):
+    kw = dict(file_paths=input_file,
+              model_kwargs={'model_dir': model_dir, 'device': device},
+              fwp_chunk_shape=FWP_CHUNK, spatial_pad=FWP_PAD,
+              temporal_pad=FWP_PAD, device_batch_size=FWP_BATCH,
+              out_pattern=out_pattern)
+    kw.update(kwargs)
+    return ForwardPassStrategy(**kw)
+
+
+def check_fwp_files(strategy, out_dir):
+    """Read every chunk file back through ``LoaderNC`` and tile the
+    high-res domain; it must be finite and complete."""
+    slicer, s_en, t_en = (strategy.fwp_slicer, strategy.s_enhance,
+                          strategy.t_enhance)
+    shape = (FWP_DOMAIN[0] * s_en, FWP_DOMAIN[1] * s_en,
+             FWP_DOMAIN[2] * t_en, len(FWP_FEATURES))
+    full = np.full(shape, np.nan, np.float32)
+    for idx, path in enumerate(strategy.out_files):
+        if not os.path.exists(path):
+            raise AssertionError(f'forward pass: {path} was not written')
+        data = LoaderNC(path).data
+        s_idx, t_idx = slicer.get_chunk_indices(idx)
+        s_hr = slicer.s_hr_slices[s_idx]
+        t_lr = slicer.t_lr_slices[t_idx]
+        full[s_hr[0], s_hr[1], t_lr.start * t_en:t_lr.stop * t_en] = \
+            np.stack([data[f] for f in FWP_FEATURES], axis=-1)
+    if not np.isfinite(full).all():
+        raise AssertionError('forward pass: the stitched output is not '
+                             f'finite and complete at {shape}')
+    shutil.rmtree(out_dir)
+    return list(shape[:-1])
+
+
+def check_fwp_launches(route, launches, n_dispatch):
+    """``small_reflect_conv`` once per dispatch on both routes,
+    ``reflect_conv`` 36 times per dispatch on the opt-in route only."""
+    want = {'small_reflect_conv': n_dispatch,
+            'reflect_conv': (N_BODY_BLOCKS * n_dispatch
+                             if route == 'opt_in' else 0)}
+    if launches != want:
+        raise AssertionError(f'forward pass ({route}): launches '
+                             f'{launches}, expected {want}')
+
+
+def fwp_pass(input_file, model_dir, out_dir, route, index):
+    """One timed ``ForwardPass.run`` to NetCDF chunk files; the wall
+    time includes planning (input read, strategy) and every drain."""
+    small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strategy = fwp_strategy(input_file, model_dir,
+                            os.path.join(out_dir, 'chunk_{file_id}.nc'))
+    plan_s = time.perf_counter() - t0
+    RecordedForwardPass.run(strategy, 0)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {'small_reflect_conv': small_reflect_conv_cf.launches,
+                'reflect_conv': reflect_conv_cf.launches}
+    fwp = RecordedForwardPass.last
+    n_dispatch = -(-strategy.fwp_slicer.n_chunks // FWP_BATCH)
+    check_fwp_launches(route, launches, n_dispatch)
+    hr_shape = check_fwp_files(strategy, out_dir)
+    hr_voxels = int(np.prod(hr_shape))
+    emit(phase='forward_pass', route=route, pass_index=index,
+         chunks=strategy.fwp_slicer.n_chunks, dispatches=n_dispatch,
+         hr_shape=hr_shape, wall_s=wall_s, plan_s=plan_s,
+         hr_voxels_per_s=hr_voxels / wall_s, timer_s=fwp.timer.log,
+         stats=fwp.stats, launches=launches)
+    return wall_s, launches
+
+
+def fwp_profiled_pass(input_file, model_dir, out_dir, route):
+    """One more pass under ``torch.profiler``: the device-busy time
+    (the sum of the device events of kernels and copies, on all streams)
+    against the wall time, so the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ForwardPass.run(fwp_strategy(
+            input_file, model_dir,
+            os.path.join(out_dir, 'chunk_{file_id}.nc')), 0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    shutil.rmtree(out_dir)
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    emit(phase='forward_pass_profile', route=route, wall_ms=wall_ms,
+         device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+         top_device=[{'name': e.key[:90], 'calls': e.count,
+                      'device_ms': e.self_device_time_total / 1e3}
+                     for e in events[:6]])
+
+
+def fwp_drain_breakdown(input_file, model_dir, tmp, repeats=10):
+    """Host cost of the drain's stages for one chunk of this run's
+    output shape (ms per chunk, host clock): the output check, the
+    NetCDF writer's transform (limits; u/v kept) and its file write."""
+    strategy = fwp_strategy(input_file, model_dir, None)
+    chunk = strategy.init_chunk(0)
+    s1, s2 = chunk.hr_lat_lon.shape[:2]
+    data = (np.random.default_rng(3).standard_normal(
+        (s1, s2, len(chunk.hr_times), len(FWP_FEATURES))) * 0.3
+        + 0.5).astype(np.float32)
+    out_file = os.path.join(tmp, 'breakdown.nc')
+    stages = {
+        'output_check': lambda: ForwardPass._output_check(data),
+        'transform': lambda: OutputHandlerNC._transform_output(
+            data.copy(), list(FWP_FEATURES), chunk.hr_lat_lon,
+            invert_uv=False),
+        'nc_write': lambda: write_nc_file(
+            out_file, chunk.hr_times, chunk.hr_lat_lon[..., 0],
+            chunk.hr_lat_lon[..., 1],
+            {f: np.transpose(data[..., i], (2, 0, 1))
+             for i, f in enumerate(FWP_FEATURES)}, meta_attr='{}'),
+    }
+    ms = {}
+    for stage, fn in stages.items():
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            fn()
+        ms[stage] = 1e3 * (time.perf_counter() - t0) / repeats
+    emit(phase='forward_pass_drain_breakdown',
+         chunk_hr_shape=list(data.shape), ms_per_chunk=ms,
+         mb_per_file=os.path.getsize(out_file) / 2 ** 20)
+
+
+def fwp_reference_checks(model_dir, tmp):
+    """On a small domain: the card's per-chunk outputs against the
+    port's CPU forward pass, and batched against serial on the card."""
+    small = make_fake_nc_file(
+        os.path.join(tmp, 'small.nc'), (8, 8, 12), FWP_FEATURES,
+        data={f: np.random.default_rng(i + 5).standard_normal(
+            (12, 8, 8)) * 0.3 + 0.5 for i, f in enumerate(FWP_FEATURES)})
+    kw = dict(fwp_chunk_shape=(4, 4, 6), spatial_pad=1, temporal_pad=1)
+    card = ForwardPass.run(fwp_strategy(small, model_dir, None,
+                                        device_batch_size=4, **kw), 0)
+    serial = ForwardPass.run(fwp_strategy(small, model_dir, None,
+                                          device_batch_size=1, **kw), 0)
+    cpu = ForwardPass.run(fwp_strategy(small, model_dir, None,
+                                       device='cpu', device_batch_size=4,
+                                       **kw), 0)
+    for against, ref in (('cpu', cpu), ('serial', serial)):
+        scale = max(float(np.abs(v).max()) for v in ref.values())
+        err = max(float(np.abs(card[i] - ref[i]).max()) for i in ref)
+        tol = PARITY_RTOL * scale
+        ok = sorted(card) == sorted(ref) and err <= tol
+        emit(phase='forward_pass_check', against=against,
+             chunks=len(ref), chunk_hr_shape=list(ref[0].shape),
+             max_abs_err=err, tol=tol, ok=ok)
+        if not ok:
+            raise AssertionError(f'forward pass: card vs {against} '
+                                 f'{err} > {tol}')
+
+
+def fwp_pack_check(input_file, model_dir):
+    """One dispatched batch's cropped outputs packed on the card
+    (``pack_chunks``, the H5 drain's device stage) against the host
+    transform plus ``round(x * scale)``; the stats against
+    ``_output_check``."""
+    strategy = fwp_strategy(input_file, model_dir, None)
+    fwp = ForwardPass(strategy, 0)
+    batch = [fwp.get_input_chunk(i) for i in range(FWP_BATCH)]
+    out, _, _ = fwp._dispatch_chunk_batch(batch)
+    names, pairs, quant = pack_plan(FWP_FEATURES, True)
+    crops = [out[i][c.hr_crop_slice] for i, c in enumerate(batch)]
+    invert_lat = bool(batch[0].hr_lat_lon[-1, 0, 0]
+                      > batch[0].hr_lat_lon[0, 0, 0])
+    thetas = torch.as_tensor(np.stack(
+        [theta_for(c.hr_lat_lon, invert_lat) for c in batch]),
+        device=out.device)
+    packed, stats = pack_chunks(torch.stack(crops), thetas, pairs, quant,
+                                invert_lat)
+    stats = fetch_stats(stats)
+    packed = [p.cpu().numpy() for p in packed]
+    worst = 0
+    for j, (chunk, crop) in enumerate(zip(batch, crops)):
+        host = crop.cpu().numpy().copy()
+        ForwardPass._output_check(host)
+        flat = host.reshape(-1, host.shape[-1])
+        if (stats['nan_any'][j] != np.isnan(host).any()
+                or list(stats['ch_const'][j]) != [
+                    bool(flat[:, i].std() == 0)
+                    for i in range(flat.shape[1])]
+                or not np.array_equal(stats['ch_first'][j], flat[0])):
+            raise AssertionError(f'pack stats of chunk {j} disagree with '
+                                 '_output_check')
+        data, feats = OutputHandlerH5._transform_output(
+            host, list(FWP_FEATURES), chunk.hr_lat_lon, invert_uv=True)
+        s1, s2, t = data.shape[:3]
+        for i, name in enumerate(feats):
+            attrs, dtype = get_dset_attrs(name)
+            want = np.round(data[..., i].reshape(s1 * s2, t).T
+                            * attrs['scale_factor']).astype(dtype)
+            diff = packed[i][j].astype(np.int64) - want.astype(np.int64)
+            worst = max(worst, int(np.abs(diff).max()))
+    emit(phase='forward_pass_pack_check', chunks=len(batch),
+         features=list(names), max_quantum_diff=worst, tol=1,
+         ok=worst <= 1)
+    if worst > 1:
+        raise AssertionError(f'device pack differs from the host '
+                             f'transform by {worst} storage quanta')
+
+
+def forward_pass_phase(name):
+    """Phase 6: the chunked forward pass on both routes; returns the
+    kernels' launches per pass on each route."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_fwp_')
+    try:
+        rng = np.random.default_rng(0)
+        s1, s2, t = FWP_DOMAIN
+        input_file = make_fake_nc_file(
+            os.path.join(tmp, 'input.nc'), FWP_DOMAIN, FWP_FEATURES,
+            data={f: rng.standard_normal((t, s1, s2)) * 0.3 + 0.5
+                  for f in FWP_FEATURES})
+        model = flagship('cuda')
+        model.meta.update(
+            input_resolution={'spatial': '12km', 'temporal': '60min'})
+        model_dir = os.path.join(tmp, 'model')
+        model.save(model_dir)
+        del model
+        auto = fwp_strategy(input_file, model_dir, None,
+                            device_batch_size='auto')
+        ForwardPass(auto, 0)
+        emit(phase='forward_pass_auto_batch',
+             padded_chunk=[c + 2 * FWP_PAD for c in FWP_CHUNK],
+             device_batch_size=auto.device_batch_size,
+             free_gb=torch.cuda.mem_get_info()[0] / 1e9)
+        served = auto.get_model()
+        served.inference_pallas = False
+        with Timer() as warm:
+            ForwardPass.run(fwp_strategy(
+                input_file, model_dir,
+                os.path.join(tmp, 'warm', 'chunk_{file_id}.nc')), 0)
+        emit(phase='forward_pass_warm_up', wall_s=warm.elapsed)
+        per_pass = {}
+        for route, pallas in (('default', False), ('opt_in', True)):
+            served.inference_pallas = pallas
+            walls = []
+            for i in range(N_FWP_PASSES):
+                wall, launches = fwp_pass(
+                    input_file, model_dir,
+                    os.path.join(tmp, f'{route}_{i}'), route, i)
+                walls.append(wall)
+            per_pass[route] = launches
+            emit(phase='forward_pass_route', route=route, wall_s=walls,
+                 hr_voxels_per_s=int(np.prod(FWP_DOMAIN)) * 9 * 4 / float(
+                     np.median(walls)), nvidia_smi=name)
+            fwp_profiled_pass(input_file, model_dir,
+                              os.path.join(tmp, f'{route}_profiled'),
+                              route)
+        served.inference_pallas = False
+        fwp_drain_breakdown(input_file, model_dir, tmp)
+        fwp_reference_checks(model_dir, tmp)
+        fwp_pack_check(input_file, model_dir)
+        return per_pass
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device: '
@@ -461,10 +780,20 @@ def main():
                                   small_reflect_conv_cf, *inputs, None),
                            max_abs_err=tail_errs[co])
                   for co, inputs in tails.items()}
+    # 6. the chunked forward pass
+    fwp_launches = forward_pass_phase(smi)
+
+    def per_fwp_pass(kname):
+        return {route: counts[kname]
+                for route, counts in fwp_launches.items()}
+
     kernels = [record('small_reflect_conv', tail_times[2],
-                      tails=list(tail_times.values())),
+                      tails=list(tail_times.values()),
+                      launches_per_fwp_pass=per_fwp_pass(
+                          'small_reflect_conv')),
                record('reflect_conv', body_times[2],
-                      main_path_shapes=shapes)]
+                      main_path_shapes=shapes,
+                      launches_per_fwp_pass=per_fwp_pass('reflect_conv'))]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

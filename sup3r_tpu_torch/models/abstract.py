@@ -220,19 +220,34 @@ class AbstractSingleModel(AbstractInterface):
                     / torch.as_tensor(stds, device=low_res.device))
         return (np.asarray(low_res) - means) / stds
 
+    def _out_stats(self):
+        """(means, stds) float32 arrays of the output features."""
+        missing = [f for f in self.hr_out_features if f not in self._means]
+        if missing:
+            raise KeyError(
+                f'Output features {missing} missing from norm stats')
+        return self._stats_for(self.hr_out_features)
+
+    def un_norm_tensors(self, device):
+        """(stds, means) of the output features as tensors on
+        ``device`` (None without norm stats). ``generate`` makes them
+        before it launches the network: their host-to-device copy would
+        otherwise wait for the network to finish."""
+        if self._means is None:
+            return None
+        means, stds = self._out_stats()
+        return (torch.as_tensor(stds, device=device),
+                torch.as_tensor(means, device=device))
+
     def un_norm_output(self, output):
         """Denormalize generated output back to physical units (numpy
         array or tensor; a tensor stays on its device)."""
         if self._means is None:
             return output
-        missing = [f for f in self.hr_out_features if f not in self._means]
-        if missing:
-            raise KeyError(
-                f'Output features {missing} missing from norm stats')
-        means, stds = self._stats_for(self.hr_out_features)
         if isinstance(output, torch.Tensor):
-            return (output * torch.as_tensor(stds, device=output.device)
-                    + torch.as_tensor(means, device=output.device))
+            stds, means = self.un_norm_tensors(output.device)
+            return output * stds + means
+        means, stds = self._out_stats()
         return np.asarray(output) * stds + means
 
     @property

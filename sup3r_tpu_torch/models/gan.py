@@ -19,6 +19,8 @@ from sup3r_tpu_torch.models.network import Network
 from sup3r_tpu_torch.models.weights import (
     load_jax_checkpoint,
     params_from_jax,
+    params_to_jax,
+    save_jax_checkpoint,
 )
 from sup3r_tpu_torch.utilities import exact_fp32, resolve_device
 
@@ -169,12 +171,17 @@ class Sup3rGan(AbstractSingleModel):
         return out
 
     def generate(self, low_res, norm_in=True, un_norm_out=True,
-                 exogenous_data=None):
+                 exogenous_data=None, fetch=True):
         """Public inference: normalize -> generator (+layer exo) ->
         denormalize, in exact fp32 on ``self.device``.
 
         low_res: 4D/5D channels-last physical-units array (n_obs
-        first), numpy or tensor. Returns a channels-last numpy array."""
+        first), numpy or tensor. Returns a channels-last numpy array;
+        with ``fetch=False`` the output tensor on ``self.device``
+        instead, without waiting for the device (the forward pass
+        crops and drains it while the next batch is dispatched). That
+        tensor was made under ``torch.inference_mode``: slice it, do
+        not modify it in place."""
         if self.inference_subpixel_tail:
             raise NotImplementedError(_FAST_MODE)
         low_res = torch.as_tensor(low_res, dtype=torch.float32,
@@ -205,12 +212,14 @@ class Sup3rGan(AbstractSingleModel):
                     v = v[..., None]
             fixed_exo[k] = v
         net = self._get_fused_apply() if self.inference_fuse else self._gen
+        un_norm = self.un_norm_tensors(self.device) if un_norm_out else None
         with torch.inference_mode(), exact_fp32():
             out = net.apply(low_res, fixed_exo)
-            if un_norm_out:
-                out = self.un_norm_output(out)
-            out = out.cpu().numpy()
-        return self._combine_fwp_output(out, exogenous_data)
+            if un_norm is not None:
+                out = out * un_norm[0] + un_norm[1]
+        if not fetch:
+            return out
+        return self._combine_fwp_output(out.cpu().numpy(), exogenous_data)
 
     def _dummy_hr_shape(self, lr_shape):
         s, t = self._gen.s_enhance, self._gen.t_enhance
@@ -234,11 +243,28 @@ class Sup3rGan(AbstractSingleModel):
         })
         return params
 
+    def save(self, out_dir):
+        """Save to a directory in the JAX package's layout:
+        ``model_params.json`` plus the ``model_gen.msgpack`` /
+        ``model_disc.msgpack`` weights in flax's format, so the JAX
+        package's ``Sup3rGan.load`` reads it. Optimizer state and
+        training history come with the training slice (the JAX load
+        treats both as optional)."""
+        os.makedirs(out_dir, exist_ok=True)
+        if self.gen_params is not None:
+            save_jax_checkpoint(params_to_jax(self._gen),
+                                os.path.join(out_dir, 'model_gen.msgpack'))
+            save_jax_checkpoint(params_to_jax(self._disc),
+                                os.path.join(out_dir,
+                                             'model_disc.msgpack'))
+        self.save_params(out_dir)
+        logger.info('Saved GAN to %s', out_dir)
+
     @classmethod
     def load(cls, model_dir, device='cuda', verbose=True):
-        """Load a GAN that the JAX package's ``Sup3rGan.save`` wrote:
-        ``model_params.json`` plus the ``model_gen.msgpack`` /
-        ``model_disc.msgpack`` weights."""
+        """Load a GAN that ``save`` here or the JAX package's
+        ``Sup3rGan.save`` wrote: ``model_params.json`` plus the
+        ``model_gen.msgpack`` / ``model_disc.msgpack`` weights."""
         params = cls.load_saved_params(model_dir, verbose=verbose)
         model = cls(
             params['gen_config'], params['disc_config'],

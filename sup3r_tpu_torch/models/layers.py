@@ -8,7 +8,8 @@ Each entry becomes a layer module with:
   * ``init(in_shape, generator)``: creates the parameters (on the CPU,
     from a seeded ``torch.Generator``) and returns ``out_shape``;
   * ``load_jax(params)``: loads the JAX package's per-layer param dict
-    (numpy arrays; conv kernels in DHWIO / HWIO);
+    (numpy arrays; conv kernels in DHWIO / HWIO), and
+    ``params_to_jax()`` gives it back;
   * ``forward(x, ctx)``: runs on CHANNELS-FIRST tensors ``(n, c, s1,
     s2[, t])``, the layout the port's network runs in (time on the
     contiguous axis). ``ctx`` carries the skip-connection cache and the
@@ -87,6 +88,12 @@ def _param(array):
                         requires_grad=False)
 
 
+def _numpy(tensor):
+    """A contiguous float32 numpy copy of a parameter (any device)."""
+    return np.ascontiguousarray(
+        tensor.detach().cpu().numpy().astype(np.float32))
+
+
 def _spatial_to_cf(ndim):
     """Channels-last axis -> channels-first dim, for a rank-``ndim``
     tensor."""
@@ -114,6 +121,11 @@ class Layer(nn.Module):
         if params:
             raise ValueError(f'{type(self).__name__} has no params, got '
                              f'{sorted(params)}')
+
+    def params_to_jax(self):
+        """This layer's param dict in the JAX package's layout (numpy
+        float32): the inverse of ``load_jax``."""
+        return {}
 
     def forward(self, x, ctx):
         raise NotImplementedError
@@ -173,6 +185,9 @@ class Dense(Layer):
         # torch's (out, in) layout for F.linear
         self.weight = _param(np.asarray(params['kernel']).T)
         self.bias = _param(params['bias'])
+
+    def params_to_jax(self):
+        return {'kernel': _numpy(self.weight.T), 'bias': _numpy(self.bias)}
 
     def forward(self, x, ctx):
         y = F.linear(x.movedim(1, -1), self.weight, self.bias).movedim(
@@ -336,6 +351,18 @@ class _ConvBase(Layer):
             kernel = kernel.permute(n + 1, n, *range(n))
         self.weight = _param(kernel.contiguous())
         self.bias = _param(params['bias'])
+
+    def params_to_jax(self):
+        """OIDHW / OIHW weight -> DHWIO / HWIO kernel; for a transposed
+        conv, the (I, O, ...) weight flipped back spatially."""
+        weight = self.weight.detach()
+        n = self.n_spatial
+        if self.transpose:
+            kernel = weight.permute(*range(2, 2 + n), 0, 1).flip(
+                tuple(range(n)))
+        else:
+            kernel = weight.permute(*range(2, 2 + n), 1, 0)
+        return {'kernel': _numpy(kernel), 'bias': _numpy(self.bias)}
 
     def fused_weight(self):
         """The OI.. weight of the equivalent correlation: a stride-1

@@ -12,7 +12,11 @@ import json
 import numpy as np
 from torch import nn
 
-from sup3r_tpu_torch.models.layers import EXO_LAYERS, build_layers
+from sup3r_tpu_torch.models.layers import (
+    EXO_LAYERS,
+    FlexiblePadding,
+    build_layers,
+)
 
 
 class Network(nn.Module):
@@ -68,6 +72,18 @@ class Network(nn.Module):
         """Names of mid-network exogenous features, in layer order."""
         return [lyr.name for lyr in self.layers
                 if isinstance(lyr, EXO_LAYERS)]
+
+    @property
+    def min_input_width(self):
+        """Minimum spatial/temporal input width imposed by the first
+        padding layer (reflect padding requires input > pad width).
+        Returns per-dim minimums excluding batch/channel, or None (the
+        forward-pass slicer's ``min_width``)."""
+        for lyr in self.layers:
+            if isinstance(lyr, FlexiblePadding):
+                inner = lyr.paddings[1:-1]
+                return tuple(max(a, b) + 1 for a, b in inner)
+        return None
 
     # ------------------------------------------------------------------
     def init(self, in_shape, generator):

@@ -1,15 +1,21 @@
-"""Weights carried across from the JAX package.
+"""Weights in the JAX package's checkpoint format, both ways.
 
 ``params_from_jax`` loads the JAX package's per-layer param list
-(``[{}, {'kernel': DHWIO, 'bias': ...}, ...]`` of numpy arrays) into the
-port's layer modules; ``load_jax_checkpoint`` reads a
-``model_gen.msgpack`` / ``model_disc.msgpack`` that ``Sup3rGan.save``
-wrote, without flax.
+(``[{}, {'bias': ..., 'kernel': DHWIO}, ...]`` of numpy arrays) into the
+port's layer modules; ``params_to_jax`` gives that list back.
+``load_jax_checkpoint`` / ``save_jax_checkpoint`` read and write a
+``model_gen.msgpack`` / ``model_disc.msgpack`` as the JAX package's
+``Sup3rGan.save`` does, so save directories are interchangeable.
 
 The file is flax's msgpack state dict: a map ``{'0': {...}, '1': {},
 ...}`` with one entry per layer, each array a msgpack extension of type
-1 holding ``(shape, dtype_name, raw_bytes)``.
+1 holding the msgpack array ``(shape, dtype_name, raw_bytes)``. A small
+codec here covers exactly the msgpack subset flax writes (maps, arrays,
+str, bin, ext, ints, floats, nil, bool), so neither flax nor the
+``msgpack`` package is needed.
 """
+
+import struct
 
 import numpy as np
 
@@ -41,26 +47,216 @@ def params_from_jax(network, params):
     return network
 
 
-def _ext_hook(code, data):
-    import msgpack
+def params_to_jax(network):
+    """The JAX package's per-layer param list (numpy float32 arrays in
+    its layouts, keys sorted as its checkpoints store them) of
+    ``network``'s layers: the inverse of ``params_from_jax``."""
+    return [dict(sorted(lyr.params_to_jax().items()))
+            for lyr in network.layers]
 
-    if code != _EXT_NDARRAY:
-        raise ValueError(f'unsupported msgpack extension type {code} in a '
-                         'JAX checkpoint')
-    shape, dtype, buf = msgpack.unpackb(data, raw=False)
-    return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape).copy()
+
+# ----------------------------------------------------------------------
+# msgpack, the subset flax writes
+def _pack(obj, out):
+    """Append the msgpack encoding of ``obj`` to the bytearray ``out``
+    with the msgpack package's choices: the smallest int and length
+    headers, float64 floats, str as str and bytes as bin."""
+    if obj is None:
+        out += b'\xc0'
+    elif obj is True or obj is False:
+        out += b'\xc3' if obj else b'\xc2'
+    elif isinstance(obj, int):
+        _pack_int(obj, out)
+    elif isinstance(obj, float):
+        out += b'\xcb' + struct.pack('>d', obj)
+    elif isinstance(obj, str):
+        data = obj.encode('utf-8')
+        _pack_len(len(data), out, fix=(0xa0, 32),
+                  codes=(0xd9, 0xda, 0xdb))
+        out += data
+    elif isinstance(obj, (bytes, bytearray)):
+        _pack_len(len(obj), out, fix=None, codes=(0xc4, 0xc5, 0xc6))
+        out += obj
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(len(obj), out, fix=(0x90, 16), codes=(None, 0xdc, 0xdd))
+        for item in obj:
+            _pack(item, out)
+    elif isinstance(obj, dict):
+        _pack_len(len(obj), out, fix=(0x80, 16), codes=(None, 0xde, 0xdf))
+        for key, value in obj.items():
+            _pack(key, out)
+            _pack(value, out)
+    elif isinstance(obj, np.ndarray):
+        arr = np.ascontiguousarray(obj)
+        inner = bytearray()
+        _pack([list(arr.shape), arr.dtype.name, arr.tobytes('C')], inner)
+        _pack_ext(_EXT_NDARRAY, bytes(inner), out)
+    else:
+        raise TypeError(f'cannot encode {type(obj).__name__} in a '
+                        'checkpoint')
+
+
+def _pack_int(v, out):
+    if 0 <= v < 0x80:
+        out.append(v)
+    elif -32 <= v < 0:
+        out.append(v & 0xff)
+    elif v >= 0:
+        for code, fmt, top in ((0xcc, '>B', 1 << 8), (0xcd, '>H', 1 << 16),
+                               (0xce, '>I', 1 << 32),
+                               (0xcf, '>Q', 1 << 64)):
+            if v < top:
+                out += bytes([code]) + struct.pack(fmt, v)
+                return
+        raise OverflowError(v)
+    else:
+        for code, fmt, low in ((0xd0, '>b', -(1 << 7)),
+                               (0xd1, '>h', -(1 << 15)),
+                               (0xd2, '>i', -(1 << 31)),
+                               (0xd3, '>q', -(1 << 63))):
+            if v >= low:
+                out += bytes([code]) + struct.pack(fmt, v)
+                return
+        raise OverflowError(v)
+
+
+def _pack_len(n, out, fix, codes):
+    """A container or string header: the fix form below ``fix[1]``,
+    else the 8-, 16- or 32-bit length form (``None`` where msgpack has
+    none)."""
+    if fix is not None and n < fix[1]:
+        out.append(fix[0] | n)
+        return
+    for code, fmt, top in zip(codes, ('>B', '>H', '>I'),
+                              (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < top:
+            out += bytes([code]) + struct.pack(fmt, n)
+            return
+    raise OverflowError(n)
+
+
+def _pack_ext(code, data, out):
+    n = len(data)
+    fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if n in fixed:
+        out += bytes([fixed[n], code])
+    elif n < 1 << 8:
+        out += bytes([0xc7, n, code])
+    elif n < 1 << 16:
+        out += b'\xc8' + struct.pack('>H', n) + bytes([code])
+    else:
+        out += b'\xc9' + struct.pack('>I', n) + bytes([code])
+    out += data
+
+
+def packb(obj):
+    """msgpack bytes of ``obj`` (dicts, lists, str, bytes, ints, floats,
+    None, bools; numpy arrays as flax's ndarray extension)."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
+class _Reader:
+    def __init__(self, data):
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def take(self, n):
+        chunk = self.data[self.pos:self.pos + n]
+        if len(chunk) != n:
+            raise ValueError('truncated msgpack data')
+        self.pos += n
+        return chunk
+
+    def unpack(self, fmt):
+        size = struct.calcsize(fmt)
+        return struct.unpack(fmt, self.take(size))[0]
+
+    def read(self):
+        b = self.take(1)[0]
+        if b < 0x80:
+            return b
+        if b >= 0xe0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8f:
+            return self._map(b & 0x0f)
+        if 0x90 <= b <= 0x9f:
+            return self._array(b & 0x0f)
+        if 0xa0 <= b <= 0xbf:
+            return str(self.take(b & 0x1f), 'utf-8')
+        simple = {0xc0: None, 0xc2: False, 0xc3: True}
+        if b in simple:
+            return simple[b]
+        sized = {0xcc: '>B', 0xcd: '>H', 0xce: '>I', 0xcf: '>Q',
+                 0xd0: '>b', 0xd1: '>h', 0xd2: '>i', 0xd3: '>q',
+                 0xca: '>f', 0xcb: '>d'}
+        if b in sized:
+            return self.unpack(sized[b])
+        lengths = {0xd9: '>B', 0xda: '>H', 0xdb: '>I'}
+        if b in lengths:
+            return str(self.take(self.unpack(lengths[b])), 'utf-8')
+        lengths = {0xc4: '>B', 0xc5: '>H', 0xc6: '>I'}
+        if b in lengths:
+            return bytes(self.take(self.unpack(lengths[b])))
+        if b in (0xdc, 0xdd):
+            return self._array(self.unpack('>H' if b == 0xdc else '>I'))
+        if b in (0xde, 0xdf):
+            return self._map(self.unpack('>H' if b == 0xde else '>I'))
+        fixed = {0xd4: 1, 0xd5: 2, 0xd6: 4, 0xd7: 8, 0xd8: 16}
+        if b in fixed:
+            n = fixed[b]
+        elif b in (0xc7, 0xc8, 0xc9):
+            n = self.unpack({0xc7: '>B', 0xc8: '>H', 0xc9: '>I'}[b])
+        else:
+            raise ValueError(f'unsupported msgpack type byte 0x{b:02x} '
+                             'in a checkpoint')
+        code = self.unpack('>b')
+        return self._ext(code, bytes(self.take(n)))
+
+    def _array(self, n):
+        return [self.read() for _ in range(n)]
+
+    def _map(self, n):
+        out = {}
+        for _ in range(n):
+            key = self.read()
+            out[key] = self.read()
+        return out
+
+    @staticmethod
+    def _ext(code, data):
+        if code != _EXT_NDARRAY:
+            raise ValueError(f'unsupported msgpack extension type {code} '
+                             'in a JAX checkpoint')
+        shape, dtype, buf = unpackb(data)
+        return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(
+            shape).copy()
+
+
+def unpackb(data):
+    """Decode msgpack bytes written by ``packb`` or by flax."""
+    reader = _Reader(data)
+    obj = reader.read()
+    if reader.pos != len(reader.data):
+        raise ValueError('trailing bytes after a msgpack object')
+    return obj
 
 
 def load_jax_checkpoint(path):
     """Per-layer param list (numpy arrays) from a JAX network
-    checkpoint. ``msgpack`` is imported here only: the serving path
-    from a port-initialized model never needs it."""
-    import msgpack
-
+    checkpoint."""
     with open(path, 'rb') as f:
-        tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False,
-                               strict_map_key=False)
+        tree = unpackb(f.read())
     if not isinstance(tree, dict) or set(tree) != {
             str(i) for i in range(len(tree))}:
         raise ValueError(f'{path} is not a per-layer network checkpoint')
     return [tree[str(i)] for i in range(len(tree))]
+
+
+def save_jax_checkpoint(params, path):
+    """Write a per-layer param list as the JAX package's network
+    checkpoint (flax's state dict of the list)."""
+    tree = {str(i): p for i, p in enumerate(params)}
+    with open(path, 'wb') as f:
+        f.write(packb(tree))

@@ -1,0 +1,550 @@
+"""Forward-pass planning: chunk grids, node assignment, input prep.
+
+Reference parity: sup3r/pipeline/strategy.py:58-700 (ForwardPassStrategy,
+ForwardPassChunk :38, node_chunks :364, incremental restart :667). The
+port's copy of ``sup3r_tpu/pipeline/strategy.py`` for the eager,
+single-device path without exogenous data: ``exo_handler_kwargs``,
+``chunked_io``, bias correction and ``use_mesh`` come with later slices
+(ROADMAP queue 1 items 5 and 9) and raise ``NotImplementedError``.
+"""
+
+import logging
+import os
+from dataclasses import dataclass, field
+from typing import Optional, Union
+
+import numpy as np
+
+from sup3r_tpu_torch.pipeline.slicer import ForwardPassSlicer
+from sup3r_tpu_torch.postprocessing.writers import OutputHandler
+from sup3r_tpu_torch.preprocessing.data_handlers import (
+    get_input_handler_class,
+)
+from sup3r_tpu_torch.preprocessing.rasterizers import Rasterizer
+from sup3r_tpu_torch.utilities import Timer, TimeIndex
+
+logger = logging.getLogger(__name__)
+
+
+#: process-level model cache: identity key (class + abspath'd kwargs +
+#: the strategy's mode flags) -> (disk fingerprint, model instance).
+#: ForwardPass loads the model at strategy init (meta planning) AND per
+#: ForwardPass construction (reference loads per chunk/process,
+#: forward_pass.py:638); each fresh instance re-reads the checkpoint,
+#: copies the weights to the card and rebuilds its fused network. The
+#: fingerprint (per-file mtime/size under any dir/file kwarg)
+#: invalidates when the checkpoint on disk changes — and because the
+#: identity is the DICT KEY, a re-saved checkpoint REPLACES the stale
+#: entry instead of accumulating next to it (models pin params in
+#: device memory). The identity also carries inference_mode so
+#: concurrent strategies with different modes get separate instances
+#: rather than racing on one instance's mutable flags.
+_MODEL_CACHE = {}
+
+
+def _model_fingerprint(val, stat=True):
+    """Recursive fingerprint of every path-valued kwarg (model_dir /
+    model_dirs lists): abspath + per-file (name, mtime_ns, size) for
+    dirs AND single checkpoint files. ``stat=False`` yields the
+    path-identity only (the cache's dict key — stable across
+    re-saves, so stale entries are replaced, not retained)."""
+    if isinstance(val, str) and os.path.isdir(val):
+        if not stat:
+            return os.path.abspath(val)
+        out = []
+        for root, _, files in sorted(os.walk(val)):
+            for f in sorted(files):
+                p = os.path.join(root, f)
+                st = os.stat(p)
+                out.append((os.path.relpath(p, val), st.st_mtime_ns,
+                            st.st_size))
+        return (os.path.abspath(val), tuple(out))
+    if isinstance(val, str) and os.path.isfile(val):
+        if not stat:
+            return os.path.abspath(val)
+        st = os.stat(val)
+        return (os.path.abspath(val), st.st_mtime_ns, st.st_size)
+    if isinstance(val, (list, tuple)):
+        return tuple(_model_fingerprint(v, stat=stat) for v in val)
+    if isinstance(val, dict):
+        return tuple(sorted(
+            (k, _model_fingerprint(v, stat=stat))
+            for k, v in val.items()))
+    return val
+
+
+class _CoordsOnlyHandler:
+    """Geometry-only stand-in for the full input handler on the head
+    node: exposes lat_lon / time_index / a coords-only dataset."""
+
+    def __init__(self, rasterizer):
+        self.rasterizer = rasterizer
+        self.data = rasterizer.data
+        self.lat_lon = rasterizer.lat_lon
+        self.time_index = rasterizer.data.time_index
+
+
+@dataclass
+class ForwardPassChunk:
+    """One chunk's padded input + metadata for generation/writing."""
+
+    input_data: np.ndarray
+    exo_data: Optional[dict]
+    hr_crop_slice: tuple
+    lr_pad_slice: tuple
+    hr_lat_lon: np.ndarray
+    hr_times: TimeIndex
+    gids: np.ndarray
+    out_file: Optional[str]
+    pad_width: tuple
+    index: int
+
+    @property
+    def shape(self):
+        """Current input shape (derived — get_input_chunk replaces
+        input_data with the padded array, so a captured value would
+        go stale)."""
+        return self.input_data.shape
+
+
+@dataclass
+class ForwardPassStrategy:
+    """Plan a chunked forward-pass run over a full domain.
+
+    Parameters mirror the reference strategy dataclass
+    (sup3r/pipeline/strategy.py:58).
+    """
+
+    file_paths: Union[str, list]
+    model_kwargs: dict
+    model_class: str = 'Sup3rGan'
+    fwp_chunk_shape: tuple = (None, None, None)
+    spatial_pad: int = 0
+    temporal_pad: int = 0
+    input_handler_name: Optional[str] = None
+    input_handler_kwargs: dict = field(default_factory=dict)
+    out_pattern: Optional[str] = None
+    exo_handler_kwargs: dict = field(default_factory=dict)
+    bias_correct_method: Optional[str] = None
+    bias_correct_kwargs: dict = field(default_factory=dict)
+    allowed_const: Union[bool, list] = False
+    incremental: bool = True
+    #: minimum padded chunk widths required by the generator; None =
+    #: derived from the model's layer config (reference default is a
+    #: user-supplied (4, 4, 4), strategy.py:109)
+    min_width: Optional[tuple] = None
+    #: invert u/v output pairs to windspeed/winddirection on write;
+    #: None = the reference default (True for H5, False for NetCDF)
+    invert_uv: Optional[bool] = None
+    #: NN-fill out-of-physical-range output values instead of clipping
+    #: (reference default True, strategy.py:177)
+    nn_fill: bool = True
+    #: accepted for reference-config compatibility; a no-op here (the
+    #: reference uses it to pin TF inference onto CPU,
+    #: strategy.py:201 — device placement is explicit in this build)
+    use_cpu: bool = True
+    output_workers: int = 1
+    pass_workers: int = 1
+    max_nodes: int = 1
+    head_node: bool = False
+    redistribute_chunks: bool = False
+    #: 'exact' (default) or 'fast' — named speed/accuracy profile
+    #: applied to the loaded model (Sup3rGan.inference_mode): 'fast'
+    #: enables the subpixel tail + bf16 body with a validated
+    #: accuracy budget (tests/forward_pass/test_fast_mode.py)
+    inference_mode: str = 'exact'
+    #: stack this many same-shaped padded chunks into one device batch
+    #: (amortizes per-dispatch host work and fills the card). 'auto'
+    #: sizes the batch from a per-chunk memory estimate of the generator
+    #: against the card's free memory (see pipeline/memory.py)
+    device_batch_size: Union[int, str] = 1
+    #: shard device batches over a device mesh: comes with the
+    #: multi-device slice (ROADMAP queue 1 item 9); raises if set
+    use_mesh: Union[bool, str] = False
+    #: stream input per chunk (windowed reads through
+    #: preprocessing/lazy.py): comes with a later slice of the port
+    #: (ROADMAP queue 1 item 5); raises if set
+    chunked_io: bool = False
+    #: device-side output packing for the batched drain: crop + u/v
+    #: inversion + physical limits + storage quantization run on the
+    #: card (ops/output_pack.py) and the device->host fetch carries
+    #: cropped int16/uint16 bytes (>=2x fewer than float32, plus no
+    #: halo). None = auto (on when supported: H5
+    #: output files + a device-batched model; chunks with
+    #: out-of-range values under nn_fill fall back to the host
+    #: NaN-fill transform per chunk). False forces the
+    #: host transform; True errors if unsupported. Values can differ
+    #: from the host path by +-1 storage quantum at round() boundaries
+    #: (device vs host trig ulps — tests/test_torch_output_pack.py).
+    pack_output_on_device: Optional[bool] = None
+    #: internal: explicit per-node chunk-id lists computed ONCE by the
+    #: head process and shipped to every node subprocess through the
+    #: node config. With ``redistribute_chunks`` the plan depends on
+    #: which outputs exist WHEN IT IS COMPUTED — a late-starting node
+    #: re-deriving it after its siblings finished chunks would get a
+    #: shifted ``array_split`` and orphan work (the in-process variant
+    #: of this race was found by tests/pipeline/test_chaos.py).
+    node_chunks_plan: Optional[list] = None
+
+    def __post_init__(self):
+        self._check_ported()
+        self.timer = Timer()
+        model = self.get_model()
+        self.s_enhance = model.s_enhance
+        self.t_enhance = model.t_enhance
+        self.input_features = list(model.lr_features)
+        self.exo_features = []
+        self.features = self.input_features
+
+        ihk = dict(self.input_handler_kwargs)
+        self.time_slice = ihk.pop('time_slice', slice(None))
+        HandlerClass = get_input_handler_class(self.input_handler_name)
+        if self.head_node and ihk.get('hr_spatial_coarsen') in (
+                None, 0, 1) and not any(
+                ihk.get(k) for k in ('nan_method_kwargs', 'time_roll',
+                                     'time_shift')):
+            # planning pass: geometry + time index only — no variable
+            # reads (reference: strategy.py head_node semantics).
+            # hr_spatial_coarsen changes the planning grid shape and
+            # nan-masking/time-remap kwargs can change the time index,
+            # so those fall through to the full handler (planner and
+            # workers MUST agree on chunk geometry).
+            meta_keys = ('target', 'shape', 'threshold', 'raster_file',
+                         'res_kwargs', 'full_grid_shape')
+            self.input_handler = _CoordsOnlyHandler(Rasterizer(
+                self.file_paths, features=[],
+                **{k: ihk[k] for k in meta_keys if k in ihk}))
+        else:
+            load_ihk = dict(ihk)
+            # eager mode with a narrow time_slice: load ONLY the
+            # padded window instead of the file's whole time extent
+            # (the reference passes a padded_time_slice the same way,
+            # strategy.py:312-353); time_roll/time_shift remap the
+            # global axis so they force a full load. All slicer time
+            # slices stay in RAW file coordinates — reads are shifted
+            # by the loaded window's start (self._time_offset).
+            if (isinstance(self.time_slice, slice)
+                    and self.time_slice != slice(None)
+                    and not ihk.get('time_roll')
+                    and not ihk.get('time_shift')):
+                n_full = self._probe_time_len(ihk)
+                if n_full:
+                    start, stop, step = self.time_slice.indices(n_full)
+                    t0 = max(start - self.temporal_pad * step, 0)
+                    t1 = min(stop + self.temporal_pad * step, n_full)
+                    load_ihk['time_slice'] = slice(t0, t1)
+                    self._time_offset = t0
+                    self._n_times_full = n_full
+            self.input_handler = HandlerClass(
+                self.file_paths, features=self.features, **load_ihk)
+
+        grid_shape = self.input_handler.lat_lon.shape[:2]
+        n_times = (getattr(self, '_n_times_full', None)
+                   or len(self.input_handler.time_index))
+        chunk_shape = tuple(
+            c if c is not None else (grid_shape + (n_times,))[i]
+            for i, c in enumerate(self.fwp_chunk_shape))
+        self.fwp_chunk_shape = chunk_shape
+
+        min_width = self.min_width
+        if min_width is None:
+            min_width = getattr(model, 'min_input_width', None)
+            if callable(min_width):
+                min_width = None
+            if min_width is None and hasattr(model, '_gen'):
+                min_width = model._gen.min_input_width
+        if min_width is not None and len(min_width) == 2:
+            min_width = (*min_width, 1)
+
+        self.fwp_slicer = ForwardPassSlicer(
+            coarse_shape=grid_shape, time_steps=n_times,
+            s_enhance=self.s_enhance, t_enhance=self.t_enhance,
+            time_slice=self.time_slice, temporal_pad=self.temporal_pad,
+            spatial_pad=self.spatial_pad, chunk_shape=chunk_shape,
+            min_width=min_width)
+
+        self.exo_data = None
+        self.gids = np.arange(
+            grid_shape[0] * self.s_enhance
+            * grid_shape[1] * self.s_enhance).reshape(
+            (grid_shape[0] * self.s_enhance,
+             grid_shape[1] * self.s_enhance))
+        self._hr_lat_lon = None
+        self._out_files = None
+        # freeze the node plan NOW: with redistribute_chunks the split
+        # depends on which outputs exist, and deferring it to first
+        # access would let nodes that start late see other nodes'
+        # fresh outputs and compute a DIFFERENT (shifted) plan,
+        # orphaning chunks (tests/pipeline/test_chaos.py)
+        _ = self.node_chunks
+
+    def _check_ported(self):
+        """Raise for the options whose modules later slices of the port
+        bring, rather than silently running something else."""
+        later = {
+            'exo_handler_kwargs': (
+                bool(self.exo_handler_kwargs),
+                'exogenous data (preprocessing/exo.py, ExoData) comes '
+                'with a later slice (ROADMAP queue 1 item 5)'),
+            'chunked_io': (
+                bool(self.chunked_io),
+                'windowed per-chunk reads (preprocessing/lazy.py) come '
+                'with a later slice (ROADMAP queue 1 item 5)'),
+            'bias_correct_method': (
+                bool(self.bias_correct_method
+                     or self.bias_correct_kwargs),
+                'bias correction in the strategy comes with the bias/ '
+                'modules (ROADMAP queue 1 items 5 and 8)'),
+            'use_mesh': (
+                bool(self.use_mesh),
+                'device meshes come with the multi-device slice '
+                '(ROADMAP queue 1 item 9)'),
+        }
+        for name, (is_set, why) in later.items():
+            if is_set:
+                raise NotImplementedError(
+                    f'ForwardPassStrategy({name}=...): {why} of the port')
+
+    # ------------------------------------------------------------------
+    def get_model(self):
+        """Instantiate/load the model from model_class + model_kwargs
+        (``model_kwargs`` carries ``device`` through to ``load``; the
+        default is the card)."""
+        from sup3r_tpu_torch import models as models_mod
+
+        if self.model_class != 'Sup3rGan':
+            raise NotImplementedError(
+                f'model_class={self.model_class!r}: the port serves '
+                'Sup3rGan; the other model classes come with the '
+                'model-family slice (ROADMAP queue 1 item 7)')
+        ModelClass = getattr(models_mod, self.model_class)
+        kwargs = self.model_kwargs
+        if isinstance(kwargs, str):
+            kwargs = {'model_dir': kwargs}
+        try:
+            identity = (self.model_class,
+                        _model_fingerprint(kwargs, stat=False),
+                        self.inference_mode)
+            fingerprint = _model_fingerprint(kwargs)
+            hash((identity, fingerprint))
+        except (TypeError, OSError):
+            identity = None  # unhashable kwargs / racing fs: no cache
+        entry = _MODEL_CACHE.get(identity) if identity else None
+        model = entry[1] if entry and entry[0] == fingerprint else None
+        if model is None:
+            model = ModelClass.load(**kwargs)
+            if identity is not None:
+                # same-identity insert REPLACES a stale entry
+                _MODEL_CACHE[identity] = (fingerprint, model)
+        # reset the mode unconditionally: a cached instance may carry
+        # another strategy's setting ('fast' raises until fast mode is
+        # ported, ROADMAP queue 1 item 3)
+        model.inference_mode = self.inference_mode
+        return model
+
+    # ------------------------------------------------------------------
+    @property
+    def hr_lat_lon(self):
+        """Full-domain high-res coordinates."""
+        if self._hr_lat_lon is None:
+            lr = self.input_handler.lat_lon
+            shape = tuple(d * self.s_enhance for d in lr.shape[:2])
+            self._hr_lat_lon = OutputHandler.get_lat_lon(
+                np.array(lr, dtype=np.float64), shape)
+        return self._hr_lat_lon
+
+    @property
+    def out_files(self):
+        """Chunk output file paths named by _tttttt_ssssss ids."""
+        if self._out_files is None:
+            ids = [f'{t:06d}_{s:06d}'
+                   for t in range(self.fwp_slicer.n_time_chunks)
+                   for s in range(self.fwp_slicer.n_spatial_chunks)]
+            if self.out_pattern is None:
+                self._out_files = [None] * len(ids)
+            else:
+                assert '{file_id}' in self.out_pattern, (
+                    'out_pattern must include {file_id}')
+                os.makedirs(os.path.dirname(
+                    os.path.abspath(self.out_pattern)), exist_ok=True)
+                self._out_files = [
+                    self.out_pattern.format(file_id=fid) for fid in ids]
+        return self._out_files
+
+    @property
+    def node_chunks(self):
+        """Chunk-id lists per node (reference: strategy.py:364).
+
+        Computed ONCE and cached: with ``redistribute_chunks`` the
+        split depends on which outputs exist, and re-deriving it at
+        run time would shift every node's assignment as other nodes
+        complete chunks — orphaning work (found by
+        tests/pipeline/test_chaos.py kill-resume)."""
+        if not hasattr(self, '_node_chunks'):
+            if self.node_chunks_plan is not None:
+                # head-computed plan shipped through the node config:
+                # every node subprocess uses the ONE plan the head
+                # froze, however late it starts (see the field doc)
+                self._node_chunks = [
+                    np.asarray(c, dtype=int)
+                    for c in self.node_chunks_plan]
+                return self._node_chunks
+            chunks = self.unmasked_chunks
+            if self.redistribute_chunks:
+                chunks = [c for c in chunks
+                          if not self.chunk_finished(c, log=False)]
+            n_nodes = int(min(self.max_nodes or np.inf,
+                              max(len(chunks), 1)))
+            self._node_chunks = np.array_split(chunks, n_nodes)
+        return self._node_chunks
+
+    @property
+    def fwp_mask(self):
+        """Per-spatial-chunk skip mask: True where a 'mask' variable in
+        the input covers the entire padded chunk (e.g. all-ocean
+        chunks; reference: strategy.py:631-661)."""
+        if not hasattr(self, '_fwp_mask'):
+            n_spatial = self.fwp_slicer.n_spatial_chunks
+            mask = np.zeros(n_spatial, dtype=bool)
+            data = self.input_handler.data
+            if 'mask' not in getattr(data, 'features', []):
+                # mask may exist in the source without being a model
+                # feature; probe the raw files
+                try:
+                    ihk = dict(self.input_handler_kwargs)
+                    ihk.pop('time_slice', None)
+                    HandlerClass = get_input_handler_class(
+                        self.input_handler_name)
+                    data = HandlerClass(
+                        self.file_paths, features=['mask'],
+                        time_slice=slice(0, 1), **ihk).data
+                except (KeyError, RuntimeError):
+                    # no 'mask' variable in the source files — the only
+                    # expected miss. Anything else (IO errors, bad
+                    # kwargs) must propagate: silently disabling the
+                    # ocean-chunk skip turns a config error into a
+                    # 2-5x cost increase on production domains.
+                    logger.info('No "mask" variable in the input '
+                                'files; not skipping any chunks.')
+                    data = self.input_handler.data
+            if 'mask' in getattr(data, 'features', []):
+                mask_vals = data['mask']
+                if mask_vals.ndim == 3:
+                    mask_vals = mask_vals[..., 0]
+                for s_idx, lr_slices in enumerate(
+                        self.fwp_slicer.s_lr_pad_slices):
+                    chunk_mask = mask_vals[lr_slices[0], lr_slices[1]]
+                    mask[s_idx] = bool(np.prod(chunk_mask))
+                logger.info('Masking %d of %d spatial chunks',
+                            int(mask.sum()), n_spatial)
+            self._fwp_mask = mask
+        return self._fwp_mask
+
+    def chunk_masked(self, chunk_index, log=True):
+        """Whether a chunk is skipped by the spatial mask."""
+        s_idx, _ = self.fwp_slicer.get_chunk_indices(chunk_index)
+        masked = bool(self.fwp_mask[s_idx])
+        if masked and log:
+            logger.info('Chunk %s is masked; skipping', chunk_index)
+        return masked
+
+    @property
+    def unmasked_chunks(self):
+        """Chunk ids not skipped by the spatial mask."""
+        return [i for i in range(self.fwp_slicer.n_chunks)
+                if not self.chunk_masked(i, log=False)]
+
+    def chunk_finished(self, chunk_index, log=True):
+        """True if the chunk output file already exists (incremental
+        restart; reference: strategy.py:667)."""
+        out_file = self.out_files[chunk_index]
+        check = (out_file is not None and os.path.exists(out_file)
+                 and self.incremental)
+        if check and log:
+            logger.info('Chunk %s already done (%s exists)', chunk_index,
+                        out_file)
+        return check
+
+    def node_finished(self, node_idx):
+        """True if all the node's chunks are finished."""
+        return all(self.chunk_finished(i, log=False)
+                   for i in self.node_chunks[node_idx])
+
+    @property
+    def meta(self):
+        """Run metadata for output files."""
+        return {
+            'fwp_chunk_shape': self.fwp_chunk_shape,
+            'spatial_pad': self.spatial_pad,
+            'temporal_pad': self.temporal_pad,
+            'model_kwargs': self.model_kwargs
+            if not isinstance(self.model_kwargs, dict)
+            else {k: str(v)[:100] for k, v in self.model_kwargs.items()},
+            'model_class': self.model_class,
+        }
+
+    # ------------------------------------------------------------------
+    def _local_t(self, sl):
+        """Raw file-coordinate time slice -> the eager handler's
+        loaded-window coordinates (no-op unless the handler was
+        window-loaded)."""
+        off = getattr(self, '_time_offset', 0)
+        if not off:
+            return sl
+        return slice(sl.start - off, sl.stop - off, sl.step)
+
+    def _probe_time_len(self, ihk):
+        """Full-file time length from a coords-only read (for
+        windowed eager loading)."""
+        try:
+            meta_keys = ('target', 'shape', 'threshold',
+                         'raster_file', 'res_kwargs',
+                         'full_grid_shape')
+            rast = Rasterizer(
+                self.file_paths, features=[],
+                **{k: ihk[k] for k in meta_keys if k in ihk})
+            ti = rast.data.time_index
+            return len(ti) if ti is not None else None
+        except Exception:  # pragma: no cover - fall back to full load
+            logger.warning('Could not probe the file time length; '
+                           'loading the full time extent',
+                           exc_info=True)
+            return None
+
+    def prep_chunk_data(self, chunk_index=0):
+        """Load the padded low-res input for a chunk (no exo data in
+        this slice of the port: the second value is None)."""
+        s_idx, t_idx = self.fwp_slicer.get_chunk_indices(chunk_index)
+        lr_pad_slice = self.fwp_slicer.s_lr_pad_slices[s_idx]
+        ti_pad_slice = self.fwp_slicer.t_lr_pad_slices[t_idx]
+        data = self.input_handler.data
+        input_data = data.as_array(self.features)[
+            lr_pad_slice[0], lr_pad_slice[1],
+            self._local_t(ti_pad_slice)]
+        return np.array(input_data), None
+
+    def init_chunk(self, chunk_index=0):
+        """Build the ForwardPassChunk for a chunk id."""
+        s_idx, t_idx = self.fwp_slicer.get_chunk_indices(chunk_index)
+        assert chunk_index <= self.fwp_slicer.n_chunks, (
+            f'chunk_index {chunk_index} > n_chunks '
+            f'{self.fwp_slicer.n_chunks}')
+        hr_slice = self.fwp_slicer.s_hr_slices[s_idx]
+        ti_slice = self.fwp_slicer.t_lr_slices[t_idx]
+        lr_times = self.input_handler.time_index[
+            self._local_t(ti_slice)]
+        input_data, exo_data = self.timer(
+            self.prep_chunk_data, log=True)(chunk_index)
+        return ForwardPassChunk(
+            input_data=input_data,
+            exo_data=exo_data,
+            lr_pad_slice=self.fwp_slicer.s_lr_pad_slices[s_idx],
+            hr_crop_slice=(
+                self.fwp_slicer.hr_crop_slices_exact[t_idx][s_idx]),
+            hr_lat_lon=self.hr_lat_lon[hr_slice[0], hr_slice[1]],
+            hr_times=OutputHandler.get_times(
+                lr_times, self.t_enhance * len(lr_times)),
+            gids=self.gids[hr_slice[0], hr_slice[1]],
+            out_file=self.out_files[chunk_index],
+            pad_width=self.fwp_slicer.get_pad_width(chunk_index),
+            index=chunk_index)

@@ -1,6 +1,8 @@
 """The port stands alone: ``sup3r_tpu_torch`` imports and serves with
 jax, jaxlib, flax, optax, the JAX package, pandas, h5py and msgpack all
-unimportable, and it never drops quietly to the CPU."""
+unimportable — as on the card's machine — and it never drops quietly to
+the CPU. The blocked run also saves a model, reloads it, and runs the
+chunked ForwardPass from a NetCDF3 input to NetCDF output."""
 
 import os
 import subprocess
@@ -50,9 +52,42 @@ model = Sup3rGan(generator_st(2, (3,), (2, 2), filters=8, n_resblocks=1),
 lr = np.random.default_rng(0).standard_normal((1, 4, 4, 3, 2))
 out = model.generate(lr.astype(np.float32))
 assert out.shape == (1, 12, 12, 12, 2) and np.isfinite(out).all()
+print('SERVED', out.shape)
+
+import os
+import tempfile
+
+from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
+from sup3r_tpu_torch.preprocessing import LoaderNC
+from sup3r_tpu_torch.utilities.test_helpers import make_fake_nc_file
+
+tmp = tempfile.mkdtemp()
+model.meta.update(lr_features=['u_100m', 'v_100m'],
+                  hr_out_features=['u_100m', 'v_100m'])
+model.set_norm_stats({{'u_100m': 0.5, 'v_100m': 0.5}},
+                     {{'u_100m': 0.3, 'v_100m': 0.3}})
+model.save(os.path.join(tmp, 'model'))
+again = Sup3rGan.load(os.path.join(tmp, 'model'), device='cpu')
+np.testing.assert_allclose(again.generate(lr.astype(np.float32)),
+                           model.generate(lr.astype(np.float32)),
+                           rtol=1e-6)
+inp = make_fake_nc_file(os.path.join(tmp, 'in.nc'), (8, 8, 6),
+                        ['u_100m', 'v_100m'])
+strategy = ForwardPassStrategy(
+    file_paths=inp, model_kwargs={{'model_dir': os.path.join(tmp, 'model'),
+                                  'device': 'cpu'}},
+    fwp_chunk_shape=(4, 4, 3), spatial_pad=1, temporal_pad=1,
+    device_batch_size=2,
+    out_pattern=os.path.join(tmp, 'out', 'chunk_{{file_id}}.nc'))
+ForwardPass.run(strategy, 0)
+files = sorted(os.listdir(os.path.join(tmp, 'out')))
+assert len(files) == 8, files
+data = LoaderNC(os.path.join(tmp, 'out', files[0])).data
+assert data['u_100m'].shape == (12, 12, 12)
+assert np.isfinite(data['u_100m']).all()
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not loaded, loaded
-print('SERVED', out.shape)
+print('FORWARD PASS', len(files))
 '''
 
 
@@ -66,6 +101,7 @@ def test_port_serves_with_jax_and_friends_blocked():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'SERVED (1, 12, 12, 12, 2)' in proc.stdout
+    assert 'FORWARD PASS 8' in proc.stdout
 
 
 def test_no_card_without_explicit_cpu_raises(monkeypatch):

@@ -59,6 +59,25 @@ exits non-zero:
    with the host transform within one storage quantum and its stats
    with ``_output_check``.
 
+7. training (printed before the ``kernels`` line): the gradients of
+   ``small_reflect_conv``'s Function at the 8 -> 1, 2, 3 training tails
+   (alpha None and 0.2) and of ``reflect_conv_ad``'s against autograd of
+   their plain compositions (TF32 off; 1e-5 of the plain gradients'
+   largest magnitude); one full-width flagship step at batch 2 on the
+   card against the port's CPU step from the same weights, batch and
+   optimizer state, for the three gating cases (losses, updated weights
+   and Adam moments within 1e-4 of each tensor's largest magnitude);
+   bench.py's training cell (batch 16, LR (12, 12, 12, 2), HR (36, 36,
+   48, 2), Adam lr 1e-4, both networks): median step ms over 12 steps
+   after 3 warm-ups (host clock, loss fetch included), HR voxels/s,
+   launches per step (``small_reflect_conv`` 1, ``reflect_conv`` 0),
+   peak memory; the device time of each phase of a step (CUDA events),
+   one profiled step (idle share, top kernels), the small kernel's two
+   cuDNN backward convs and the pads and halo folds of a step; and
+   ``Sup3rGan.train`` over a ``BatchHandler`` of fake data (2 epochs of
+   4 batches, validation, checkpoint reloaded, ``generate`` of the
+   reloaded model).
+
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -88,8 +107,15 @@ from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
 from sup3r_tpu_torch.postprocessing import OutputHandlerH5, OutputHandlerNC
 from sup3r_tpu_torch.postprocessing.writers import write_nc_file
 from sup3r_tpu_torch.preprocessing import LoaderNC
+from sup3r_tpu_torch.models.gan import relativistic_disc_loss
+from sup3r_tpu_torch.models.weights import params_from_jax, params_to_jax
+from sup3r_tpu_torch.ops.conv_ad import _fold_reflect_halos, reflect_conv_ad
+from sup3r_tpu_torch.preprocessing import BatchHandler
 from sup3r_tpu_torch.utilities import get_dset_attrs
-from sup3r_tpu_torch.utilities.test_helpers import make_fake_nc_file
+from sup3r_tpu_torch.utilities.test_helpers import (
+    make_fake_dset,
+    make_fake_nc_file,
+)
 from sup3r_tpu_torch.ops.kernels import (
     pack_weights,
     reflect_conv_cf,
@@ -614,6 +640,436 @@ def forward_pass_phase(name):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: the training cell (bench.py's): batch, LR and HR shapes, Adam lr, the
+#: adversarial weight; warm-up and timed steps
+TRAIN_BATCH = 16
+TRAIN_LR = (12, 12, 12, 2)
+TRAIN_HR = (36, 36, 48, 2)
+TRAIN_LR_RATE = 1e-4
+W_ADV = 1e-3
+N_WARM_STEPS = 3
+N_TRAIN_STEPS = 12
+#: the HR tail's input in a train step
+TRAIN_TAIL_SHAPE = (TRAIN_BATCH, 8) + TRAIN_HR[:3]
+#: the card-vs-CPU step: batch 2; Adam with epsilon 1 so that an update
+#: is smooth in its gradient (with 1e-8 it is sign(g), which turns a
+#: gradient entry within rounding of zero into a full +-lr either way)
+CHECK_BATCH = 2
+CHECK_OPT = {'name': 'Adam', 'learning_rate': TRAIN_LR_RATE, 'epsilon': 1.0}
+GATES = {'both': (True, True), 'gen': (True, False), 'disc': (False, True)}
+
+
+def train_model(device, optimizer=None):
+    """The full-width flagship with the test discriminator, initialized
+    for the training cell from seed 0."""
+    model = Sup3rGan(get_config('spatiotemporal/gen_3x_4x_2f'),
+                     get_config('spatiotemporal/disc_test'),
+                     optimizer=optimizer, learning_rate=TRAIN_LR_RATE,
+                     device=device)
+    model.init_weights((1,) + TRAIN_LR, (1,) + TRAIN_HR, seed=0)
+    return model
+
+
+def leaky(x, alpha):
+    """jax.nn.leaky_relu, whose gradient at 0 is 1."""
+    return x if alpha is None else torch.where(x >= 0, x, alpha * x)
+
+
+def grad_check(name, fn, x, w, b, alpha, dy):
+    """(dx, dw, db) of ``fn`` against autograd of the plain composition
+    (F.pad + cuDNN, TF32 off) on the same inputs."""
+    n = x.ndim - 2
+    conv = F.conv3d if n == 3 else F.conv2d
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    plain = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    with exact_fp32():
+        got = torch.autograd.grad(fn(*leaves, alpha), leaves, dy)
+        ref = leaky(conv(F.pad(plain[0], (1,) * 2 * n, mode='reflect'),
+                         plain[1], plain[2]), alpha)
+        want = torch.autograd.grad(ref, plain, dy)
+    errs = {}
+    ok = True
+    for key, g, r in zip(('dx', 'dw', 'db'), got, want):
+        err = (g - r).abs().max().item()
+        tol = KERNEL_RTOL * r.abs().max().item()
+        errs[key] = err
+        ok = ok and bool(torch.isfinite(g).all()) and err <= tol
+    emit(phase='kernel_grad_check', kernel=name, shape=list(x.shape),
+         co=w.shape[0], alpha=alpha, max_abs_err=errs, ok=ok)
+    if not ok:
+        raise AssertionError(f'{name} gradients disagree with autograd of '
+                             f'the plain composition: {errs}')
+    return max(errs.values())
+
+
+def kernel_grad_checks(gen):
+    """Phase 7a: both Functions' gradients on the card."""
+    worst = {}
+    for co in (2, 1, 3):
+        for alpha in (None, 0.2):
+            x, w, b = conv_inputs(gen, TRAIN_TAIL_SHAPE, co)
+            dy = torch.randn(x.shape[:1] + (co,) + x.shape[2:],
+                             device='cuda', generator=gen)
+            err = grad_check('small_reflect_conv', small_reflect_conv_cf,
+                             x, w, b, alpha, dy)
+            worst['small_reflect_conv'] = max(
+                worst.get('small_reflect_conv', 0), err)
+    for x_shape, co, alpha in (((TRAIN_BATCH, 64, 12, 12, 48), 64, 0.2),
+                               ((TRAIN_BATCH, 2, 12, 12, 12), 64, 0.2),
+                               ((TRAIN_BATCH, 64, 12, 12, 48), 72, None)):
+        x, w, b = conv_inputs(gen, x_shape, co)
+        dy = torch.randn(x.shape[:1] + (co,) + x.shape[2:], device='cuda',
+                         generator=gen)
+        err = grad_check('reflect_conv_ad',
+                         lambda xx, ww, bb, a: reflect_conv_ad(
+                             xx, ww, bb, 3, a), x, w, b, alpha, dy)
+        worst['reflect_conv_ad'] = max(worst.get('reflect_conv_ad', 0), err)
+    return worst
+
+
+def train_batch(n, seed=1):
+    """bench.py's training batch: U(0, 1) LR and HR of batch ``n``."""
+    rng = np.random.default_rng(seed)
+    lr = rng.random((n,) + TRAIN_LR).astype(np.float32)
+    hr = rng.random((n,) + TRAIN_HR).astype(np.float32)
+    return lr, hr
+
+
+def step_grads(model, lr, hr):
+    """Both losses' gradients (the generator's, the discriminator's) at
+    one batch, computed as ``Sup3rGan._train_step`` computes them, in the
+    model's dtype."""
+    net = model._train_gen_net()
+    dtype = model.gen_params[0].dtype
+    lr = torch.as_tensor(lr, dtype=dtype, device=model.device)
+    hr = torch.as_tensor(hr, dtype=dtype, device=model.device)
+    with exact_fp32():
+        out = net.apply(lr, {})
+        d_true, d_gen = model._disc.apply(hr), model._disc.apply(out)
+        gen_loss = (model.loss_fun(out, hr)
+                    + W_ADV * relativistic_disc_loss(d_gen, d_true))
+        disc_loss = relativistic_disc_loss(d_true, d_gen)
+        return (torch.autograd.grad(gen_loss, model.gen_params,
+                                    retain_graph=True),
+                torch.autograd.grad(disc_loss, model.disc_params))
+
+
+def rel_err(got, want, skip_last=False):
+    """Largest per-tensor max|got - want| / max|want| over two tensor
+    lists (on the CPU, in float64)."""
+    pairs = list(zip(got, want))[:-1 if skip_last else None]
+    out = 0.0
+    for a, b in pairs:
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        scale = b.abs().max().item()
+        out = max(out, (a - b).abs().max().item() / (scale or 1.0))
+    return out
+
+
+def train_check():
+    """Phase 7b: one flagship step at batch 2 on the card against the
+    port's CPU step from the same weights, batch and state, for the
+    three gating cases. Losses within 1e-4; weights and Adam moments
+    within 1e-4 of each tensor's largest magnitude, or within the step's
+    fp32 conditioning where that is wider: at initialization the
+    discriminator's outputs are ~1e-3 of its activations, so its
+    gradients carry fp32 rounding of ~1e-3 of their size on any device.
+    That conditioning is measured against a float64 step on the card:
+    the card's gradients (from its Adam moments, mu = 0.1 g after one
+    step) must be as close to float64 as the CPU's are (within 2x, or
+    1e-4)."""
+    lr, hr = train_batch(CHECK_BATCH, seed=2)
+    card = train_model('cuda', CHECK_OPT)
+    cpu = train_model('cpu', CHECK_OPT)
+    start = [params_to_jax(card._gen), params_to_jax(card._disc)]
+    ref = train_model('cuda', CHECK_OPT)
+    ref._gen.double()
+    ref._disc.double()
+    exact = step_grads(ref, lr, hr)
+    del ref
+    tols, worst = {}, 0.0
+    for gate, (do_gen, do_disc) in GATES.items():
+        for model in (card, cpu):
+            params_from_jax(model._gen, start[0])
+            params_from_jax(model._disc, start[1])
+            model._gen_opt_state = model._gen_tx.init(model.gen_params)
+            model._disc_opt_state = model._disc_tx.init(model.disc_params)
+        got = card.run_gradient_descent(lr, hr, W_ADV, do_gen, do_disc)
+        want = cpu.run_gradient_descent(lr, hr, W_ADV, do_gen, do_disc)
+        errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+        ok = all(v <= PARITY_RTOL for v in errs.values())
+        conditioning = {}
+        for i, tag in enumerate(('_gen', '_disc')):
+            states = [getattr(m, tag + '_opt_state') for m in (card, cpu)]
+            if gate == 'both':
+                # fp32 against float64: the CPU's, then the card's
+                e_cpu, e_card = (
+                    rel_err([m / 0.1 for m in st['mu']], exact[i],
+                            skip_last=tag == '_disc') for st in states)
+                tols[tag] = max(PARITY_RTOL, 2 * (e_cpu + e_card))
+                conditioning[tag] = {'cpu_vs_float64': e_cpu,
+                                     'card_vs_float64': e_card}
+                ok = ok and e_card <= max(PARITY_RTOL, 2 * e_cpu)
+            nets = [getattr(m, tag) for m in (card, cpu)]
+            skip = tag == '_disc'
+            errs[f'param{tag}'] = rel_err(*[list(n.parameters())
+                                            for n in nets], skip)
+            for key in ('mu', 'nu'):
+                errs[f'{key}{tag}'] = rel_err(*[st[key] for st in states],
+                                              skip)
+            # nu is quadratic in the gradient: twice its relative error
+            ok = (ok and errs[f'param{tag}'] <= tols[tag]
+                  and errs[f'mu{tag}'] <= tols[tag]
+                  and errs[f'nu{tag}'] <= 2 * tols[tag])
+        worst = max(worst, max(errs.values()))
+        emit(phase='train_check', gate=gate, batch=CHECK_BATCH,
+             losses_card=got, rel_err=errs, loss_tol=PARITY_RTOL,
+             tol={k.strip('_'): v for k, v in tols.items()},
+             fp32_conditioning=conditioning or None, ok=ok)
+        if not ok:
+            raise AssertionError(f'train step ({gate}): card vs CPU {errs}')
+    return worst
+
+
+def train_step_phase(name, model):
+    """Phase 7c: bench.py's cell, timed; returns the launches per step."""
+    lr_np, hr_np = train_batch(TRAIN_BATCH)
+    lr = torch.as_tensor(lr_np, device='cuda')
+    hr = torch.as_tensor(hr_np, device='cuda')
+    for _ in range(N_WARM_STEPS):
+        model.run_gradient_descent(lr, hr, W_ADV, True, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+    times, losses = [], None
+    for _ in range(N_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses = model.run_gradient_descent(lr, hr, W_ADV, True, True)
+        times.append(1e3 * (time.perf_counter() - t0))
+    launches = {'small_reflect_conv': small_reflect_conv_cf.launches,
+                'reflect_conv': reflect_conv_cf.launches}
+    per_step = {k: v / N_TRAIN_STEPS for k, v in launches.items()}
+    ok = per_step == {'small_reflect_conv': 1, 'reflect_conv': 0} and all(
+        np.isfinite(v) for v in losses.values())
+    median = float(np.median(times))
+    emit(phase='train_step', model='spatiotemporal/gen_3x_4x_2f',
+         disc='spatiotemporal/disc_test', batch=TRAIN_BATCH,
+         lr_shape=list(TRAIN_LR), hr_shape=list(TRAIN_HR),
+         steps=N_TRAIN_STEPS, step_ms=times, median_step_ms=median,
+         spread_ms=[float(np.min(times)), float(np.max(times))],
+         hr_voxels_per_s=TRAIN_BATCH * int(np.prod(TRAIN_HR[:3]))
+         / (median / 1e3), launches_per_step=per_step, losses=losses,
+         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+         nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'train step: launches per step {per_step}, '
+                             f'losses {losses}')
+    return lr, hr, median, per_step
+
+
+def train_phase_times(model, lr, hr):
+    """Device time of each phase of one step, from CUDA events between
+    the phases of a step built from the model's own calls (those of
+    ``Sup3rGan._train_step``, both networks trained). The generator's
+    backward runs through the discriminator to its input."""
+    net = model._train_gen_net()
+    gen_p, disc_p = model.gen_params, model.disc_params
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    torch.cuda.synchronize()
+    with exact_fp32():
+        events[0].record()
+        out = net.apply(lr, {})
+        events[1].record()
+        d_true = model._disc.apply(hr)
+        d_gen = model._disc.apply(out)
+        gen_loss = (model.loss_fun(out, hr)
+                    + W_ADV * relativistic_disc_loss(d_gen, d_true))
+        disc_loss = relativistic_disc_loss(d_true, d_gen)
+        events[2].record()
+        gen_grads = torch.autograd.grad(gen_loss, gen_p, retain_graph=True)
+        events[3].record()
+        disc_grads = torch.autograd.grad(disc_loss, disc_p)
+        events[4].record()
+        model._gen_tx.update(gen_p, gen_grads, model._gen_opt_state)
+        model._disc_tx.update(disc_p, disc_grads, model._disc_opt_state)
+        events[5].record()
+    torch.cuda.synchronize()
+    names = ('gen_forward', 'disc_forward_and_losses',
+             'gen_backward_through_disc', 'disc_backward',
+             'optimizer_updates')
+    return {k: a.elapsed_time(b)
+            for k, a, b in zip(names, events[:-1], events[1:])}
+
+
+def pads_and_folds_ms(model, lr):
+    """Device ms per step of the fused blocks' reflect pads (one in the
+    forward, one in the wgrad of the backward) and halo folds (one per
+    block that needs its input's gradient), each timed alone (CUDA
+    events) at the input shapes a step gives the blocks."""
+    shapes = []
+
+    def hook(module, args):
+        shapes.append(tuple(args[0].shape))
+
+    net = model._train_gen_net()
+    hooks = [m.register_forward_pre_hook(hook) for m in net.layers
+             if isinstance(m, FusedReflectConv)]
+    try:
+        with torch.no_grad(), exact_fp32():
+            net.apply(lr, {})
+    finally:
+        for h in hooks:
+            h.remove()
+    pads = folds = 0.0
+    for i, shape in enumerate(shapes):
+        x = torch.empty(shape, device='cuda')
+        padded = torch.empty(shape[:2] + tuple(d + 2 for d in shape[2:]),
+                             device='cuda')
+        pads += 2 * cuda_ms(lambda: F.pad(x, (1,) * 6, mode='reflect'), 5)
+        if i:  # the first block's input (the LR batch) needs no gradient
+            folds += cuda_ms(lambda: _fold_reflect_halos(padded, 3), 5)
+    return pads, folds, len(shapes)
+
+
+def tail_backward_ms():
+    """The small kernel's backward convs at the training tail (co 2,
+    alpha None), each timed alone (CUDA events, TF32 off): the
+    full-padding dgrad with the flipped kernel and cuDNN's wgrad on the
+    padded input."""
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    x, w, _ = conv_inputs(gen, TRAIN_TAIL_SHAPE, 2)
+    dy = torch.randn((TRAIN_BATCH, 2) + TRAIN_TAIL_SHAPE[2:],
+                     device='cuda', generator=gen)
+    xp = F.pad(x, (1,) * 6, mode='reflect')
+    kf = w.flip([2, 3, 4]).transpose(0, 1)
+    with exact_fp32():
+        dgrad = cuda_ms(lambda: F.conv3d(dy, kf, padding=2), 20)
+        wgrad = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+            xp, w.shape, dy), 20)
+    return {'dgrad_ms': dgrad, 'wgrad_ms': wgrad}
+
+
+def train_profile(model, lr, hr):
+    """One step under ``torch.profiler``: device-busy ms against the wall
+    time (idle share), the small kernel's device time and the kernels
+    that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.run_gradient_descent(lr, hr, W_ADV, True, True)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    small = sum(e.self_device_time_total for e in events
+                if KERNEL_NAMES['small_reflect_conv'] in e.key) / 1e3
+    return {'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
+            'idle_share': 1 - busy_ms / wall_ms,
+            'small_reflect_conv_ms': small,
+            'top_device': [{'name': e.key[:90], 'calls': e.count,
+                            'device_ms': e.self_device_time_total / 1e3}
+                           for e in events[:10]]}
+
+
+def train_loop(step_ms):
+    """Phase 7e: ``Sup3rGan.train`` over a ``BatchHandler`` of fake
+    hourly u/v data: 2 epochs of 4 batches of 16, validation, the last
+    checkpoint reloaded and served."""
+    features = ['u_100m', 'v_100m']
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_train_')
+    try:
+        handler = BatchHandler(
+            [make_fake_dset((72, 72, 240), features)],
+            [make_fake_dset((72, 72, 96), features)],
+            batch_size=TRAIN_BATCH, n_batches=4, s_enhance=3, t_enhance=4,
+            sample_shape=TRAIN_HR[:3])
+        model = Sup3rGan(get_config('spatiotemporal/gen_3x_4x_2f'),
+                         get_config('spatiotemporal/disc_test'),
+                         learning_rate=TRAIN_LR_RATE)
+        small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.train(handler, input_resolution={'spatial': '3km',
+                                               'temporal': '60min'},
+                    n_epoch=2, weight_gen_advers=W_ADV,
+                    out_dir=os.path.join(tmp, 'gan_{epoch}'))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        # the tail launches once per forward: 8 train batches and 8
+        # validation batches (4 of each per epoch)
+        launches = {'small_reflect_conv': small_reflect_conv_cf.launches,
+                    'reflect_conv': reflect_conv_cf.launches}
+        t0 = time.perf_counter()
+        model.calc_val_loss(handler, W_ADV)
+        val_s = time.perf_counter() - t0
+        handler.stop()
+        history = model.history
+        ok = (len(history) == 2 and all(
+            c in history and np.isfinite(history[c]).all()
+            for c in ('train_loss_gen', 'train_loss_disc', 'val_loss_gen',
+                      'val_loss_disc')))
+        loaded = Sup3rGan.load(os.path.join(tmp, 'gan_1'))
+        lr = np.random.default_rng(3).standard_normal(
+            (1,) + TRAIN_LR).astype(np.float32) * 0.3 + 0.5
+        out = loaded.generate(lr)
+        ok = (ok and out.shape == (1, 36, 36, 48, 2)
+              and bool(np.isfinite(out).all())
+              and len(loaded.history) == 2
+              and loaded._gen_opt_state['count']
+              == model._gen_opt_state['count'])
+        ok = ok and launches == {'small_reflect_conv': 16,
+                                 'reflect_conv': 0}
+        # the epochs' seconds from the history (init and the checkpoint
+        # save fall outside them); a batch's share without validation
+        epoch_s = np.diff([0.0] + list(history['elapsed_time']))
+        emit(phase='train_loop', epochs=2, batches_per_epoch=4,
+             batch=TRAIN_BATCH, wall_s=wall_s, epoch_s=list(epoch_s),
+             validation_s_per_epoch=val_s,
+             s_per_batch=float(np.mean(epoch_s - val_s)) / 4,
+             bare_step_s=step_ms / 1e3,
+             update_fractions={k: list(history[f'train_{k}_train_frac'])
+                               for k in ('gen', 'disc')},
+             starvation_rate=handler._queue.starvation_rate,
+             history={c: list(history[c]) for c in history.columns},
+             launches=launches, reloaded_generate_shape=list(out.shape),
+             ok=ok)
+        if not ok:
+            raise AssertionError('train loop: history, launches, reload or '
+                                 'generate failed')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def training_phase(name, gen):
+    """Phase 7: training on the card; returns what the kernels line
+    reports of it."""
+    grad_errs = kernel_grad_checks(gen)
+    check_err = train_check()
+    model = train_model('cuda')
+    lr, hr, step_ms, per_step = train_step_phase(name, model)
+    phases = train_phase_times(model, lr, hr)
+    pads, folds, blocks = pads_and_folds_ms(model, lr)
+    backward = tail_backward_ms()
+    profile_rec = train_profile(model, lr, hr)
+    emit(phase='train_profile', phase_device_ms=phases,
+         pads_ms_per_step=pads, folds_ms_per_step=folds,
+         fused_blocks=blocks, small_reflect_conv_backward=backward,
+         **profile_rec)
+    del model
+    train_loop(step_ms)
+    return {'launches_per_train_step': per_step['small_reflect_conv'],
+            'train_backward_library_ms': backward,
+            'grad_max_abs_err': grad_errs['small_reflect_conv'],
+            'train_check_rel_err': check_err,
+            'train_kernel_ms': profile_rec['small_reflect_conv_ms']}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device: '
@@ -782,6 +1238,10 @@ def main():
                   for co, inputs in tails.items()}
     # 6. the chunked forward pass
     fwp_launches = forward_pass_phase(smi)
+    # 7. training
+    train = training_phase(smi, gen)
+    train_tail = timing('small_reflect_conv', small_reflect_conv_cf,
+                        *conv_inputs(gen, TRAIN_TAIL_SHAPE, 2), None)
 
     def per_fwp_pass(kname):
         return {route: counts[kname]
@@ -790,10 +1250,18 @@ def main():
     kernels = [record('small_reflect_conv', tail_times[2],
                       tails=list(tail_times.values()),
                       launches_per_fwp_pass=per_fwp_pass(
-                          'small_reflect_conv')),
+                          'small_reflect_conv'),
+                      launches_per_train_step=train[
+                          'launches_per_train_step'],
+                      train_shape=dict(
+                          train_tail,
+                          backward_library_ms=train[
+                              'train_backward_library_ms'],
+                          grad_max_abs_err=train['grad_max_abs_err'])),
                record('reflect_conv', body_times[2],
                       main_path_shapes=shapes,
-                      launches_per_fwp_pass=per_fwp_pass('reflect_conv'))]
+                      launches_per_fwp_pass=per_fwp_pass('reflect_conv'),
+                      launches_per_train_step=0)]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

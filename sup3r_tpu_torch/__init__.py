@@ -4,9 +4,10 @@ A second package beside the JAX one, ported one slice at a time (see
 ROADMAP.md). It serves generators through ``Sup3rGan.load`` /
 ``Sup3rGan.generate`` in exact fp32, with the JAX package's two Pallas
 TPU kernels replaced by CUDA C++ kernels for Hopper (``csrc/``, built at
-first use by ``ops/build.py``), and runs the chunked forward pass
+first use by ``ops/build.py``), runs the chunked forward pass
 (``pipeline``: strategy, device-batched dispatch, cropped drain,
-NetCDF / H5 writers).
+NetCDF / H5 writers), and trains ``Sup3rGan`` (``Sup3rGan.train`` over a
+``preprocessing.BatchHandler``).
 
 The port imports torch, numpy, scipy and the standard library only
 (h5py where an H5 file is read or written).

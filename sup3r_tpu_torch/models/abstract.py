@@ -1,11 +1,12 @@
-"""Model base classes: the inference contract and the shared
-single-model machinery the serving path needs (the port of the
-inference half of ``sup3r_tpu/models/abstract.py``): meta and feature
-properties, normalization stats, the forward-pass exo combine for
-plain-array exo, and the save directory's ``model_params.json``.
+"""Model base classes (the port of ``sup3r_tpu/models/abstract.py``):
+the inference contract, meta and feature properties, normalization
+stats, the forward-pass exo combine for plain-array exo, the save
+directory's ``model_params.json``, and the training surface: the content
+loss, training-session params, the rolling loss record, the per-epoch
+history (a pandas-free ``Record``, written as ``history.csv``) and early
+stopping.
 
-Training (losses, history, fused train steps) comes with the training
-slice; structured ``ExoData`` exo comes with the data-plane slice.
+Structured ``ExoData`` exo comes with the data-plane slice.
 """
 
 import json
@@ -19,7 +20,9 @@ import torch
 
 import sup3r_tpu_torch
 from sup3r_tpu_torch.models.network import Network
+from sup3r_tpu_torch.models.record import Record
 from sup3r_tpu_torch.names import strip_obs_suffix
+from sup3r_tpu_torch.ops.losses import get_loss_fun
 from sup3r_tpu_torch.utilities import safe_serialize
 
 logger = logging.getLogger(__name__)
@@ -162,6 +165,37 @@ class AbstractInterface:
         """Versions this model was built with."""
         return VERSION_RECORD
 
+    def set_model_params(self, **kwargs):
+        """Merge training-session params into meta, checking the
+        enhancement factors and exo features against the network."""
+        keys = ('input_resolution', 'lr_features', 'hr_exo_features',
+                'hr_out_features', 'smoothed_features', 'smoothing',
+                's_enhance', 't_enhance')
+        for key in keys:
+            if key in kwargs and kwargs[key] is not None:
+                self.meta[key] = kwargs[key]
+        self.meta['class'] = type(self).__name__
+        if hasattr(self, '_gen'):
+            s_layers = self._gen.s_enhance
+            t_layers = self._gen.t_enhance
+            s = self.meta.get('s_enhance')
+            t = self.meta.get('t_enhance')
+            if s is not None and s_layers not in (1, s):
+                raise RuntimeError(
+                    f'Model layers suggest s_enhance={s_layers} but '
+                    f'params say {s}')
+            if t is not None and t_layers not in (1, t):
+                raise RuntimeError(
+                    f'Model layers suggest t_enhance={t_layers} but '
+                    f'params say {t}')
+        exo_feats = kwargs.get('hr_exo_features')
+        if exo_feats and hasattr(self, '_gen'):
+            net_feats = self.hr_exo_features
+            if list(exo_feats) != list(net_feats):
+                raise RuntimeError(
+                    f'Batch handler exo features {exo_feats} do not match '
+                    f'network exo layers {net_feats}')
+
     def save_params(self, out_dir):
         """Write model_params.json to the save directory (the JAX
         package's format)."""
@@ -179,14 +213,32 @@ class AbstractInterface:
 
 
 class AbstractSingleModel(AbstractInterface):
-    """Shared single-model machinery: norm stats, exo plumbing,
-    save-directory I/O."""
+    """Shared single-model machinery: norm stats, loss resolution, exo
+    plumbing, save-directory I/O, loss records and history."""
+
+    #: fuse pad/conv/crop blocks in the train step too: the same rewrite
+    #: as ``inference_fuse``, in the generator's forward and backward
+    #: (the halo ring is wasted work both ways). The fused blocks hold
+    #: the generator's conv layers, so gradients land on its params.
+    train_fuse = True
+
+    #: the JAX package's shard-aligned s1 formulation for spatially
+    #: sharded training; comes with the multi-device slice
+    train_shard_aligned = None
+
+    #: mixed-precision training ('bfloat16'); not ported yet
+    train_dtype = None
+
+    #: gradient rematerialization of the generator; not ported yet
+    train_remat = False
 
     def __init__(self):
         self.meta = {}
         self._means = None
         self._stdevs = None
+        self._history = None
         self.loss_name = 'MeanSquaredError'
+        self.loss_fun = get_loss_fun(self.loss_name)
 
     # ------------------------------------------------------------------
     # normalization
@@ -250,6 +302,18 @@ class AbstractSingleModel(AbstractInterface):
         means, stds = self._out_stats()
         return np.asarray(output) * stds + means
 
+    # ------------------------------------------------------------------
+    # loss
+    def set_loss_function(self, loss):
+        """Resolve and set the content loss function."""
+        self.loss_name = loss
+        self.loss_fun = get_loss_fun(loss)
+
+    @property
+    def history(self):
+        """Training history ``Record`` (one row per epoch)."""
+        return self._history
+
     @property
     def model_params(self):
         params = super().model_params
@@ -261,6 +325,28 @@ class AbstractSingleModel(AbstractInterface):
             else str(self.loss_name),
         })
         return params
+
+    # ------------------------------------------------------------------
+    # exo routing (training batches carry exo channels last)
+    def get_hr_exo_input(self, hi_res):
+        """The exo channels (the last channels of a training HR batch) as
+        the ``{feature: (..., 1)}`` dict the network takes."""
+        if not self.hr_exo_features:
+            return {}
+        hr_features = self.hr_features
+        return {f: hi_res[..., hr_features.index(f):
+                          hr_features.index(f) + 1]
+                for f in self.hr_exo_features}
+
+    def _combine_loss_input(self, hi_res_true, hi_res_gen):
+        """Append the true exo channels onto generated output so the
+        discriminator sees the full channel set."""
+        if hi_res_true.shape[-1] > hi_res_gen.shape[-1]:
+            exo = self.get_hr_exo_input(hi_res_true)
+            hi_res_gen = torch.cat(
+                [hi_res_gen, *[exo[f] for f in self.hr_exo_features]],
+                dim=-1)
+        return hi_res_gen
 
     # ------------------------------------------------------------------
     # forward-pass exo combine
@@ -294,6 +380,41 @@ class AbstractSingleModel(AbstractInterface):
         if verbose:
             logger.info('Loading model from %s', out_dir)
         return params
+
+    def save_history(self, out_dir):
+        """Write history.csv if there is any history."""
+        if isinstance(self._history, Record):
+            self._history.to_csv(os.path.join(out_dir, 'history.csv'))
+
+    @staticmethod
+    def update_loss_details(record, new_details, prefix='',
+                            max_batches=None):
+        """Append a row of loss details; keep the last ``max_batches``
+        rows (a ROLLING record carried across epochs: per-epoch resets
+        would cold-start the disc gating every epoch)."""
+        if record is None:
+            record = Record()
+        record.append({f'{prefix}{k}': float(v)
+                       for k, v in new_details.items()})
+        if max_batches is not None and len(record) > max_batches:
+            record.tail(max_batches)
+        return record
+
+    @staticmethod
+    def early_stop(history, column, threshold=0.005, n_epoch=5):
+        """True when ``column`` improved less than ``threshold``
+        (relative) for ``n_epoch`` consecutive epochs."""
+        if history is None or column not in history or len(
+                history[column]) < n_epoch + 1:
+            return False
+        vals = np.asarray(history[column])[-(n_epoch + 1):]
+        diffs = np.abs(np.diff(vals)) / np.abs(vals[:-1])
+        stop = bool(np.all(diffs < threshold))
+        if stop:
+            logger.info(
+                'Early stop: %s changed by less than %.4f for %d epochs',
+                column, threshold, n_epoch)
+        return stop
 
     @staticmethod
     def load_network(config, name):

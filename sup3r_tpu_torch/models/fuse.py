@@ -1,4 +1,4 @@
-"""Inference-time network optimization: rewrite
+"""Network optimization for inference and training: rewrite
 ``FlexiblePadding(reflect) -> Conv(k3,s1) -> Cropping (-> LeakyReLU)``
 sequences into single fused reflect-pad-1 convolutions (the port of
 ``sup3r_tpu/models/fuse.py``).
@@ -11,16 +11,24 @@ the retained output pixels only ever read a 1-pixel reflect halo:
 so both reduce to a k3/s1 reflect-boundary conv. Inline 'relu'
 activations fold in as LeakyReLU(alpha=0).
 
+A fused block holds its conv layer, so it reads the conv's current
+parameters at every call and gradients land on them: the generator's
+own ``nn.Parameter``s. ``Sup3rGan`` fuses the generator for training too
+(``train_fuse``): the same rewrite saves the halo ring's work in the
+forward and the backward.
+
 Routing of a fused block (``FusedReflectConv.forward``), on a CUDA
 tensor:
   * ``small_channel_kernel`` (on by default): 3D, fp32, ``ci * co <=
     32`` blocks (the flagship's HR 8 -> 2 tail) launch the hand-written
     ``small_reflect_conv`` kernel;
   * ``use_pallas`` (``Sup3rGan.inference_pallas``): EVERY other fused
-    block launches the hand-written ``reflect_conv`` kernel. The JAX
+    block launches the hand-written ``reflect_conv`` kernel, but only
+    while gradients are off: that kernel has no backward. The JAX
     package also gated this on ``_fits_vmem``, a TPU VMEM-residency
     rule with no counterpart here;
-  * otherwise the block runs ``reflect_conv_ad``: ``F.pad`` + cuDNN.
+  * otherwise the block runs ``reflect_conv_ad``: ``F.pad`` + cuDNN,
+    with the custom backward.
 On a CPU tensor every block runs ``reflect_conv_ad``, the kernels'
 plain version.
 
@@ -60,7 +68,8 @@ class FusedReflectConv(Layer):
     REFLECT) -> Conv(valid) -> Cropping(2), which computes a 2-cell
     halo ring that is immediately cropped away. This block is the
     algebraic simplification (reflect-pad-1 + valid conv). It holds
-    the conv's weight (OI.. layout) and bias by reference."""
+    the conv layer, and reads its weight (OI.. layout, as
+    ``fused_weight``) and bias at each call."""
 
     #: route every fused block the small kernel does not take to the
     #: hand-written ``reflect_conv`` kernel (set from
@@ -72,31 +81,41 @@ class FusedReflectConv(Layer):
     #: ``small_reflect_conv`` kernel
     small_channel_kernel = True
 
-    def __init__(self, n_spatial, weight, bias, alpha=None):
+    def __init__(self, n_spatial, conv, alpha=None):
         super().__init__()
         self.n_spatial = n_spatial
         self.alpha = alpha
-        self.weight = weight
-        self.bias = bias
+        self.conv = conv
+
+    @property
+    def weight(self):
+        """The conv's OI.. correlation weight (differentiable in the
+        conv's own parameter)."""
+        return self.conv.fused_weight()
+
+    @property
+    def bias(self):
+        return self.conv.bias
 
     def out_shape(self, in_shape):
         raise NotImplementedError(
             'FusedReflectConv is created by fuse_network with existing '
             'params; shape inference happens pre-fusion')
 
-    def _small_ok(self, x):
-        co, ci = self.weight.shape[:2]
+    def _small_ok(self, x, weight):
+        co, ci = weight.shape[:2]
         return (self.n_spatial == 3 and x.ndim == 5
                 and x.dtype == torch.float32 and ci * co <= 32)
 
     def forward(self, x, ctx):
         on_cuda = x.is_cuda
-        if self.small_channel_kernel and on_cuda and self._small_ok(x):
-            return small_reflect_conv_cf(x, self.weight, self.bias,
-                                         self.alpha)
-        if self.use_pallas and on_cuda:
-            return reflect_conv_cf(x, self.weight, self.bias, self.alpha)
-        return reflect_conv_ad(x, self.weight, self.bias, self.n_spatial,
+        weight = self.weight
+        if (self.small_channel_kernel and on_cuda
+                and self._small_ok(x, weight)):
+            return small_reflect_conv_cf(x, weight, self.bias, self.alpha)
+        if self.use_pallas and on_cuda and not torch.is_grad_enabled():
+            return reflect_conv_cf(x, weight, self.bias, self.alpha)
+        return reflect_conv_ad(x, weight, self.bias, self.n_spatial,
                                self.alpha)
 
 
@@ -130,7 +149,7 @@ def fuse_network(layers):
         i += consumed
         n_fused += 1
     if n_fused:
-        logger.info('Fused %d reflect-conv blocks for inference', n_fused)
+        logger.info('Fused %d reflect-conv blocks', n_fused)
     return new_layers
 
 
@@ -189,8 +208,7 @@ def _match_sequence(layers, i):
                 consumed = 5
                 trailing = [nxt]
 
-    fused = FusedReflectConv(n_spatial, conv.fused_weight(), conv.bias,
-                             alpha=alpha)
+    fused = FusedReflectConv(n_spatial, conv, alpha=alpha)
     return [fused, *trailing], consumed
 
 

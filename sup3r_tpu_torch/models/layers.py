@@ -82,10 +82,17 @@ def _glorot_uniform(shape, generator):
     return (2.0 * u - 1.0) * limit
 
 
+def _tensor(array):
+    """A float32 CPU tensor copy of a numpy array / tensor."""
+    if isinstance(array, torch.Tensor):
+        return array.detach().to('cpu', torch.float32).clone()
+    return torch.tensor(np.asarray(array, np.float32))
+
+
 def _param(array):
-    """Frozen parameter from a numpy array / tensor (inference port)."""
-    return nn.Parameter(torch.tensor(np.asarray(array, np.float32)),
-                        requires_grad=False)
+    """Frozen parameter from a numpy array / tensor; training turns
+    ``requires_grad`` on (``Sup3rGan.init_weights``)."""
+    return nn.Parameter(_tensor(array), requires_grad=False)
 
 
 def _numpy(tensor):
@@ -117,14 +124,34 @@ class Layer(nn.Module):
         return in_shape
 
     def load_jax(self, params):
-        """Load the JAX package's param dict for this layer."""
-        if params:
-            raise ValueError(f'{type(self).__name__} has no params, got '
-                             f'{sorted(params)}')
+        """Load the JAX package's param dict for this layer. A param
+        of the same shape is overwritten in place (it keeps its device,
+        its ``requires_grad`` and the optimizer's hold on it)."""
+        for name, value in self.tensors_from_jax(params).items():
+            old = getattr(self, name, None)
+            if isinstance(old, nn.Parameter) and old.shape == value.shape:
+                with torch.no_grad():
+                    old.copy_(value)
+            else:
+                setattr(self, name, _param(value))
 
     def params_to_jax(self):
         """This layer's param dict in the JAX package's layout (numpy
         float32): the inverse of ``load_jax``."""
+        return self.tensors_to_jax(dict(self.named_parameters()))
+
+    def tensors_from_jax(self, params):
+        """{param name: tensor in the port's layout} of a dict of
+        arrays in the JAX package's layout (params, or optimizer moments
+        shaped like them), in parameter order."""
+        if params:
+            raise ValueError(f'{type(self).__name__} has no params, got '
+                             f'{sorted(params)}')
+        return {}
+
+    def tensors_to_jax(self, tensors):
+        """Inverse of ``tensors_from_jax``: numpy float32 arrays in the
+        JAX package's layout, keyed as its param dicts are."""
         return {}
 
     def forward(self, x, ctx):
@@ -151,7 +178,9 @@ class LeakyReLU(Layer):
         self.alpha = float(alpha)
 
     def forward(self, x, ctx):
-        return F.leaky_relu(x, self.alpha)
+        # jax.nn.leaky_relu: the same values as F.leaky_relu, but its
+        # gradient at exactly 0 is 1, not alpha
+        return torch.where(x >= 0, x, self.alpha * x)
 
 
 class Flatten(Layer):
@@ -181,13 +210,14 @@ class Dense(Layer):
         self.load_jax({'kernel': kernel, 'bias': np.zeros(self.units)})
         return self.out_shape(in_shape)
 
-    def load_jax(self, params):
+    def tensors_from_jax(self, params):
         # torch's (out, in) layout for F.linear
-        self.weight = _param(np.asarray(params['kernel']).T)
-        self.bias = _param(params['bias'])
+        return {'weight': _tensor(params['kernel']).T.contiguous(),
+                'bias': _tensor(params['bias'])}
 
-    def params_to_jax(self):
-        return {'kernel': _numpy(self.weight.T), 'bias': _numpy(self.bias)}
+    def tensors_to_jax(self, tensors):
+        return {'kernel': _numpy(tensors['weight'].T),
+                'bias': _numpy(tensors['bias'])}
 
     def forward(self, x, ctx):
         y = F.linear(x.movedim(1, -1), self.weight, self.bias).movedim(
@@ -339,30 +369,30 @@ class _ConvBase(Layer):
                        'bias': np.zeros(self.filters)})
         return self.out_shape(in_shape)
 
-    def load_jax(self, params):
+    def tensors_from_jax(self, params):
         """DHWIO / HWIO kernel -> OIDHW / OIHW weight; for a transposed
         conv, the spatially flipped kernel in (I, O, ...) layout."""
-        kernel = torch.tensor(np.asarray(params['kernel'], np.float32))
+        kernel = _tensor(params['kernel'])
         n = self.n_spatial
         if self.transpose:
             kernel = kernel.flip(tuple(range(n))).permute(n, n + 1,
                                                           *range(n))
         else:
             kernel = kernel.permute(n + 1, n, *range(n))
-        self.weight = _param(kernel.contiguous())
-        self.bias = _param(params['bias'])
+        return {'weight': kernel.contiguous(),
+                'bias': _tensor(params['bias'])}
 
-    def params_to_jax(self):
+    def tensors_to_jax(self, tensors):
         """OIDHW / OIHW weight -> DHWIO / HWIO kernel; for a transposed
         conv, the (I, O, ...) weight flipped back spatially."""
-        weight = self.weight.detach()
+        weight = tensors['weight'].detach()
         n = self.n_spatial
         if self.transpose:
             kernel = weight.permute(*range(2, 2 + n), 0, 1).flip(
                 tuple(range(n)))
         else:
             kernel = weight.permute(*range(2, 2 + n), 1, 0)
-        return {'kernel': _numpy(kernel), 'bias': _numpy(self.bias)}
+        return {'kernel': _numpy(kernel), 'bias': _numpy(tensors['bias'])}
 
     def fused_weight(self):
         """The OI.. weight of the equivalent correlation: a stride-1

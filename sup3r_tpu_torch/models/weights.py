@@ -6,6 +6,12 @@ port's layer modules; ``params_to_jax`` gives that list back.
 ``load_jax_checkpoint`` / ``save_jax_checkpoint`` read and write a
 ``model_gen.msgpack`` / ``model_disc.msgpack`` as the JAX package's
 ``Sup3rGan.save`` does, so save directories are interchangeable.
+``opt_state_to_jax`` / ``opt_state_from_jax`` carry one network's
+optimizer state (optax's chain state: Adam's ``count``, ``mu`` and
+``nu``, the momentum ``trace``, RMSprop's ``nu``) to and from flax's
+state-dict layout, which ``opt_state.msgpack`` holds for the
+``(generator, discriminator)`` pair: a save resumes in either package
+with the same next step.
 
 The file is flax's msgpack state dict: a map ``{'0': {...}, '1': {},
 ...}`` with one entry per layer, each array a msgpack extension of type
@@ -55,6 +61,60 @@ def params_to_jax(network):
             for lyr in network.layers]
 
 
+def _layer_params(network):
+    """[(layer, [param names])] in ``network.parameters()`` order."""
+    return [(lyr, [n for n, _ in lyr.named_parameters()])
+            for lyr in network.layers]
+
+
+def moments_to_jax(network, tensors):
+    """Per-layer state dict (``{'0': {...}, ...}``, numpy arrays in the
+    JAX package's layouts) of tensors aligned with
+    ``network.parameters()``: optimizer moments shaped like the
+    params."""
+    it = iter(tensors)
+    return {str(i): dict(sorted(lyr.tensors_to_jax(
+        {n: next(it) for n in names}).items()))
+        for i, (lyr, names) in enumerate(_layer_params(network))}
+
+
+def moments_from_jax(network, tree):
+    """Inverse of ``moments_to_jax``: tensors aligned with
+    ``network.parameters()``, each on its parameter's device."""
+    params = list(network.parameters())
+    out = []
+    for i, (lyr, names) in enumerate(_layer_params(network)):
+        tensors = lyr.tensors_from_jax(tree[str(i)])
+        out.extend(tensors[n] for n in names)
+    if len(out) != len(params) or any(
+            t.shape != p.shape for t, p in zip(out, params)):
+        raise ValueError('optimizer state does not match the network')
+    return [t.to(p.device) for t, p in zip(out, params)]
+
+
+def opt_state_to_jax(optimizer, state, network):
+    """One network's optimizer state as flax's state dict of optax's
+    chain state (``{'0': stage, '1': stage, ...}``)."""
+    stages = []
+    for stage in optimizer.stages(state):
+        stages.append({
+            k: (np.asarray(v, np.int32) if k == 'count'
+                else moments_to_jax(network, v))
+            for k, v in stage.items()})
+    return {str(i): st for i, st in enumerate(stages)}
+
+
+def opt_state_from_jax(optimizer, tree, network):
+    """Inverse of ``opt_state_to_jax``: the port's state for
+    ``optimizer`` on ``network``'s parameters."""
+    stages = []
+    for i in range(len(tree)):
+        stages.append({
+            k: (int(v) if k == 'count' else moments_from_jax(network, v))
+            for k, v in tree[str(i)].items()})
+    return optimizer.from_stages(stages)
+
+
 # ----------------------------------------------------------------------
 # msgpack, the subset flax writes
 def _pack(obj, out):
@@ -87,7 +147,8 @@ def _pack(obj, out):
             _pack(key, out)
             _pack(value, out)
     elif isinstance(obj, np.ndarray):
-        arr = np.ascontiguousarray(obj)
+        # np.ascontiguousarray would make a 0-d array (a count) 1-d
+        arr = obj if obj.flags.c_contiguous else np.ascontiguousarray(obj)
         inner = bytearray()
         _pack([list(arr.shape), arr.dtype.name, arr.tobytes('C')], inner)
         _pack_ext(_EXT_NDARRAY, bytes(inner), out)

@@ -30,9 +30,17 @@ Wrappers take channels-first tensors (``(n, c, *spatial)``, OI.. weights):
 the layout the port's network runs in. A tensor on the CPU takes the
 plain version (``reflect_conv_reference``); a CUDA tensor launches the
 kernel or raises. Each wrapper's ``launches`` attribute counts its kernel
-launches. ``small_reflect_conv`` and ``reflect_conv`` keep the JAX
-package's channels-last signatures for tests and callers holding JAX
-layouts.
+launches (forward launches only). ``small_reflect_conv`` and
+``reflect_conv`` keep the JAX package's channels-last signatures for
+tests and callers holding JAX layouts.
+
+``small_reflect_conv_cf`` is differentiable, as the JAX package's
+``small_reflect_conv`` is (its ``_small_conv_bwd``): a
+``torch.autograd.Function`` whose backward is ``ops/conv_ad.py``'s
+``reflect_conv_backward`` (the LeakyReLU mask, ``dbias``, a full-padding
+dgrad with the flipped kernel plus the reflect-halo fold, and cuDNN's
+native wgrad). ``reflect_conv_cf`` has no backward in the JAX package and
+is not on the training path: it raises on inputs that need gradients.
 """
 
 import ctypes
@@ -41,7 +49,10 @@ import torch
 import torch.nn.functional as F
 
 from sup3r_tpu_torch.ops import build
-from sup3r_tpu_torch.ops.conv_ad import reflect_conv_ad
+from sup3r_tpu_torch.ops.conv_ad import (
+    reflect_conv_ad,
+    reflect_conv_backward,
+)
 
 #: output channels ``small_reflect_conv_cf`` takes
 SMALL_CONV_MAX_CO = 32
@@ -86,12 +97,6 @@ def reflect_conv_reference(x, weight, bias, alpha=None):
 def _check_args(name, x, weight, bias, n_spatial):
     """Common validation; returns True when the kernel should launch
     (a CUDA tensor), False for the plain version (a CPU tensor)."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, weight, bias)):
-        raise NotImplementedError(
-            f'{name} is forward-only: its autograd.Function comes with '
-            'the training slice (ROADMAP queue 2). Run under '
-            'torch.inference_mode() or torch.no_grad().')
     if x.ndim != 2 + n_spatial:
         raise ValueError(f'{name}: expected a {2 + n_spatial}D input, got '
                          f'shape {tuple(x.shape)}')
@@ -138,20 +143,64 @@ def small_conv_pack_weights(weight):
     return F.pad(w, (0, -(-3 * cot // 4) * 4 - 3 * cot)).contiguous()
 
 
+class SmallReflectConv(torch.autograd.Function):
+    """The small kernel's forward (or its plain version on a CPU
+    tensor) with ``reflect_conv_backward``. The LeakyReLU mask reads
+    the output for ``alpha > 0`` (same sign as the pre-activation);
+    for ``alpha == 0`` the kernel runs without the activation and the
+    pre-activation is kept."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, alpha, on_card):
+        keep_pre = alpha is not None and alpha <= 0
+        kernel_alpha = None if keep_pre else alpha
+        if on_card:
+            co = weight.shape[0]
+            y = small_reflect_conv_packed(
+                x, small_conv_pack_weights(weight), bias, co, kernel_alpha)
+        else:
+            with torch.no_grad():
+                y = reflect_conv_reference(x, weight, bias, kernel_alpha)
+        mask = None
+        if keep_pre:
+            mask, y = y, F.leaky_relu(y, alpha)
+        elif alpha is not None:
+            mask = y
+        ctx.save_for_backward(x, weight, mask)
+        ctx.alpha = alpha
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mask = ctx.saved_tensors
+        dx, dw, db = reflect_conv_backward(
+            dy, x, weight, 3, ctx.alpha, mask, ctx.needs_input_grad[:3])
+        return dx, dw, db, None, None
+
+
 def small_reflect_conv_cf(x, weight, bias, alpha=None):
     """Reflect-pad-1 + k3 3D conv + bias (+LeakyReLU) for tiny channel
     counts. x: (B, CI, H, W, T) float32; weight: (CO, CI, 3, 3, 3);
-    bias: (CO,). Returns (B, CO, H, W, T)."""
-    if not _check_args('small_reflect_conv', x, weight, bias, 3):
-        return reflect_conv_reference(x, weight, bias, alpha)
-    co, ci = weight.shape[:2]
-    if not 1 <= co <= SMALL_CONV_MAX_CO or ci * co > SMALL_CONV_MAX_CI_CO:
-        raise ValueError(
-            f'small_reflect_conv is built for 1 <= co <= '
-            f'{SMALL_CONV_MAX_CO} with ci * co <= {SMALL_CONV_MAX_CI_CO}; '
-            f'got ci={ci}, co={co}')
-    return small_reflect_conv_packed(x, small_conv_pack_weights(weight),
-                                     bias, co, alpha)
+    bias: (CO,). Returns (B, CO, H, W, T). Differentiable in x, weight
+    and bias (``SmallReflectConv``); the count ``launches`` moves with
+    forward launches only."""
+    on_card = _check_args('small_reflect_conv', x, weight, bias, 3)
+    if on_card:
+        co, ci = weight.shape[:2]
+        if not 1 <= co <= SMALL_CONV_MAX_CO or (
+                ci * co > SMALL_CONV_MAX_CI_CO):
+            raise ValueError(
+                f'small_reflect_conv is built for 1 <= co <= '
+                f'{SMALL_CONV_MAX_CO} with ci * co <= '
+                f'{SMALL_CONV_MAX_CI_CO}; got ci={ci}, co={co}')
+    if not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, weight, bias))):
+        if not on_card:
+            return reflect_conv_reference(x, weight, bias, alpha)
+        return small_reflect_conv_packed(
+            x, small_conv_pack_weights(weight), bias, weight.shape[0],
+            alpha)
+    return SmallReflectConv.apply(x, weight, bias, alpha, on_card)
 
 
 small_reflect_conv_cf.launches = 0
@@ -219,6 +268,13 @@ def reflect_conv_cf(x, weight, bias, alpha=None):
     n_spatial = x.ndim - 2
     if n_spatial not in (2, 3):
         raise ValueError(f'reflect_conv: bad input rank {x.ndim}')
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, weight, bias)):
+        raise NotImplementedError(
+            'reflect_conv is forward-only: the JAX package gives its '
+            'kernel no backward and training never routes to it (ROADMAP '
+            'queue 2 item 2). Run under torch.inference_mode() or '
+            'torch.no_grad().')
     if not _check_args('reflect_conv', x, weight, bias, n_spatial):
         return reflect_conv_reference(x, weight, bias, alpha)
     co = weight.shape[0]

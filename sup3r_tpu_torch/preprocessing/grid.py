@@ -6,9 +6,10 @@ sup3r/preprocessing/base.py Sup3rDataset) with a minimal eager
 container: one float32 block of shape ``(south_north, west_east, time,
 feature)`` plus coords. No laziness — chunk streaming happens at the
 pipeline layer where it's explicit and double-buffered. The port's copy
-of what the forward pass uses of ``sup3r_tpu/preprocessing/grid.py``,
-with the pandas-free ``TimeIndex``; the sampling, statistics and paired
-containers come with the training slice.
+of what the forward pass and the training feed use of
+``sup3r_tpu/preprocessing/grid.py`` (the sampler hot path ``sample``
+and the stats' normalization), with the pandas-free
+``TimeIndex``; the paired containers come with the dual handlers.
 """
 
 import numpy as np
@@ -62,6 +63,10 @@ class GridDataset:
         """(s1, s2)"""
         return self.data.shape[:2]
 
+    @property
+    def size(self):
+        return self.data.size
+
     def __contains__(self, feature):
         return str(feature).lower() in self.features
 
@@ -97,6 +102,21 @@ class GridDataset:
         if features is None:
             return self.data
         return self[list(features)]
+
+    def sample(self, idx):
+        """Crop by an index tuple (s1_slice, s2_slice, t_slice,
+        feature_list_or_slice): the sampler hot path."""
+        s1, s2, t, f = idx
+        if isinstance(f, (list, tuple)) and f and isinstance(f[0], str):
+            f = [self.feature_index(x) for x in f]
+            return self.data[s1, s2, t][..., f]
+        return self.data[s1, s2, t, f]
+
+    def normalize(self, means, stds):
+        """In-place (x - mean) / std per feature."""
+        for i, f in enumerate(self.features):
+            sd = stds[f] or 1.0
+            self.data[..., i] = (self.data[..., i] - means[f]) / sd
 
     def interpolate_na(self):
         """Fill NaNs per feature channel from nearest valid values."""

@@ -11,6 +11,7 @@ from sup3r_tpu_torch.utilities.utilities import (  # noqa: F401
     get_dset_attrs,
     get_tmp_file,
     nn_fill_array,
+    not_ported,
     resolve_device,
     safe_serialize,
 )

@@ -21,6 +21,18 @@ from sup3r_tpu_torch.names import get_feature_basename
 logger = logging.getLogger(__name__)
 
 
+def not_ported(module, names, where):
+    """A module ``__getattr__`` that raises ``NotImplementedError``
+    naming ``where`` (the ROADMAP item that ports them) for the JAX
+    package's ``names`` this module does not have yet."""
+    def __getattr__(name):
+        if name in names:
+            raise NotImplementedError(f'{name} is not ported yet: {where}')
+        raise AttributeError(f'module {module!r} has no attribute {name!r}')
+
+    return __getattr__
+
+
 def resolve_device(device):
     """``torch.device`` for an entry point's ``device`` argument.
 

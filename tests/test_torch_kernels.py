@@ -97,9 +97,18 @@ def test_reflect_conv_matches_pallas(interpret, x_shape, co, alpha):
 
 @pytest.mark.parametrize('fn', [tk.small_reflect_conv, tk.reflect_conv])
 def test_requires_grad_raises(fn):
+    """``reflect_conv`` is forward-only (no backward in the JAX package,
+    never on the training path); ``small_reflect_conv`` takes gradients
+    to x, the kernel and the bias."""
     x, k, b = (torch.from_numpy(a) for a in _inputs(2, (1, 4, 4, 4, 2), 2))
-    with pytest.raises(NotImplementedError, match='forward-only'):
-        fn(x.requires_grad_(), k, b)
+    if fn is tk.reflect_conv:
+        with pytest.raises(NotImplementedError, match='forward-only'):
+            fn(x.requires_grad_(), k, b)
+    else:
+        leaves = [t.clone().requires_grad_() for t in (x, k, b)]
+        fn(*leaves, 0.2).square().sum().backward()
+        assert all(t.grad is not None and t.grad.abs().sum() > 0
+                   for t in leaves)
     with torch.no_grad():
         assert fn(x, k, b).shape == (1, 4, 4, 4, 2)
 

@@ -1,8 +1,10 @@
 """The port stands alone: ``sup3r_tpu_torch`` imports and serves with
 jax, jaxlib, flax, optax, the JAX package, pandas, h5py and msgpack all
 unimportable — as on the card's machine — and it never drops quietly to
-the CPU. The blocked run also saves a model, reloads it, and runs the
-chunked ForwardPass from a NetCDF3 input to NetCDF output."""
+the CPU. The blocked run also saves a model, reloads it, runs the
+chunked ForwardPass from a NetCDF3 input to NetCDF output, takes one
+train step and trains one BatchHandler epoch (history, checkpoint with
+optimizer state, reload)."""
 
 import os
 import subprocess
@@ -85,9 +87,29 @@ assert len(files) == 8, files
 data = LoaderNC(os.path.join(tmp, 'out', files[0])).data
 assert data['u_100m'].shape == (12, 12, 12)
 assert np.isfinite(data['u_100m']).all()
+print('FORWARD PASS', len(files))
+
+from sup3r_tpu_torch.preprocessing import BatchHandler
+from sup3r_tpu_torch.utilities.test_helpers import make_fake_dset
+
+details = model.run_gradient_descent(
+    lr.astype(np.float32), np.zeros((1, 12, 12, 12, 2), np.float32),
+    train_gen=True, train_disc=True)
+assert sorted(details) == ['loss_disc', 'loss_gen', 'loss_gen_advers',
+                           'loss_gen_content'], details
+handler = BatchHandler([make_fake_dset((12, 12, 24), ['u_100m', 'v_100m'])],
+                       [make_fake_dset((12, 12, 12), ['u_100m', 'v_100m'])],
+                       batch_size=1, n_batches=2, s_enhance=3, t_enhance=4,
+                       sample_shape=(12, 12, 12))
+model.train(handler, input_resolution={{'spatial': '30km',
+                                        'temporal': '60min'}},
+            n_epoch=1, out_dir=os.path.join(tmp, 'gan_{{epoch}}'))
+again = Sup3rGan.load(os.path.join(tmp, 'gan_0'), device='cpu')
+assert len(again.history) == 1 and 'val_loss_gen' in again.history
+assert again._gen_opt_state['count'] == model._gen_opt_state['count']
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not loaded, loaded
-print('FORWARD PASS', len(files))
+print('TRAINED', len(model.history))
 '''
 
 
@@ -102,6 +124,7 @@ def test_port_serves_with_jax_and_friends_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'SERVED (1, 12, 12, 12, 2)' in proc.stdout
     assert 'FORWARD PASS 8' in proc.stdout
+    assert 'TRAINED 1' in proc.stdout
 
 
 def test_no_card_without_explicit_cpu_raises(monkeypatch):

@@ -77,6 +77,32 @@ exits non-zero:
    ``Sup3rGan.train`` over a ``BatchHandler`` of fake data (2 epochs of
    4 batches, validation, checkpoint reloaded, ``generate`` of the
    reloaded model).
+8. fast and 'custom' serving (printed before the ``kernels`` line): the
+   full-width flagship on phase 3's input in fast mode (the subpixel
+   tail and a bf16 body on cuDNN): 5 timed requests after a warm-up, HR
+   voxels/s, ``fast_max_rel_err`` against the exact output (<= 0.04 of
+   its largest magnitude, docs/PERFORMANCE.md), one profiled request
+   (busy, idle, the device-to-host copy), no kernel launched; the
+   'custom' mode (the subpixel tail in float32, the body on
+   ``reflect_conv``): within 1e-4 of exact, 36 ``reflect_conv`` launches
+   per request; fast mode with ``inference_pallas=True`` refused for the
+   fp32-only kernel; phase 6's forward-pass cell with
+   ``inference_mode='fast'``: 3 timed passes, each stitched output
+   within 0.05 of the exact pass on the data scale.
+9. training modes (printed before the ``kernels`` line): phase 7's cell
+   with ``train_dtype='bfloat16'`` (median step ms, HR voxels/s, peak
+   memory, the device ms of each phase, one profiled step, the ratio to
+   the float32 step; no kernel launched: both take float32 only);
+   tests/training/test_bf16_train.py's small fixture trained in float32
+   and in bf16 on the card (losses within rtol 0.05 / atol 0.02, the
+   first kernel within 0.01, float32 master weights and moments); the
+   cell with ``train_remat=True`` (step ms, peak memory,
+   ``small_reflect_conv`` twice per step, gradients within 1e-5 of the
+   plain step's largest magnitude); the memory each mode's forward keeps
+   and the peak of each part of a step; and ``Sup3rGan.train`` in bf16 over
+   a ``DualBatchHandler`` of paired NetCDF3 files (``DataHandler`` ->
+   ``DualRasterizer``), 2 epochs of 4 batches of 16 (s per batch,
+   starvation rate).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -110,8 +136,13 @@ from sup3r_tpu_torch.preprocessing import LoaderNC
 from sup3r_tpu_torch.models.gan import relativistic_disc_loss
 from sup3r_tpu_torch.models.weights import params_from_jax, params_to_jax
 from sup3r_tpu_torch.ops.conv_ad import _fold_reflect_halos, reflect_conv_ad
-from sup3r_tpu_torch.preprocessing import BatchHandler
-from sup3r_tpu_torch.utilities import get_dset_attrs
+from sup3r_tpu_torch.preprocessing import (
+    BatchHandler,
+    DataHandler,
+    DualBatchHandler,
+    DualRasterizer,
+)
+from sup3r_tpu_torch.utilities import RANDOM_GENERATOR, get_dset_attrs
 from sup3r_tpu_torch.utilities.test_helpers import (
     make_fake_dset,
     make_fake_nc_file,
@@ -295,12 +326,12 @@ def flagship(device):
     return model
 
 
-def serve(model, lr, phase):
-    """N_REQUESTS timed generate calls; returns the last output and the
+def serve(model, lr, phase, n=N_REQUESTS):
+    """``n`` timed generate calls; returns the last output and the
     per-request host times (ms)."""
     times = []
     out = None
-    for _ in range(N_REQUESTS):
+    for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = model.generate(lr)
@@ -345,10 +376,12 @@ def profile_request(model, lr):
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    d2h_ms = sum(e.self_device_time_total for e in events
+                 if 'DtoH' in e.key) / 1e3
     top = [{'name': e.key[:90], 'calls': e.count,
             'device_ms': e.self_device_time_total / 1e3}
            for e in events[:8]]
-    return wall_ms, busy_ms, top, sum(flops)
+    return wall_ms, busy_ms, top, sum(flops), d2h_ms
 
 
 #: the forward-pass phase: low-res domain (s1, s2, t), chunk shape, pads,
@@ -383,9 +416,10 @@ def fwp_strategy(input_file, model_dir, out_pattern, device='cuda',
     return ForwardPassStrategy(**kw)
 
 
-def check_fwp_files(strategy, out_dir):
+def check_fwp_files(strategy, out_dir, keep=False):
     """Read every chunk file back through ``LoaderNC`` and tile the
-    high-res domain; it must be finite and complete."""
+    high-res domain; it must be finite and complete. Returns the tiled
+    domain's shape, and with ``keep`` the tiled array too."""
     slicer, s_en, t_en = (strategy.fwp_slicer, strategy.s_enhance,
                           strategy.t_enhance)
     shape = (FWP_DOMAIN[0] * s_en, FWP_DOMAIN[1] * s_en,
@@ -404,7 +438,7 @@ def check_fwp_files(strategy, out_dir):
         raise AssertionError('forward pass: the stitched output is not '
                              f'finite and complete at {shape}')
     shutil.rmtree(out_dir)
-    return list(shape[:-1])
+    return (list(shape[:-1]), full) if keep else list(shape[:-1])
 
 
 def check_fwp_launches(route, launches, n_dispatch):
@@ -738,13 +772,14 @@ def train_batch(n, seed=1):
 def step_grads(model, lr, hr):
     """Both losses' gradients (the generator's, the discriminator's) at
     one batch, computed as ``Sup3rGan._train_step`` computes them, in the
-    model's dtype."""
-    net = model._train_gen_net()
+    model's dtype (under ``torch.utils.checkpoint`` with
+    ``train_remat``)."""
+    gen_apply = model._maybe_remat(model._train_gen_net().apply)
     dtype = model.gen_params[0].dtype
     lr = torch.as_tensor(lr, dtype=dtype, device=model.device)
     hr = torch.as_tensor(hr, dtype=dtype, device=model.device)
     with exact_fp32():
-        out = net.apply(lr, {})
+        out = gen_apply(lr, {})
         d_true, d_gen = model._disc.apply(hr), model._disc.apply(out)
         gen_loss = (model.loss_fun(out, hr)
                     + W_ADV * relativistic_disc_loss(d_gen, d_true))
@@ -831,8 +866,13 @@ def train_check():
     return worst
 
 
-def train_step_phase(name, model):
-    """Phase 7c: bench.py's cell, timed; returns the launches per step."""
+def train_step_phase(name, model, phase='train_step',
+                     want=(('small_reflect_conv', 1), ('reflect_conv', 0))):
+    """Phase 7c: bench.py's cell, timed (in the model's ``train_dtype``
+    and ``train_remat``); ``want`` the launches per step. Returns the
+    batch, the median step ms, the launches per step and the peak
+    device memory: absolute, and above what was allocated before the
+    steps (the script's earlier phases hold some memory too)."""
     lr_np, hr_np = train_batch(TRAIN_BATCH)
     lr = torch.as_tensor(lr_np, device='cuda')
     hr = torch.as_tensor(hr_np, device='cuda')
@@ -840,6 +880,7 @@ def train_step_phase(name, model):
         model.run_gradient_descent(lr, hr, W_ADV, True, True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
     times, losses = [], None
     for _ in range(N_TRAIN_STEPS):
@@ -849,22 +890,26 @@ def train_step_phase(name, model):
     launches = {'small_reflect_conv': small_reflect_conv_cf.launches,
                 'reflect_conv': reflect_conv_cf.launches}
     per_step = {k: v / N_TRAIN_STEPS for k, v in launches.items()}
-    ok = per_step == {'small_reflect_conv': 1, 'reflect_conv': 0} and all(
+    ok = per_step == dict(want) and all(
         np.isfinite(v) for v in losses.values())
     median = float(np.median(times))
-    emit(phase='train_step', model='spatiotemporal/gen_3x_4x_2f',
+    peak = torch.cuda.max_memory_allocated()
+    memory = {'peak_gb': peak / 1e9, 'step_peak_gb': (peak - before) / 1e9}
+    emit(phase=phase, model='spatiotemporal/gen_3x_4x_2f',
+         train_dtype=model.train_dtype, train_remat=model.train_remat,
          disc='spatiotemporal/disc_test', batch=TRAIN_BATCH,
          lr_shape=list(TRAIN_LR), hr_shape=list(TRAIN_HR),
          steps=N_TRAIN_STEPS, step_ms=times, median_step_ms=median,
          spread_ms=[float(np.min(times)), float(np.max(times))],
          hr_voxels_per_s=TRAIN_BATCH * int(np.prod(TRAIN_HR[:3]))
          / (median / 1e3), launches_per_step=per_step, losses=losses,
-         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
-         nvidia_smi=name, ok=ok)
+         peak_device_gb=memory['peak_gb'],
+         allocated_before_gb=before / 1e9,
+         step_peak_gb=memory['step_peak_gb'], nvidia_smi=name, ok=ok)
     if not ok:
-        raise AssertionError(f'train step: launches per step {per_step}, '
-                             f'losses {losses}')
-    return lr, hr, median, per_step
+        raise AssertionError(f'{phase}: launches per step {per_step}, '
+                             f'expected {dict(want)}; losses {losses}')
+    return lr, hr, median, per_step, memory
 
 
 def train_phase_times(model, lr, hr):
@@ -873,15 +918,16 @@ def train_phase_times(model, lr, hr):
     ``Sup3rGan._train_step``, both networks trained). The generator's
     backward runs through the discriminator to its input."""
     net = model._train_gen_net()
+    cast = model._train_cast()
     gen_p, disc_p = model.gen_params, model.disc_params
     events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     torch.cuda.synchronize()
     with exact_fp32():
         events[0].record()
-        out = net.apply(lr, {})
+        out = net.apply(cast(lr), {}).float()
         events[1].record()
-        d_true = model._disc.apply(hr)
-        d_gen = model._disc.apply(out)
+        d_true = model._disc.apply(cast(hr)).float()
+        d_gen = model._disc.apply(cast(out)).float()
         gen_loss = (model.loss_fun(out, hr)
                     + W_ADV * relativistic_disc_loss(d_gen, d_true))
         disc_loss = relativistic_disc_loss(d_true, d_gen)
@@ -1052,7 +1098,7 @@ def training_phase(name, gen):
     grad_errs = kernel_grad_checks(gen)
     check_err = train_check()
     model = train_model('cuda')
-    lr, hr, step_ms, per_step = train_step_phase(name, model)
+    lr, hr, step_ms, per_step, memory = train_step_phase(name, model)
     phases = train_phase_times(model, lr, hr)
     pads, folds, blocks = pads_and_folds_ms(model, lr)
     backward = tail_backward_ms()
@@ -1063,11 +1109,414 @@ def training_phase(name, gen):
          **profile_rec)
     del model
     train_loop(step_ms)
-    return {'launches_per_train_step': per_step['small_reflect_conv'],
+    return {'fp32': {'step_ms': step_ms, **memory},
+            'launches_per_train_step': per_step['small_reflect_conv'],
             'train_backward_library_ms': backward,
             'grad_max_abs_err': grad_errs['small_reflect_conv'],
             'train_check_rel_err': check_err,
             'train_kernel_ms': profile_rec['small_reflect_conv_ms']}
+
+
+#: phase 8: timed fast requests, and the budgets: fast mode within 0.04
+#: of the exact output's largest magnitude (docs/PERFORMANCE.md "Fast
+#: inference mode"), the fast forward pass within 0.05 on the data scale
+#: (tests/forward_pass/test_fast_mode.py)
+N_FAST_REQUESTS = 5
+FAST_BUDGET = 0.04
+FWP_FAST_BUDGET = 0.05
+
+
+def launch_counts():
+    return {'small_reflect_conv': small_reflect_conv_cf.launches,
+            'reflect_conv': reflect_conv_cf.launches}
+
+
+def zero_counts():
+    small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+
+
+def fast_forward_pass(name):
+    """Phase 8d: the forward-pass cell of phase 6 in fast mode: one exact
+    pass, a warm-up, then 3 timed fast passes, each stitched output
+    within 0.05 of the exact pass on the data scale, no kernel
+    launched."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_fast_fwp_')
+    try:
+        rng = np.random.default_rng(0)
+        s1, s2, t = FWP_DOMAIN
+        input_file = make_fake_nc_file(
+            os.path.join(tmp, 'input.nc'), FWP_DOMAIN, FWP_FEATURES,
+            data={f: rng.standard_normal((t, s1, s2)) * 0.3 + 0.5
+                  for f in FWP_FEATURES})
+        model = flagship('cuda')
+        model.meta.update(
+            input_resolution={'spatial': '12km', 'temporal': '60min'})
+        model_dir = os.path.join(tmp, 'model')
+        model.save(model_dir)
+        del model
+
+        def run(mode, out_dir):
+            strategy = fwp_strategy(
+                input_file, model_dir,
+                os.path.join(out_dir, 'chunk_{file_id}.nc'),
+                inference_mode=mode)
+            RecordedForwardPass.run(strategy, 0)
+            torch.cuda.synchronize()
+            return strategy
+
+        strategy = run('exact', os.path.join(tmp, 'exact'))
+        _, exact = check_fwp_files(strategy, os.path.join(tmp, 'exact'),
+                                   keep=True)
+        run('fast', os.path.join(tmp, 'warm'))
+        shutil.rmtree(os.path.join(tmp, 'warm'))
+        tol = FWP_FAST_BUDGET * max(1.0, float(np.abs(exact).max()))
+        walls, errs = [], []
+        for i in range(N_FWP_PASSES):
+            out_dir = os.path.join(tmp, f'fast_{i}')
+            zero_counts()
+            t0 = time.perf_counter()
+            strategy = run('fast', out_dir)
+            wall_s = time.perf_counter() - t0
+            launches = launch_counts()
+            hr_shape, full = check_fwp_files(strategy, out_dir, keep=True)
+            err = float(np.abs(full - exact).max())
+            ok = err <= tol and launches == {'small_reflect_conv': 0,
+                                             'reflect_conv': 0}
+            walls.append(wall_s)
+            errs.append(err)
+            emit(phase='fast_forward_pass', pass_index=i,
+                 chunks=strategy.fwp_slicer.n_chunks, hr_shape=hr_shape,
+                 wall_s=wall_s,
+                 hr_voxels_per_s=int(np.prod(hr_shape)) / wall_s,
+                 timer_s=RecordedForwardPass.last.timer.log,
+                 max_abs_err_vs_exact=err, tol=tol, launches=launches,
+                 ok=ok)
+            if not ok:
+                raise AssertionError(f'fast forward pass {i}: error {err} '
+                                     f'(tol {tol}), launches {launches}')
+        emit(phase='fast_forward_pass_route', wall_s=walls,
+             hr_voxels_per_s=int(np.prod(FWP_DOMAIN)) * 9 * 4 / float(
+                 np.median(walls)), max_abs_err_vs_exact=max(errs),
+             tol=tol, nvidia_smi=name)
+        return float(np.median(walls))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fast_serving_phase(name):
+    """Phase 8: fast mode, the 'custom' mode and their refusal on the
+    flagship at full width; returns the launches per request of each."""
+    model = flagship('cuda')
+    lr = np.random.default_rng(0).standard_normal(LR_SHAPE).astype(
+        np.float32) * 0.3 + 0.5
+    exact = model.generate(lr)
+    scale = float(np.abs(exact).max())
+    hr_voxels = int(np.prod(HR_SHAPE[:-1]))
+    per_request = {}
+
+    # 8a. fast mode: the subpixel tail and a bf16 body on cuDNN
+    model.inference_mode = 'fast'
+    model.generate(lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    out, times = serve(model, lr, 'fast mode', N_FAST_REQUESTS)
+    per_request['fast'] = {k: v / N_FAST_REQUESTS
+                           for k, v in launch_counts().items()}
+    peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    err = float(np.abs(out - exact).max()) / scale
+    wall_ms, busy_ms, top, _, d2h_ms = profile_request(model, lr)
+    median = float(np.median(times))
+    ok = err <= FAST_BUDGET and per_request['fast'] == {
+        'small_reflect_conv': 0, 'reflect_conv': 0}
+    emit(phase='fast_serving', mode=model.inference_mode,
+         lr_shape=list(LR_SHAPE), hr_shape=list(out.shape),
+         requests=N_FAST_REQUESTS, request_ms=times,
+         median_request_ms=median,
+         hr_voxels_per_s=hr_voxels / (median / 1e3),
+         fast_max_rel_err=err, tol=FAST_BUDGET,
+         launches_per_request=per_request['fast'],
+         allocated_before_gb=before / 1e9, request_peak_gb=peak_gb,
+         profile={'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
+                  'idle_share': 1 - busy_ms / wall_ms, 'd2h_ms': d2h_ms,
+                  'top_device': top},
+         nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'fast mode: max rel err {err} (budget '
+                             f'{FAST_BUDGET}), launches '
+                             f'{per_request["fast"]}')
+
+    # 8b. 'custom': the subpixel tail in float32, the body on reflect_conv
+    model.inference_mode = 'exact'
+    model.inference_subpixel_tail = True
+    model.inference_pallas = True
+    zero_counts()
+    out, times = serve(model, lr, 'custom mode')
+    per_request['custom'] = {k: v / N_REQUESTS
+                             for k, v in launch_counts().items()}
+    err = float(np.abs(out - exact).max()) / scale
+    ok = err <= PARITY_RTOL and per_request['custom'] == {
+        'small_reflect_conv': 0, 'reflect_conv': N_BODY_BLOCKS}
+    emit(phase='custom_serving', mode=model.inference_mode,
+         inference_subpixel_tail=True, inference_dtype=None,
+         inference_pallas=True, request_ms=times,
+         hr_voxels_per_s=hr_voxels / (float(np.median(times)) / 1e3),
+         max_rel_err_vs_exact=err, tol=PARITY_RTOL,
+         launches_per_request=per_request['custom'], ok=ok)
+    if not ok:
+        raise AssertionError(f'custom mode: max rel err {err}, launches '
+                             f'{per_request["custom"]}')
+
+    # 8c. fast mode with inference_pallas: refused, as the JAX package's
+    # Pallas kernel refuses bf16
+    model.inference_mode = 'fast'
+    zero_counts()
+    try:
+        model.generate(lr)
+        message = None
+    except ValueError as exc:
+        message = str(exc)
+    ok = (message is not None and 'float32 only' in message
+          and launch_counts()['reflect_conv'] == 0)
+    emit(phase='fast_pallas_refused', raised=message is not None,
+         message=(message or '')[:160], ok=ok)
+    if not ok:
+        raise AssertionError('fast mode with inference_pallas=True was not '
+                             f'refused for its fp32-only kernel: {message}')
+    del model, out, exact
+
+    # 8d. the forward-pass cell in fast mode
+    fast_forward_pass(name)
+    return per_request
+
+
+#: phase 9: test_bf16_train.py's small fixture (the JAX package's bars:
+#: losses within rtol 0.05 / atol 0.02, the first kernel within 0.01)
+BF16_GEN = [
+    {'class': 'FlexiblePadding',
+     'paddings': [[0, 0], [1, 1], [1, 1], [1, 1], [0, 0]],
+     'mode': 'REFLECT'},
+    {'class': 'Conv3D', 'filters': 8, 'kernel_size': 3, 'strides': 1},
+    {'class': 'LeakyReLU', 'alpha': 0.2},
+    {'class': 'SpatioTemporalExpansion', 'spatial_mult': 2,
+     'temporal_mult': 2, 'temporal_method': 'nearest'},
+    {'class': 'Conv3D', 'filters': 2, 'kernel_size': 3, 'strides': 1,
+     'padding': 'same'}]
+BF16_DISC = [{'class': 'Conv3D', 'filters': 4, 'kernel_size': 3,
+              'strides': 2, 'padding': 'same'},
+             {'class': 'Flatten'}, {'class': 'Dense', 'units': 1}]
+REMAT_RTOL = 1e-5
+
+
+def bf16_trajectory_check():
+    """Phase 9b: the small fixture trained 2 epochs in float32 and in
+    bf16 on the card, from the same data, weights and batches."""
+    features = ['u_100m', 'v_100m']
+    runs = {}
+    for dtype in (None, 'bfloat16'):
+        RANDOM_GENERATOR.bit_generator.state = np.random.default_rng(
+            77).bit_generator.state
+        handler = BatchHandler(
+            [make_fake_dset((16, 16, 40), features)], batch_size=4,
+            n_batches=3, s_enhance=2, t_enhance=2, sample_shape=(8, 8, 4),
+            max_workers=1)
+        model = Sup3rGan(BF16_GEN, BF16_DISC, learning_rate=1e-3)
+        model.train_dtype = dtype
+        model.init_weights((1, 4, 4, 2, 2), (1, 8, 8, 4, 2), seed=5)
+        model.train(handler, input_resolution={'spatial': '30km',
+                                               'temporal': '60min'},
+                    n_epoch=2, out_dir=None)
+        handler.stop()
+        kernel = next(p for p in params_to_jax(model._gen)
+                      if 'kernel' in p)['kernel']
+        runs[dtype] = ({c: np.asarray(model.history[c], float)
+                        for c in ('train_loss_gen', 'train_loss_disc')},
+                       kernel, model)
+    (h32, w32, _), (h16, w16, m16) = runs[None], runs['bfloat16']
+    loss_err = {c: float(np.max(np.abs(h16[c] - h32[c])
+                                - 0.05 * np.abs(h32[c])))
+                for c in h32}
+    weight_err = float(np.abs(w16 - w32).max())
+    fp32_state = all(t.dtype == torch.float32 for t in (
+        *m16.gen_params, *m16.disc_params, *m16._gen_opt_state['mu'],
+        *m16._gen_opt_state['nu'], *m16._disc_opt_state['mu'],
+        *m16._disc_opt_state['nu']))
+    ok = (all(np.isfinite(v).all() for v in (*h16.values(),
+                                             *h32.values()))
+          and all(v <= 0.02 for v in loss_err.values())
+          and weight_err <= 0.01 and not np.array_equal(w16, w32)
+          and fp32_state)
+    emit(phase='train_bf16_vs_fp32',
+         losses_fp32={c: v.tolist() for c, v in h32.items()},
+         losses_bf16={c: v.tolist() for c, v in h16.items()},
+         loss_excess_over_rtol=loss_err, loss_atol=0.02,
+         kernel_max_abs_diff=weight_err, kernel_atol=0.01,
+         float32_master_weights_and_moments=fp32_state, ok=ok)
+    if not ok:
+        raise AssertionError('bf16 training does not track float32 on the '
+                             f'card: losses {loss_err}, kernel '
+                             f'{weight_err}, fp32 state {fp32_state}')
+
+
+def remat_cell(name, fp32):
+    """Phase 9c: the training cell with ``train_remat``: timed, peak
+    memory, ``small_reflect_conv`` launched twice per step (the
+    recomputed forward is the kernel's), gradients within 1e-5 of the
+    plain step's largest magnitude."""
+    model = train_model('cuda')
+    model.train_remat = True
+    lr, hr, median, per_step, memory = train_step_phase(
+        name, model, phase='train_step_remat',
+        want=(('small_reflect_conv', 2), ('reflect_conv', 0)))
+    zero_counts()
+    remat = step_grads(model, lr, hr)
+    launches_remat = launch_counts()
+    model.train_remat = False
+    zero_counts()
+    plain = step_grads(model, lr, hr)
+    launches_plain = launch_counts()
+    errs = {'gen': rel_err(remat[0], plain[0]),
+            'disc': rel_err(remat[1], plain[1])}
+    ok = (max(errs.values()) <= REMAT_RTOL
+          and launches_remat['small_reflect_conv'] == 2
+          and launches_plain['small_reflect_conv'] == 1)
+    emit(phase='train_remat_check', median_step_ms=median,
+         fp32_step_ms=fp32['step_ms'], step_ratio=median / fp32['step_ms'],
+         step_peak_gb=memory['step_peak_gb'],
+         fp32_step_peak_gb=fp32['step_peak_gb'],
+         grad_rel_err=errs, tol=REMAT_RTOL,
+         launches_grads_remat=launches_remat,
+         launches_grads_plain=launches_plain, nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'remat step: gradients {errs}, launches '
+                             f'{launches_remat} / {launches_plain}')
+    return per_step
+
+
+def dual_train_loop(name):
+    """Phase 9d: ``Sup3rGan.train`` in bf16 over a ``DualBatchHandler``
+    of paired NetCDF3 data: an hourly (72, 72, 240) HR file and a 4-hourly
+    (24, 24, 60) LR file on a wider grid, read by ``DataHandler`` and
+    regridded by ``DualRasterizer``; 2 epochs of 4 batches of 16, HR
+    samples (36, 36, 48), LR (12, 12, 12)."""
+    features = ['u_100m', 'v_100m']
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_dual_')
+    try:
+        hr_file = make_fake_nc_file(os.path.join(tmp, 'hr.nc'),
+                                    (72, 72, 240), features)
+        lr_file = make_fake_nc_file(
+            os.path.join(tmp, 'lr.nc'), (24, 24, 60), features,
+            freq=np.timedelta64(4, 'h'), lat_range=(40.05, 38.95),
+            lon_range=(-105.55, -104.25))
+        t0 = time.perf_counter()
+        dual = DualRasterizer((DataHandler(lr_file, features=features).data,
+                               DataHandler(hr_file, features=features).data),
+                              s_enhance=3, t_enhance=4)
+        handler = DualBatchHandler(
+            [dual], batch_size=TRAIN_BATCH, n_batches=4, s_enhance=3,
+            t_enhance=4, sample_shape=TRAIN_HR[:3])
+        setup_s = time.perf_counter() - t0
+        model = Sup3rGan(get_config('spatiotemporal/gen_3x_4x_2f'),
+                         get_config('spatiotemporal/disc_test'),
+                         learning_rate=TRAIN_LR_RATE)
+        model.train_dtype = 'bfloat16'
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.train(handler, input_resolution={'spatial': '3km',
+                                               'temporal': '60min'},
+                    n_epoch=2, weight_gen_advers=W_ADV, out_dir=None)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        history = model.history
+        epoch_s = np.diff([0.0] + list(history['elapsed_time']))
+        ok = (len(history) == 2 and all(
+            np.isfinite(history[c]).all()
+            for c in ('train_loss_gen', 'train_loss_disc'))
+            and launches == {'small_reflect_conv': 0, 'reflect_conv': 0}
+            and dual.lr_data.shape == (24, 24, 60, 2)
+            and not np.isnan(dual.lr_data.data).any())
+        emit(phase='train_loop_dual_bf16', epochs=2, batches_per_epoch=4,
+             batch=TRAIN_BATCH, lr_sample=list(handler.lr_shape),
+             hr_sample=list(handler.hr_shape), setup_s=setup_s,
+             wall_s=wall_s, epoch_s=list(epoch_s),
+             s_per_batch=float(np.mean(epoch_s)) / 4,
+             starvation_rate=handler._queue.starvation_rate,
+             history={c: list(history[c]) for c in history.columns},
+             launches=launches, nvidia_smi=name, ok=ok)
+        if not ok:
+            raise AssertionError('dual bf16 train loop: history, launches '
+                                 'or regrid failed')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def step_memory(model, lr, hr):
+    """Device memory (GB above what was allocated before the step) of
+    one step's parts, built as ``step_grads`` builds them: what the
+    forward keeps for the backward, and the peak of the forward, of the
+    generator's backward (through the discriminator) and of the
+    discriminator's backward."""
+    gen_apply = model._maybe_remat(model._train_gen_net().apply)
+    cast = model._train_cast()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out = {}
+
+    def mark(key):
+        torch.cuda.synchronize()
+        out[key] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    with exact_fp32():
+        gen = gen_apply(cast(lr), {}).float()
+        d_true = model._disc.apply(cast(hr)).float()
+        d_gen = model._disc.apply(cast(gen)).float()
+        gen_loss = (model.loss_fun(gen, hr)
+                    + W_ADV * relativistic_disc_loss(d_gen, d_true))
+        disc_loss = relativistic_disc_loss(d_true, d_gen)
+        mark('forward_peak_gb')
+        out['forward_kept_gb'] = (torch.cuda.memory_allocated() - base) / 1e9
+        torch.autograd.grad(gen_loss, model.gen_params, retain_graph=True)
+        mark('gen_backward_peak_gb')
+        torch.autograd.grad(disc_loss, model.disc_params)
+        mark('disc_backward_peak_gb')
+    return out
+
+
+def training_modes_phase(name, fp32):
+    """Phase 9: bf16 and remat training and the paired feed; returns the
+    launches per step of each mode."""
+    # 9a. the training cell in bf16
+    model = train_model('cuda')
+    model.train_dtype = 'bfloat16'
+    lr, hr, median, per_bf16, step_mem = train_step_phase(
+        name, model, phase='train_step_bf16',
+        want=(('small_reflect_conv', 0), ('reflect_conv', 0)))
+    phases = train_phase_times(model, lr, hr)
+    profile_rec = train_profile(model, lr, hr)
+    memory = {'bfloat16': step_memory(model, lr, hr)}
+    emit(phase='train_bf16_profile', median_step_ms=median,
+         fp32_step_ms=fp32['step_ms'], speedup=fp32['step_ms'] / median,
+         step_peak_gb=step_mem['step_peak_gb'],
+         fp32_step_peak_gb=fp32['step_peak_gb'],
+         phase_device_ms=phases, nvidia_smi=name, **profile_rec)
+    del model
+    for remat in (False, True):
+        model = train_model('cuda')
+        model.train_remat = remat
+        memory['remat' if remat else 'float32'] = step_memory(model, lr, hr)
+        del model
+    emit(phase='train_memory', batch=TRAIN_BATCH, gb=memory,
+         nvidia_smi=name)
+    # 9b-d
+    bf16_trajectory_check()
+    per_remat = remat_cell(name, fp32)
+    dual_train_loop(name)
+    return {'bf16': per_bf16, 'remat': per_remat}
 
 
 def main():
@@ -1176,9 +1625,10 @@ def main():
                              f'main path by {err} > {tol}')
     for pallas in (False, True):
         model.inference_pallas = pallas
-        wall_ms, busy_ms, top, flops = profile_request(model, lr)
+        wall_ms, busy_ms, top, flops, d2h_ms = profile_request(model, lr)
         emit(phase='profile', inference_pallas=pallas, wall_ms=wall_ms,
              device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+             d2h_ms=d2h_ms,
              conv_gflop=flops / 1e9,
              conv_fp32_bound_ms=1e3 * flops / peaks(name)[1],
              conv_tf32x3_bound_ms=1e3 * 3 * flops / peaks(name)[2],
@@ -1240,6 +1690,10 @@ def main():
     fwp_launches = forward_pass_phase(smi)
     # 7. training
     train = training_phase(smi, gen)
+    # 8. fast and 'custom' serving
+    per_request = fast_serving_phase(smi)
+    # 9. bf16 and remat training, the paired feed
+    per_step = training_modes_phase(smi, train['fp32'])
     train_tail = timing('small_reflect_conv', small_reflect_conv_cf,
                         *conv_inputs(gen, TRAIN_TAIL_SHAPE, 2), None)
 
@@ -1247,12 +1701,19 @@ def main():
         return {route: counts[kname]
                 for route, counts in fwp_launches.items()}
 
+    def per_mode(kname):
+        return {'launches_per_fast_request': per_request['fast'][kname],
+                'launches_per_custom_request': per_request['custom'][kname],
+                'launches_per_bf16_train_step': per_step['bf16'][kname],
+                'launches_per_remat_train_step': per_step['remat'][kname]}
+
     kernels = [record('small_reflect_conv', tail_times[2],
                       tails=list(tail_times.values()),
                       launches_per_fwp_pass=per_fwp_pass(
                           'small_reflect_conv'),
                       launches_per_train_step=train[
                           'launches_per_train_step'],
+                      **per_mode('small_reflect_conv'),
                       train_shape=dict(
                           train_tail,
                           backward_library_ms=train[
@@ -1261,7 +1722,8 @@ def main():
                record('reflect_conv', body_times[2],
                       main_path_shapes=shapes,
                       launches_per_fwp_pass=per_fwp_pass('reflect_conv'),
-                      launches_per_train_step=0)]
+                      launches_per_train_step=0,
+                      **per_mode('reflect_conv'))]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

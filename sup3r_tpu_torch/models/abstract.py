@@ -3,8 +3,9 @@ the inference contract, meta and feature properties, normalization
 stats, the forward-pass exo combine for plain-array exo, the save
 directory's ``model_params.json``, and the training surface: the content
 loss, training-session params, the rolling loss record, the per-epoch
-history (a pandas-free ``Record``, written as ``history.csv``) and early
-stopping.
+history (a pandas-free ``Record``, written as ``history.csv``), early
+stopping, and the train step's options (``train_dtype``,
+``train_remat``).
 
 Structured ``ExoData`` exo comes with the data-plane slice.
 """
@@ -17,6 +18,7 @@ import sys
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 import sup3r_tpu_torch
 from sup3r_tpu_torch.models.network import Network
@@ -34,6 +36,17 @@ VERSION_RECORD = {
     'python': sys.version,
     'platform': platform.platform(),
 }
+
+
+def compute_dtype(name):
+    """The torch dtype a ``train_dtype`` / ``inference_dtype`` names
+    ('bfloat16', 'float16', ...), or None for None (float32 compute)."""
+    if name is None:
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f'not a floating-point dtype name: {name!r}')
+    return dtype
 
 
 def _is_structured_exo(exogenous_data):
@@ -226,10 +239,15 @@ class AbstractSingleModel(AbstractInterface):
     #: sharded training; comes with the multi-device slice
     train_shard_aligned = None
 
-    #: mixed-precision training ('bfloat16'); not ported yet
+    #: mixed-precision training: 'bfloat16' runs both networks' forward
+    #: and backward in bf16, while master weights, the gradients (cast
+    #: back at the network boundary), optimizer state and losses stay
+    #: float32. None (default) computes in float32.
     train_dtype = None
 
-    #: gradient rematerialization of the generator; not ported yet
+    #: gradient rematerialization: the generator's forward runs under
+    #: ``torch.utils.checkpoint`` and is recomputed in the backward,
+    #: trading a second forward for its saved activations
     train_remat = False
 
     def __init__(self):
@@ -239,6 +257,39 @@ class AbstractSingleModel(AbstractInterface):
         self._history = None
         self.loss_name = 'MeanSquaredError'
         self.loss_fun = get_loss_fun(self.loss_name)
+
+    # ------------------------------------------------------------------
+    # train-step options
+    def _maybe_remat(self, gen_apply):
+        """``gen_apply(x, exo)`` under non-reentrant
+        ``torch.utils.checkpoint`` when ``train_remat`` is set (and
+        gradients are on): the backward recomputes the forward, kernels
+        included, instead of keeping its activations. Train or dropout
+        kwargs raise: a rematerialized apply would drop them."""
+        if not self.train_remat:
+            return gen_apply
+
+        def apply(x, exo=None, **kwargs):
+            if any(kwargs.values()):
+                raise NotImplementedError(
+                    f'train_remat does not support {sorted(kwargs)} '
+                    'kwargs on the generator apply')
+            if not torch.is_grad_enabled():
+                return gen_apply(x, exo or {})
+            return checkpoint(gen_apply, x, exo or {}, use_reentrant=False)
+
+        return apply
+
+    def _train_cast(self):
+        """``cast(tensor)``: a network input in the ``train_dtype``
+        (identity without one). The layers cast their params to their
+        input's dtype; callers cast each network's OUTPUT back to float32,
+        so losses, the gradients at the boundary and the optimizer's math
+        stay float32."""
+        dtype = compute_dtype(self.train_dtype)
+        if dtype is None:
+            return lambda t: t
+        return lambda t: t.to(dtype)
 
     # ------------------------------------------------------------------
     # normalization

@@ -30,10 +30,16 @@ tensor:
   * otherwise the block runs ``reflect_conv_ad``: ``F.pad`` + cuDNN,
     with the custom backward.
 On a CPU tensor every block runs ``reflect_conv_ad``, the kernels'
-plain version.
+plain version. A block runs in its input's dtype: its weight and bias
+are cast to it (differentiably). A bf16 block is never the small
+kernel's (it takes float32 only, as the JAX package's does), so a bf16
+tail runs ``reflect_conv_ad`` on cuDNN; ``reflect_conv`` refuses bf16,
+as the JAX package's Pallas kernel does.
 
-``SubpixelTailConv`` / ``fuse_subpixel_tail`` (fast mode) come with a
-later slice (ROADMAP queue 1 item 3).
+``fuse_subpixel_tail`` (fast mode, ``Sup3rGan.inference_subpixel_tail``)
+folds the generator's ``expansion -> tail conv`` ending into one
+``SubpixelTailConv`` at the pre-expansion resolution
+(``ops/subpixel.py``).
 """
 
 import logging
@@ -57,6 +63,7 @@ from sup3r_tpu_torch.models.layers import (
 )
 from sup3r_tpu_torch.ops.conv_ad import reflect_conv_ad
 from sup3r_tpu_torch.ops.kernels import reflect_conv_cf, small_reflect_conv_cf
+from sup3r_tpu_torch.ops.subpixel import subpixel_tail_conv
 
 logger = logging.getLogger(__name__)
 
@@ -109,14 +116,14 @@ class FusedReflectConv(Layer):
 
     def forward(self, x, ctx):
         on_cuda = x.is_cuda
-        weight = self.weight
+        weight = self.conv.fused_weight(x.dtype)
+        bias = self.bias.to(x.dtype)
         if (self.small_channel_kernel and on_cuda
                 and self._small_ok(x, weight)):
-            return small_reflect_conv_cf(x, weight, self.bias, self.alpha)
+            return small_reflect_conv_cf(x, weight, bias, self.alpha)
         if self.use_pallas and on_cuda and not torch.is_grad_enabled():
-            return reflect_conv_cf(x, weight, self.bias, self.alpha)
-        return reflect_conv_ad(x, weight, self.bias, self.n_spatial,
-                               self.alpha)
+            return reflect_conv_cf(x, weight, bias, self.alpha)
+        return reflect_conv_ad(x, weight, bias, self.n_spatial, self.alpha)
 
 
 def _inner_pads(pad_layer):
@@ -231,3 +238,59 @@ def _movement_only_expansion(layer):
     return (isinstance(layer, SpatioTemporalExpansion)
             and (layer.temporal_mult == 1
                  or layer.temporal_method in ('nearest', 'depth_to_time')))
+
+
+class SubpixelTailConv(Layer):
+    """Fast mode's tail: ``SpatioTemporalExpansion(spatial m) ->
+    (LeakyReLU) -> FusedReflectConv`` folded to the pre-expansion
+    resolution (``ops/subpixel.py``). It holds the fused tail block and
+    reads its conv's weight at each call. The conv runs in the input's
+    dtype: bf16 in fast mode, float32 (TF32 off) in the 'custom' mode
+    with the tail on and ``inference_dtype`` None."""
+
+    def __init__(self, m, tail, alpha_prev=None):
+        super().__init__()
+        self.m = m
+        self.tail = tail
+        self.alpha_prev = alpha_prev
+        self.alpha = tail.alpha
+
+    def out_shape(self, in_shape):
+        raise NotImplementedError(
+            'SubpixelTailConv is created by fuse_subpixel_tail with '
+            'existing params')
+
+    def forward(self, x, ctx):
+        return subpixel_tail_conv(
+            x, self.tail.conv.fused_weight(x.dtype), self.tail.bias, self.m,
+            alpha_prev=self.alpha_prev, alpha=self.alpha)
+
+
+def fuse_subpixel_tail(layers):
+    """Rewrite an ``[SpatioTemporalExpansion (spatial only), LeakyReLU,
+    FusedReflectConv]`` ending, or ``[SpatioTemporalExpansion,
+    FusedReflectConv]`` when ``fuse_network`` already folded the
+    activation into the previous conv, into one ``SubpixelTailConv``.
+    Returns the new layer list; a list without the pattern passes
+    through."""
+    new_layers = list(layers)
+    for i in range(len(new_layers) - 1):
+        exp = new_layers[i]
+        if not (isinstance(exp, SpatioTemporalExpansion)
+                and exp.spatial_mult > 1 and exp.temporal_mult == 1):
+            continue
+        act = new_layers[i + 1]
+        if isinstance(act, LeakyReLU) and i + 2 < len(new_layers):
+            alpha_prev, tail_idx = act.alpha, i + 2
+        else:
+            alpha_prev, tail_idx = None, i + 1
+        tail = new_layers[tail_idx]
+        if not (isinstance(tail, FusedReflectConv) and tail.n_spatial == 3
+                and tail.conv.kernel_size == (3, 3, 3)):
+            continue
+        fused = SubpixelTailConv(exp.spatial_mult, tail,
+                                 alpha_prev=alpha_prev)
+        new_layers[i:tail_idx + 1] = [fused]
+        logger.info('Fused subpixel tail (m=%d) for inference', fused.m)
+        break
+    return new_layers

@@ -20,9 +20,19 @@ whole step, backward included):
   ``models/optimizers.py``); the loss scalars come back either way, in
   one device-to-host copy.
 
-Fast mode comes with the fast-mode item (queue 1 item 3); bf16 training,
-``train_remat``, meshes and tensorboard logging with later items of the
-training queue (ROADMAP).
+``train_dtype='bfloat16'`` runs both networks in bf16 (inputs cast at
+the network boundary, each layer's params cast to its input's dtype, the
+outputs cast back to float32 before the losses), so losses, gradients at
+the boundary, master weights and optimizer state stay float32;
+``train_remat`` recomputes the generator's forward in the backward
+(``torch.utils.checkpoint``).
+
+Serving has two named modes (``inference_mode``): 'exact' (float32, TF32
+off, the HR tail on ``small_reflect_conv``) and 'fast' (the subpixel tail
+and a bf16 body on cuDNN's bf16 convs, the output cast back to float32).
+
+Meshes and tensorboard logging come with later items of the training
+queue (ROADMAP).
 """
 
 import logging
@@ -32,8 +42,15 @@ import time
 import numpy as np
 import torch
 
-from sup3r_tpu_torch.models.abstract import AbstractSingleModel
-from sup3r_tpu_torch.models.fuse import FusedReflectConv, fuse_network
+from sup3r_tpu_torch.models.abstract import (
+    AbstractSingleModel,
+    compute_dtype,
+)
+from sup3r_tpu_torch.models.fuse import (
+    FusedReflectConv,
+    fuse_network,
+    fuse_subpixel_tail,
+)
 from sup3r_tpu_torch.models.network import Network
 from sup3r_tpu_torch.models.optimizers import make_optimizer
 from sup3r_tpu_torch.models.record import Record
@@ -55,16 +72,6 @@ from sup3r_tpu_torch.ops.losses import apply_loss
 from sup3r_tpu_torch.utilities import exact_fp32, resolve_device
 
 logger = logging.getLogger(__name__)
-
-_FAST_MODE = ('fast mode and the subpixel tail come with a later slice of '
-              'the port (ROADMAP queue 1 item 3: ops/subpixel.py and '
-              'fuse_subpixel_tail)')
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f'{what} is not ported yet: ROADMAP queue 1 item 6, {item}')
-
 
 def _sigmoid_bce(logits, labels):
     """Numerically-stable sigmoid cross entropy (tf.nn semantics)."""
@@ -204,11 +211,6 @@ class Sup3rGan(AbstractSingleModel):
     # ------------------------------------------------------------------
     # the train step
     def _check_train_options(self):
-        if self.train_dtype is not None:
-            raise _not_ported(f'train_dtype={self.train_dtype!r}',
-                              'bf16 training')
-        if self.train_remat:
-            raise _not_ported('train_remat', 'gradient rematerialization')
         if self.train_shard_aligned:
             raise NotImplementedError(
                 'train_shard_aligned comes with the multi-device slice '
@@ -241,24 +243,29 @@ class Sup3rGan(AbstractSingleModel):
 
     def _train_step(self, lr, hr, weight_gen_advers, do_gen, do_disc):
         """One gated step on device tensors; returns the loss scalars
-        (device tensors)."""
+        (device tensors). With ``train_dtype`` both networks run in it:
+        their inputs are cast here, their params in each layer, and
+        their outputs come back to float32 before the exo concat and
+        the losses."""
         self._check_train_options()
         self._step_counter += 1
         gen_params, disc_params = self.gen_params, self.disc_params
-        net = self._train_gen_net()
+        gen_apply = self._maybe_remat(self._train_gen_net().apply)
+        cast = self._train_cast()
         names = self.hr_exo_features
         slc = slice(0, -len(names)) if names else slice(None)
         generator = self._loss_generator()
         with exact_fp32():
             exo = self._split_exo(hr)
             with torch.set_grad_enabled(do_gen):
-                out = net.apply(lr, exo)
+                out = gen_apply(cast(lr), {k: cast(v) for k, v in
+                                           exo.items()}).float()
             full = (torch.cat([out] + [exo[f] for f in names], dim=-1)
                     if names else out)
             with torch.set_grad_enabled(do_gen or do_disc):
                 with torch.set_grad_enabled(do_disc):
-                    d_true = self._disc.apply(hr)
-                d_gen = self._disc.apply(full)
+                    d_true = self._disc.apply(cast(hr)).float()
+                d_gen = self._disc.apply(cast(full)).float()
                 content = apply_loss(self.loss_fun, out, hr[..., slc],
                                      generator=generator)
                 advers = relativistic_disc_loss(d_gen, d_true)
@@ -352,32 +359,60 @@ class Sup3rGan(AbstractSingleModel):
     #: halo ring that is immediately cropped
     inference_fuse = True
     #: route every fused block the small kernel does not take to the
-    #: hand-written ``reflect_conv`` CUDA kernel (opt-in)
+    #: hand-written ``reflect_conv`` CUDA kernel (opt-in; float32 only,
+    #: so it refuses a bf16 body on the card, as the JAX package's Pallas
+    #: kernel does)
     inference_pallas = False
-    #: fast mode's subpixel tail: not ported yet, raises in generate()
+    #: fold the final SpatioTemporalExpansion + tail conv to the
+    #: pre-expansion resolution (``ops/subpixel.py``): one conv at
+    #: m^2 * C input channels instead of a few-channel conv at HR
     inference_subpixel_tail = False
+    #: reduced-precision serving: 'bfloat16' casts the input, the exo
+    #: rasters and (in each layer) the params at the network boundary and
+    #: the output back to float32; None serves float32
+    inference_dtype = None
 
     @property
     def inference_mode(self):
-        """Named inference profile. The port serves ``'exact'`` (fp32
-        body with TF32 off, exact-fp32 small-channel tail); ``'fast'``
-        is not ported yet."""
-        return 'exact'
+        """Named inference profile.
+
+        - ``'exact'`` (default): float32 body with TF32 off, the HR tail
+          on the exact-fp32 ``small_reflect_conv`` kernel.
+        - ``'fast'``: the subpixel tail and a bf16 body (cuDNN's bf16
+          convs), the output cast back to float32; within 0.04 of the
+          exact output's largest magnitude (docs/PERFORMANCE.md "Fast
+          inference mode").
+        - ``'custom'`` (read-only): reported when
+          ``inference_subpixel_tail`` / ``inference_dtype`` were set to
+          another combination by hand.
+        """
+        if (self.inference_subpixel_tail
+                and self.inference_dtype == 'bfloat16'):
+            return 'fast'
+        if not self.inference_subpixel_tail and self.inference_dtype is None:
+            return 'exact'
+        return 'custom'
 
     @inference_mode.setter
     def inference_mode(self, mode):
-        if mode == 'fast':
-            raise NotImplementedError(_FAST_MODE)
-        if mode != 'exact':
+        if mode == 'exact':
+            self.inference_subpixel_tail = False
+            self.inference_dtype = None
+        elif mode == 'fast':
+            self.inference_subpixel_tail = True
+            self.inference_dtype = 'bfloat16'
+        else:
             raise ValueError(
                 f'inference_mode must be "exact" or "fast", got {mode!r}')
 
     def _get_fused_apply(self):
         """The fused generator Network for serving; rebuilt when the
         generator's parameter tensors change identity or the flags
-        change."""
+        change. The dtype is in the key as the JAX package's is, though
+        it does not change the layers."""
         params = self.gen_params
-        flags = (self.inference_pallas,)
+        flags = (self.inference_pallas, self.inference_dtype,
+                 self.inference_subpixel_tail)
         # entries hold STRONG references to the params and compare
         # identity — an id() key could collide after the old tensors are
         # freed; entries for params that are no longer live are dropped
@@ -387,6 +422,8 @@ class Sup3rGan(AbstractSingleModel):
         cached = next((e for e in entries if e[1] == flags), None)
         if cached is None:
             layers = fuse_network(list(self._gen.layers))
+            if self.inference_subpixel_tail:
+                layers = fuse_subpixel_tail(layers)
             for lyr in layers:
                 if isinstance(lyr, FusedReflectConv):
                     lyr.use_pallas = self.inference_pallas
@@ -419,7 +456,9 @@ class Sup3rGan(AbstractSingleModel):
     def generate(self, low_res, norm_in=True, un_norm_out=True,
                  exogenous_data=None, fetch=True):
         """Public inference: normalize -> generator (+layer exo) ->
-        denormalize, in exact fp32 on ``self.device``.
+        denormalize on ``self.device``, in the mode ``inference_mode``
+        names (the network in ``inference_dtype``; its output, and so
+        what this returns, float32 either way).
 
         low_res: 4D/5D channels-last physical-units array (n_obs
         first), numpy or tensor. Returns a channels-last numpy array;
@@ -428,8 +467,6 @@ class Sup3rGan(AbstractSingleModel):
         crops and drains it while the next batch is dispatched). That
         tensor was made under ``torch.inference_mode``: slice it, do
         not modify it in place, and keep it out of training."""
-        if self.inference_subpixel_tail:
-            raise NotImplementedError(_FAST_MODE)
         low_res = torch.as_tensor(low_res, dtype=torch.float32,
                                   device=self.device)
         low_res = self._combine_fwp_input(low_res, exogenous_data)
@@ -459,8 +496,10 @@ class Sup3rGan(AbstractSingleModel):
             fixed_exo[k] = v
         net = self._get_fused_apply() if self.inference_fuse else self._gen
         un_norm = self.un_norm_tensors(self.device) if un_norm_out else None
+        dtype = compute_dtype(self.inference_dtype) or torch.float32
         with torch.inference_mode(), exact_fp32():
-            out = net.apply(low_res, fixed_exo)
+            out = net.apply(low_res.to(dtype), {
+                k: v.to(dtype) for k, v in fixed_exo.items()}).float()
             if un_norm is not None:
                 out = out * un_norm[0] + un_norm[1]
         if not fetch:
@@ -701,8 +740,9 @@ class Sup3rGan(AbstractSingleModel):
         The batch handler stages its batches on this model's device
         (its ``device``, set here when it has none)."""
         if tensorboard_log or tensorboard_profile:
-            raise _not_ported('tensorboard logging and profiling',
-                              'tensorboard')
+            raise NotImplementedError(
+                'tensorboard logging and profiling are not ported yet: '
+                'ROADMAP queue 1 item 6.3 (tensorboard and TrainingSession)')
         self.set_norm_stats(batch_handler.means, batch_handler.stds)
         params = self.check_batch_handler_attrs(batch_handler)
         self.set_model_params(

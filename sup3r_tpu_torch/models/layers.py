@@ -220,8 +220,11 @@ class Dense(Layer):
                 'bias': _numpy(tensors['bias'])}
 
     def forward(self, x, ctx):
-        y = F.linear(x.movedim(1, -1), self.weight, self.bias).movedim(
-            -1, 1)
+        # the params run in the input's dtype (bf16 training casts the
+        # input); the cast is differentiable, so the float32 params get
+        # float32 gradients
+        y = F.linear(x.movedim(1, -1), self.weight.to(x.dtype),
+                     self.bias.to(x.dtype)).movedim(-1, 1)
         return self._act(y) if self._act else y
 
 
@@ -394,21 +397,25 @@ class _ConvBase(Layer):
             kernel = weight.permute(*range(2, 2 + n), 1, 0)
         return {'kernel': _numpy(kernel), 'bias': _numpy(tensors['bias'])}
 
-    def fused_weight(self):
+    def fused_weight(self, dtype=None):
         """The OI.. weight of the equivalent correlation: a stride-1
         VALID ``jax.lax.conv_transpose`` is a full-padding correlation
-        with the JAX kernel as-is (models/fuse.py)."""
+        with the JAX kernel as-is (models/fuse.py). ``dtype`` casts it
+        (differentiably: the gradient reaches the float32 param)."""
+        weight = self.weight if dtype is None else self.weight.to(dtype)
         if not self.transpose:
-            return self.weight
+            return weight
         n = self.n_spatial
-        return self.weight.flip(tuple(range(2, 2 + n))).transpose(
+        return weight.flip(tuple(range(2, 2 + n))).transpose(
             0, 1).contiguous()
 
     def forward(self, x, ctx):
+        # params in the input's dtype, as the JAX layers cast them
+        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
         if self.transpose:
             conv = F.conv_transpose3d if self.n_spatial == 3 else (
                 F.conv_transpose2d)
-            y = conv(x, self.weight, None, self.strides)
+            y = conv(x, weight, None, self.strides)
             # the full transposed conv is jax's with (k-1, k-1) pads;
             # F.pad with negative widths crops
             flat = []
@@ -416,7 +423,7 @@ class _ConvBase(Layer):
                              reversed(self.strides)):
                 a, b = _transpose_pads(k, st, self.padding)
                 flat += [a - (k - 1), b - (k - 1)]
-            y = F.pad(y, flat) + self.bias.view(-1, *[1] * self.n_spatial)
+            y = F.pad(y, flat) + bias.view(-1, *[1] * self.n_spatial)
         else:
             if self.padding == 'SAME':
                 flat = []
@@ -426,7 +433,7 @@ class _ConvBase(Layer):
                     flat += list(_same_pads(s, k, st))
                 x = F.pad(x, flat)
             conv = F.conv3d if self.n_spatial == 3 else F.conv2d
-            y = conv(x, self.weight, self.bias, self.strides)
+            y = conv(x, weight, bias, self.strides)
         return self._act(y) if self._act else y
 
 

@@ -20,7 +20,9 @@ custom backward (``reflect_conv_backward``) instead runs:
   the padded gradient at ``i + 1``, and cells 1 and S-2 absorb the halo;
 - wgrad as cuDNN's native weight gradient on the padded input.
 
-``small_reflect_conv_cf`` (``ops/kernels.py``) shares this backward.
+Every step runs in the gradient's dtype: float32, or bf16 in bf16
+training (``train_dtype``). ``small_reflect_conv_cf`` (``ops/kernels.py``)
+shares this backward.
 The shard-aligned variant comes with the multi-device slice (ROADMAP
 queue 1 item 9).
 """
@@ -70,7 +72,8 @@ def reflect_conv_backward(dy, x, weight, n_spatial, alpha, pre,
     the pre-activation, or for ``alpha > 0`` the output. ``needs`` skips
     the gradients nobody asked for."""
     if alpha is not None:
-        dy = dy * torch.where(pre >= 0, 1.0, float(alpha)).to(dy.dtype)
+        # in dy's dtype (bf16 in bf16 training); dy * 1 is dy exactly
+        dy = torch.where(pre >= 0, dy, dy * float(alpha))
     conv = _conv(n_spatial)
     dx = dw = db = None
     if needs[2]:

@@ -41,6 +41,9 @@ tests and callers holding JAX layouts.
 dgrad with the flipped kernel plus the reflect-halo fold, and cuDNN's
 native wgrad). ``reflect_conv_cf`` has no backward in the JAX package and
 is not on the training path: it raises on inputs that need gradients.
+Both kernels take float32 only, as the JAX package's do: a bf16 block
+never routes to the small kernel, and ``reflect_conv_cf`` refuses a bf16
+input on the card (``REFLECT_CONV_FP32_ONLY``).
 """
 
 import ctypes
@@ -74,6 +77,15 @@ _SIGNATURES = {
 
 
 _FUNCTIONS = {}
+
+#: why ``reflect_conv_cf`` refuses a bf16 input on the card
+REFLECT_CONV_FP32_ONLY = (
+    'reflect_conv takes float32 only, as the JAX package\'s Pallas '
+    'reflect_conv does (its pad scratch is float32, '
+    'sup3r_tpu/ops/pallas_kernels.py:123-126: a bf16 input fails while '
+    'that kernel is traced). Fast mode (a bf16 body) with '
+    'inference_pallas=True is refused; serve fast mode with '
+    'inference_pallas=False (cuDNN\'s bf16 convs)')
 
 
 def _c_function(lib_name, fn_name):
@@ -275,6 +287,8 @@ def reflect_conv_cf(x, weight, bias, alpha=None):
             'kernel no backward and training never routes to it (ROADMAP '
             'queue 2 item 2). Run under torch.inference_mode() or '
             'torch.no_grad().')
+    if x.is_cuda and x.dtype != torch.float32:
+        raise ValueError(f'{REFLECT_CONV_FP32_ONLY}; got {x.dtype}')
     if not _check_args('reflect_conv', x, weight, bias, n_spatial):
         return reflect_conv_reference(x, weight, bias, alpha)
     co = weight.shape[0]

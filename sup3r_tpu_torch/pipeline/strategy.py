@@ -337,8 +337,7 @@ class ForwardPassStrategy:
                 # same-identity insert REPLACES a stale entry
                 _MODEL_CACHE[identity] = (fingerprint, model)
         # reset the mode unconditionally: a cached instance may carry
-        # another strategy's setting ('fast' raises until fast mode is
-        # ported, ROADMAP queue 1 item 3)
+        # another strategy's setting
         model.inference_mode = self.inference_mode
         return model
 

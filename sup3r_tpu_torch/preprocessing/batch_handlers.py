@@ -7,8 +7,9 @@ ahead of use, as ``jax.device_put`` did in the JAX package: the arrays
 are copied into pinned host memory and sent with a ``non_blocking`` copy
 on a side stream; the train step's stream waits on an event recorded
 after the copy. A pageable copy would block the host behind the running
-step. The dual, conditional and data-centric handlers come with their
-queues (ROADMAP queue 1 item 6).
+step. ``DualBatchHandler`` feeds pre-paired LR / HR data (a
+``DualRasterizer``'s). The climate-change, conditional and data-centric
+handlers come with their models (ROADMAP queue 1 item 7).
 """
 
 import logging
@@ -17,8 +18,11 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from sup3r_tpu_torch.preprocessing.batch_queues import SingleBatchQueue
-from sup3r_tpu_torch.preprocessing.samplers import Sampler
+from sup3r_tpu_torch.preprocessing.batch_queues import (
+    DualBatchQueue,
+    SingleBatchQueue,
+)
+from sup3r_tpu_torch.preprocessing.samplers import DualSampler, Sampler
 from sup3r_tpu_torch.preprocessing.stats import (
     StatsCollection,
     unwrap_container,
@@ -202,10 +206,25 @@ class BatchHandler(BaseBatchHandler):
     """Uniform sampling + coarsening transform."""
 
 
+class DualBatchHandler(BaseBatchHandler):
+    """Pre-paired LR / HR containers (a ``DualRasterizer`` or a
+    ``PairedDataset`` each)."""
+
+    SAMPLER = DualSampler
+    MAIN_QUEUE = DualBatchQueue
+    VAL_QUEUE = DualBatchQueue
+
+    def _make_sampler(self, container):
+        return self.SAMPLER(unwrap_container(container),
+                            s_enhance=self.s_enhance,
+                            t_enhance=self.t_enhance,
+                            **self._sampler_args)
+
+
 __getattr__ = not_ported(
-    __name__, ('DualBatchHandler', 'BatchHandlerCC', 'BatchHandlerMom1',
-               'BatchHandlerMom1SF', 'BatchHandlerMom2', 'BatchHandlerMom2Sep',
+    __name__, ('BatchHandlerCC', 'BatchHandlerMom1', 'BatchHandlerMom1SF',
+               'BatchHandlerMom2', 'BatchHandlerMom2Sep',
                'BatchHandlerMom2SF', 'BatchHandlerMom2SepSF',
                'BatchHandlerDC'),
-    'ROADMAP queue 1 item 6, the dual, conditional and data-centric '
-    'handlers')
+    'ROADMAP queue 1 item 7, the climate-change, conditional and '
+    'data-centric handlers')

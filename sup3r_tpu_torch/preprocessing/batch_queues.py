@@ -6,8 +6,9 @@ A ``queue.Queue`` of numpy batches is filled by a producer thread (with
 a pool of ``max_workers`` productions in flight); the HR->LR coarsening
 runs there on numpy, or with ``device_transform=True`` the queue yields
 the raw HR samples (``RawBatch``) and the train step coarsens them on
-the device. The dual, conditional and data-centric queues come with
-their handlers (ROADMAP queue 1 item 6).
+the device. ``DualBatchQueue`` stacks pre-paired (lr, hr) samples. The
+conditional and data-centric queues come with their models (ROADMAP
+queue 1 item 7).
 """
 
 import logging
@@ -29,6 +30,7 @@ from sup3r_tpu_torch.utilities import RANDOM_GENERATOR, not_ported
 logger = logging.getLogger(__name__)
 
 Batch = namedtuple('Batch', ['low_res', 'high_res'])
+BatchWithObs = namedtuple('BatchWithObs', ['low_res', 'high_res', 'obs'])
 #: raw HR sample batch for device-side transforms (one host-to-device
 #: copy; the train step derives the LR input on the device)
 RawBatch = namedtuple('RawBatch', ['sample'])
@@ -85,6 +87,9 @@ class AbstractBatchQueue:
         """Draw batch_size HR samples from a random sampler and stack."""
         sampler = self.get_random_container()
         samples = [next(sampler) for _ in range(self.batch_size)]
+        return self._stack(samples)
+
+    def _stack(self, samples):
         return np.stack(samples, axis=0)
 
     def transform(self, samples):
@@ -293,9 +298,71 @@ class SingleBatchQueue(AbstractBatchQueue):
         return super().post_proc(samples)
 
 
+class DualBatchQueue(AbstractBatchQueue):
+    """Queue of pre-paired (lr, hr[, obs]) samples (reference:
+    batch_queues/dual.py:14)."""
+
+    def __init__(self, samplers, **kwargs):
+        super().__init__(samplers, **kwargs)
+        s = self.samplers[0]
+        self.lr_features = s.lr_features
+        self.hr_exo_features = s.hr_exo_features
+        self.hr_out_features = s.hr_out_features
+        self.features = s.features
+        self.sample_shape = s.hr_sample_shape
+        self._has_obs = getattr(s, 'obs_data', None) is not None
+        self._is_4d = self.sample_shape[2] == 1 and self.t_enhance == 1
+        self._check_enhancement_factors()
+
+    def _check_enhancement_factors(self):
+        for s in self.samplers:
+            if ((s.s_enhance, s.t_enhance) != (self.s_enhance, self.t_enhance)
+                    or tuple(s.hr_sample_shape) != tuple(self.sample_shape)):
+                raise ValueError(
+                    'All dual samplers in a queue must share the queue\'s '
+                    f'enhancement ({self.s_enhance}, {self.t_enhance}) and '
+                    f'one hr_sample_shape {tuple(self.sample_shape)}; got '
+                    f'({s.s_enhance}, {s.t_enhance}) and '
+                    f'{tuple(s.hr_sample_shape)}')
+
+    @property
+    def lr_shape(self):
+        s = self.samplers[0]
+        shp = (*s.lr_sample_shape, len(self.lr_features))
+        return (shp[0], shp[1], shp[3]) if self._is_4d else shp
+
+    @property
+    def hr_shape(self):
+        s = self.samplers[0]
+        shp = (*s.hr_sample_shape, len(s.hr_features))
+        return (shp[0], shp[1], shp[3]) if self._is_4d else shp
+
+    def _stack(self, samples):
+        """Samples are (lr, hr[, obs]) tuples: stack each member."""
+        return tuple(np.stack(m, axis=0) for m in zip(*samples))
+
+    def transform(self, samples, smoothing=None, smoothing_ignore=None):
+        lr, hr = samples[0], samples[1]
+        if smoothing is not None:
+            lr = smooth_data(np.array(lr), self.lr_features,
+                             smoothing_ignore or [], smoothing)
+        if self._is_4d:
+            lr, hr = lr[:, :, :, 0, :], hr[:, :, :, 0, :]
+        return np.ascontiguousarray(lr), np.ascontiguousarray(hr)
+
+    def post_proc(self, samples):
+        if self._has_obs:
+            lr, hr = self.transform(samples[:2], **self.transform_kwargs)
+            obs = samples[2]
+            if self._is_4d:
+                obs = obs[:, :, :, 0, :]
+            return BatchWithObs(low_res=lr, high_res=hr, obs=obs)
+        lr, hr = self.transform(samples, **self.transform_kwargs)
+        return Batch(low_res=lr, high_res=hr)
+
+
 __getattr__ = not_ported(
-    __name__, ('DualBatchQueue', 'ConditionalBatchQueue', 'QueueMom1',
-               'QueueMom1SF', 'QueueMom2', 'QueueMom2Sep', 'QueueMom2SF',
-               'QueueMom2SepSF', 'BatchQueueDC', 'ValBatchQueueDC'),
-    'ROADMAP queue 1 item 6, the dual, conditional and data-centric '
-    'queues')
+    __name__, ('ConditionalBatchQueue', 'QueueMom1', 'QueueMom1SF',
+               'QueueMom2', 'QueueMom2Sep', 'QueueMom2SF', 'QueueMom2SepSF',
+               'BatchQueueDC', 'ValBatchQueueDC'),
+    'ROADMAP queue 1 item 7, the conditional and data-centric queues')

@@ -9,7 +9,8 @@ pipeline layer where it's explicit and double-buffered. The port's copy
 of what the forward pass and the training feed use of
 ``sup3r_tpu/preprocessing/grid.py`` (the sampler hot path ``sample``
 and the stats' normalization), with the pandas-free
-``TimeIndex``; the paired containers come with the dual handlers.
+``TimeIndex``, and ``PairedDataset``, the (low_res, high_res) pair the
+dual feed trains on.
 """
 
 import numpy as np
@@ -103,6 +104,17 @@ class GridDataset:
             return self.data
         return self[list(features)]
 
+    def slice_dset(self, s1=slice(None), s2=slice(None), t=slice(None),
+                   features=None):
+        """New GridDataset of a spatiotemporal slice."""
+        feats = self.features if features is None else list(features)
+        idx = [self.feature_index(f) for f in feats]
+        data = self.data[s1, s2, t][..., idx]
+        lat_lon = None if self.lat_lon is None else self.lat_lon[s1, s2]
+        ti = None if self.time_index is None else self.time_index[t]
+        return GridDataset(data, feats, lat_lon=lat_lon, time_index=ti,
+                           attrs=self.attrs)
+
     def sample(self, idx):
         """Crop by an index tuple (s1_slice, s2_slice, t_slice,
         feature_list_or_slice): the sampler hot path."""
@@ -111,6 +123,16 @@ class GridDataset:
             f = [self.feature_index(x) for x in f]
             return self.data[s1, s2, t][..., f]
         return self.data[s1, s2, t, f]
+
+    def mean(self, features=None):
+        """Per-feature means dict."""
+        feats = features or self.features
+        return {f: float(np.nanmean(self[f])) for f in feats}
+
+    def std(self, features=None):
+        """Per-feature stds dict."""
+        feats = features or self.features
+        return {f: float(np.nanstd(self[f])) for f in feats}
 
     def normalize(self, means, stds):
         """In-place (x - mean) / std per feature."""
@@ -128,3 +150,61 @@ class GridDataset:
     def __repr__(self):
         return (f'GridDataset(shape={self.shape}, '
                 f'features={self.features})')
+
+
+class PairedDataset:
+    """A (low_res, high_res[, obs]) tuple of GridDatasets with attribute
+    access by member name (the JAX package's ``PairedDataset``)."""
+
+    def __init__(self, **members):
+        assert 1 <= len(members) <= 3
+        self._members = dict(members)
+        for name, dset in members.items():
+            setattr(self, name, dset)
+
+    @property
+    def members(self):
+        """Ordered member dict."""
+        return self._members
+
+    def __iter__(self):
+        return iter(self._members.values())
+
+    def __len__(self):
+        return len(self._members)
+
+    def __getitem__(self, key):
+        if isinstance(key, int):
+            return list(self._members.values())[key]
+        return self._members[key]
+
+    @property
+    def shape(self):
+        """Shape of the last (highest-res) member."""
+        return list(self._members.values())[-1].shape
+
+    @property
+    def size(self):
+        """Total elements across members."""
+        return sum(m.size for m in self._members.values())
+
+    @property
+    def features(self):
+        """Union of member features, first-seen order."""
+        out = []
+        for m in self._members.values():
+            out.extend(f for f in m.features if f not in out)
+        return out
+
+    def mean(self):
+        """Means of the last (high-res) member: normalization stats come
+        from the high-res data."""
+        return list(self._members.values())[-1].mean()
+
+    def std(self):
+        """Stds of the last (high-res) member (see ``mean``)."""
+        return list(self._members.values())[-1].std()
+
+    def __repr__(self):
+        inner = ', '.join(f'{k}={v!r}' for k, v in self._members.items())
+        return f'PairedDataset({inner})'

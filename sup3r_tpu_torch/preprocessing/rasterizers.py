@@ -3,10 +3,9 @@ loaded data, including flattened-H5 -> 2D grid reconstruction.
 
 Reference parity: sup3r/preprocessing/rasterizers/base.py:17 (gridded),
 extended.py:17 (flattened H5 + raster_file cache). The port's copy of
-the ``Rasterizer`` of ``sup3r_tpu/preprocessing/rasterizers.py``; the
-training slice brings ``DualRasterizer``, and ``lazy=True`` (windowed
-H5 views) comes with ``preprocessing/lazy.py`` (ROADMAP queue 1 item
-5).
+the ``Rasterizer`` and ``DualRasterizer`` of
+``sup3r_tpu/preprocessing/rasterizers.py``; ``lazy=True`` (windowed H5
+views) comes with ``preprocessing/lazy.py`` (ROADMAP queue 1 item 5).
 """
 
 import logging
@@ -16,6 +15,8 @@ from warnings import warn
 import numpy as np
 from scipy.spatial import cKDTree
 
+from sup3r_tpu_torch.ops.coarsen import spatial_coarsening
+from sup3r_tpu_torch.preprocessing.grid import GridDataset, PairedDataset
 from sup3r_tpu_torch.preprocessing.loaders import (
     Loader,
     LoaderH5,
@@ -294,3 +295,71 @@ class Rasterizer:
               if self.loader.time_index is not None else None)
         return RawDataset(data_vars, var_dims, self.lat_lon,
                           time_index=ti)
+
+
+def idw_apply(src, idx, weights):
+    """``out[n] = sum_k weights[n, k] * src[idx[n, k]]`` over the trailing
+    dims; src (n_src, ...), idx / weights (n_out, k). The numpy form of
+    the JAX package's ``_native.idw_apply``."""
+    weights = np.asarray(weights, np.float32)
+    return np.einsum('nk,nk...->n...', weights,
+                     np.asarray(src, np.float32)[idx]).astype(np.float32)
+
+
+class DualRasterizer:
+    """Pair LR / HR datasets for dual-resolution training: trim the HR
+    data to an enhancement-divisible shape and regrid the LR data onto
+    the coarsened HR grid by inverse-distance-weighted k-nearest
+    neighbours (reference: rasterizers/dual.py:22, rex's Regridder)."""
+
+    def __init__(self, data, s_enhance=1, t_enhance=1, regrid_workers=1,
+                 regrid_lr=True):
+        """``data``: a dict or tuple with 'low_res' and 'high_res'
+        GridDatasets. ``regrid_workers`` is accepted for reference-config
+        compatibility: the regrid is one vectorized pass."""
+        if isinstance(data, (tuple, list)):
+            lr, hr = data
+        else:
+            lr, hr = data['low_res'], data['high_res']
+        self.s_enhance = s_enhance
+        self.t_enhance = t_enhance
+
+        hs1 = (hr.shape[0] // s_enhance) * s_enhance
+        hs2 = (hr.shape[1] // s_enhance) * s_enhance
+        ht = (hr.shape[2] // t_enhance) * t_enhance
+        hr = hr.slice_dset(slice(0, hs1), slice(0, hs2), slice(0, ht))
+
+        lr_lat_lon = spatial_coarsening(hr.lat_lon, s_enhance,
+                                        obs_axis=False)
+        lr_time = hr.time_index[::t_enhance]
+        if regrid_lr:
+            lr_data = self._regrid(lr, lr_lat_lon)
+        else:
+            lr_data = lr.data[:lr_lat_lon.shape[0], :lr_lat_lon.shape[1],
+                              :len(lr_time)]
+        lr_new = GridDataset(lr_data[:, :, :len(lr_time)], lr.features,
+                             lat_lon=lr_lat_lon, time_index=lr_time)
+        lr_new.interpolate_na()
+        self.lr_data = lr_new
+        self.hr_data = hr
+        self.data = PairedDataset(low_res=self.lr_data,
+                                  high_res=self.hr_data)
+
+    @staticmethod
+    def _regrid(lr, target_lat_lon, k=4):
+        """IDW k-NN regrid of LR data onto target coordinates; a target
+        that matches a source exactly takes that source's value."""
+        src = lr.lat_lon.reshape(-1, 2)
+        dst = target_lat_lon.reshape(-1, 2)
+        dists, idx = cKDTree(src).query(dst, k=min(k, len(src)))
+        if dists.ndim == 1:
+            dists, idx = dists[:, None], idx[:, None]
+        weights = 1.0 / np.maximum(dists, 1e-12)
+        exact = dists[:, 0] < 1e-10
+        weights[exact] = 0
+        weights[exact, 0] = 1
+        weights /= weights.sum(axis=1, keepdims=True)
+        flat = lr.data.reshape(-1, *lr.data.shape[2:])
+        out = idw_apply(flat, idx, weights.astype(np.float32))
+        return out.reshape(*target_lat_lon.shape[:2],
+                           *lr.data.shape[2:]).astype(np.float32)

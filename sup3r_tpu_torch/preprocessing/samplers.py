@@ -3,9 +3,9 @@
 ``sup3r_tpu/preprocessing/samplers.py``).
 
 Every draw comes from the port's locked ``RANDOM_GENERATOR`` in the JAX
-package's order, so the same seed gives the same samples. ``SamplerDC``
-and the dual samplers come with the dual and data-centric handlers
-(ROADMAP queue 1 item 6).
+package's order, so the same seed gives the same samples. ``DualSampler``
+crops aligned LR / HR pairs from a ``PairedDataset``. ``SamplerDC`` and
+``DualSamplerCC`` come with their models (ROADMAP queue 1 item 7).
 """
 
 import logging
@@ -179,6 +179,93 @@ class Sampler:
         return self.data.sample(self.get_sample_index())
 
 
+class DualSampler:
+    """Paired LR / HR sampler with enhancement-consistent crops
+    (reference: samplers/dual.py:17)."""
+
+    def __init__(self, data, sample_shape=None, batch_size=16,
+                 s_enhance=1, t_enhance=1, feature_sets=None):
+        """``data``: a PairedDataset with ``low_res`` and ``high_res``
+        members (optionally ``obs``)."""
+        self.data = data
+        self.lr_data = data['low_res']
+        self.hr_data = data['high_res']
+        self.obs_data = data.members.get('obs')
+        self.s_enhance = s_enhance
+        self.t_enhance = t_enhance
+        self.batch_size = batch_size
+        hr_shape = tuple(sample_shape or (10, 10, 1))
+        if len(hr_shape) == 2:
+            hr_shape = (*hr_shape, 1)
+        self.hr_sample_shape = hr_shape
+        if hr_shape[0] % s_enhance or hr_shape[1] % s_enhance or (
+                hr_shape[2] % t_enhance):
+            raise ValueError(
+                f'HR sample shape {hr_shape} not divisible by s_enhance '
+                f'{s_enhance} / t_enhance {t_enhance}')
+        self.lr_sample_shape = (hr_shape[0] // s_enhance,
+                                hr_shape[1] // s_enhance,
+                                hr_shape[2] // t_enhance)
+        self.sample_shape = hr_shape
+        feature_sets = feature_sets or {}
+        self.lr_features = [
+            f.lower() for f in feature_sets.get(
+                'lr_features', self.lr_data.features)]
+        # lr_only_features are model inputs that never appear on the
+        # high-res side
+        lr_only = [f.lower()
+                   for f in feature_sets.get('lr_only_features', [])]
+        default_hr = [f for f in self.hr_data.features
+                      if f.lower() not in lr_only]
+        hr_feats = feature_sets.get('hr_features', default_hr)
+        self.features = list(dict.fromkeys(
+            self.lr_features + [f.lower() for f in hr_feats]))
+        self._hr_exo_features = [
+            f.lower() for f in feature_sets.get('hr_exo_features', [])]
+        self.hr_features = [f.lower() for f in hr_feats]
+        lr_shape, hr_shape_full = self.lr_data.shape, self.hr_data.shape
+        if (lr_shape[0] * s_enhance != hr_shape_full[0]
+                or lr_shape[2] * t_enhance != hr_shape_full[2]):
+            raise ValueError(
+                f'LR/HR data {lr_shape} / {hr_shape_full} inconsistent with '
+                f's_enhance={s_enhance}, t_enhance={t_enhance}')
+
+    @property
+    def hr_exo_features(self):
+        return self._hr_exo_features
+
+    @property
+    def hr_out_features(self):
+        return [f for f in self.hr_features
+                if f not in self._hr_exo_features]
+
+    def get_sample_index(self):
+        """Aligned (lr_index, hr_index) crop pair: the LR crop is drawn,
+        the HR crop is its enhancement."""
+        lr_box = uniform_box_sampler(self.lr_data.shape,
+                                     self.lr_sample_shape[:2])
+        lr_t = uniform_time_sampler(self.lr_data.shape,
+                                    self.lr_sample_shape[2])
+        hr_box = [slice(s.start * self.s_enhance, s.stop * self.s_enhance)
+                  for s in lr_box]
+        hr_t = slice(lr_t.start * self.t_enhance,
+                     lr_t.stop * self.t_enhance)
+        return ((*lr_box, lr_t, self.lr_features),
+                (*hr_box, hr_t, self.hr_features))
+
+    def __next__(self):
+        """(lr_sample, hr_sample[, obs_sample]) tuple."""
+        lr_idx, hr_idx = self.get_sample_index()
+        lr = self.lr_data.sample(lr_idx)
+        hr = self.hr_data.sample(hr_idx)
+        if self.obs_data is not None:
+            obs = self.obs_data.sample(
+                (*hr_idx[:3], self.obs_data.features))
+            return lr, hr, obs
+        return lr, hr
+
+
 __getattr__ = not_ported(
-    __name__, ('SamplerDC', 'DualSampler', 'DualSamplerCC'),
-    'ROADMAP queue 1 item 6, the dual and data-centric samplers')
+    __name__, ('SamplerDC', 'DualSamplerCC'),
+    'ROADMAP queue 1 item 7, the data-centric and climate-change '
+    'samplers')

@@ -1,8 +1,7 @@
 """Multi-container statistics: size-weighted means/stds with JSON
 files (the port of ``StatsCollection`` in
-``sup3r_tpu/preprocessing/stats.py``, for GridDataset containers; the
-paired and lazy containers come with the dual handlers and
-``chunked_io``)."""
+``sup3r_tpu/preprocessing/stats.py``, for GridDataset and PairedDataset
+containers; the lazy containers come with ``chunked_io``)."""
 
 import json
 import logging
@@ -11,16 +10,23 @@ from warnings import warn
 
 import numpy as np
 
+from sup3r_tpu_torch.preprocessing.grid import PairedDataset
+
 logger = logging.getLogger(__name__)
 
 
+def _is_dataset(obj):
+    """A GridDataset (anything with ``sample``) or a PairedDataset."""
+    return hasattr(obj, 'sample') or isinstance(obj, PairedDataset)
+
+
 def unwrap_container(c):
-    """A container's dataset: a GridDataset (anything with ``sample``)
-    itself, or a DataHandler's ``data``."""
-    if hasattr(c, 'sample'):
+    """A container's dataset: a GridDataset or PairedDataset itself, or
+    a DataHandler's or DualRasterizer's ``data``."""
+    if _is_dataset(c):
         return c
     data = getattr(c, 'data', None)
-    if hasattr(data, 'sample'):
+    if _is_dataset(data):
         return data
     return c
 
@@ -38,24 +44,56 @@ class StatsCollection:
         self.save_stats(means, stds)
         self.normalize_containers()
 
+    #: the member a paired dataset's stats come from: the high-res one
+    #: (features only its other members hold fall back to those)
+    _PREFERRED = ('high_res', 'hourly')
+
+    @staticmethod
+    def _members(data):
+        return (list(data.members.values()) if hasattr(data, 'members')
+                else [data])
+
     def _datasets(self):
-        return [unwrap_container(c) for c in self.containers]
+        """Stats member per container (a paired dataset's high-res
+        member)."""
+        out = []
+        for c in self.containers:
+            data = unwrap_container(c)
+            if hasattr(data, 'members'):
+                key = next((k for k in self._PREFERRED
+                            if k in data.members), None)
+                data = (data.members[key] if key
+                        else self._members(data)[-1])
+            out.append(data)
+        return out
+
+    def _ordered_members(self):
+        """Per container, its members with the stats member first."""
+        return [[pref] + [m for m in self._members(unwrap_container(c))
+                          if m is not pref]
+                for c, pref in zip(self.containers, self._datasets())]
 
     def _all_features(self):
-        """Union of features over every container, first-seen order."""
+        """Union of features over every container and member, the stats
+        members' first."""
         feats = []
-        for d in self._datasets():
-            feats.extend(f for f in d.features if f not in feats)
+        for members in self._ordered_members():
+            for m in members:
+                feats.extend(f for f in m.features if f not in feats)
         return feats
 
     def _stat_members(self, feature):
+        """Per container, the first member (stats member first) that
+        holds ``feature``."""
         out = []
-        for c, d in zip(self.containers, self._datasets()):
-            if feature not in d.features:
+        for c, members in zip(self.containers, self._ordered_members()):
+            member = next((m for m in members if feature in m.features),
+                          None)
+            if member is None:
                 raise KeyError(
-                    f'Feature "{feature}" not found in container '
-                    f'{type(c).__name__} for stats')
-            out.append(d)
+                    f'Feature "{feature}" not found in any member of '
+                    f'container {type(c).__name__} for stats')
+            out.append(member)
         return out
 
     @staticmethod
@@ -124,8 +162,10 @@ class StatsCollection:
                 json.dump(self.stds, f, indent=2)
 
     def normalize_containers(self):
-        """Normalize every container in place with the collected stats."""
-        for d in self._datasets():
-            means = {f: self.means.get(f, 0.0) for f in d.features}
-            stds = {f: self.stds.get(f, 1.0) for f in d.features}
-            d.normalize(means, stds)
+        """Normalize every container (each member of a paired one) in
+        place with the collected stats."""
+        for c in self.containers:
+            for m in self._members(unwrap_container(c)):
+                means = {f: self.means.get(f, 0.0) for f in m.features}
+                stds = {f: self.stds.get(f, 1.0) for f in m.features}
+                m.normalize(means, stds)

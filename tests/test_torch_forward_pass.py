@@ -267,7 +267,7 @@ def test_nan_input_and_constant_output_raise(tmp_path, saved):
     ({'chunked_io': True}, 'lazy.py'),
     ({'bias_correct_method': 'linear'}, 'bias'),
     ({'use_mesh': True}, 'item 9'),
-    ({'inference_mode': 'fast'}, 'item 3'),
+    ({'input_handler_name': 'DailyDataHandler'}, 'item 5'),
     ({'model_class': 'MultiStepGan'}, 'item 7'),
     ({'input_handler_name': 'DataHandlerNCforCC'}, 'climate-change'),
 ])

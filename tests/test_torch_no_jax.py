@@ -4,7 +4,9 @@ unimportable — as on the card's machine — and it never drops quietly to
 the CPU. The blocked run also saves a model, reloads it, runs the
 chunked ForwardPass from a NetCDF3 input to NetCDF output, takes one
 train step and trains one BatchHandler epoch (history, checkpoint with
-optimizer state, reload)."""
+optimizer state, reload), serves in fast mode, takes a bf16 and a remat
+step, and trains one epoch over a DualBatchHandler of DualRasterizer
+data."""
 
 import os
 import subprocess
@@ -24,6 +26,7 @@ BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'sup3r_tpu', 'pandas', 'h5py',
 
 _SCRIPT = f'''
 import importlib.abc
+import importlib.util
 import sys
 
 BLOCKED = {BLOCKED!r}
@@ -37,6 +40,11 @@ class Blocker(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Blocker())
+# a module that is not installed has no spec: probes (torch._dynamo's,
+# which torch.utils.checkpoint imports) see None, not an error
+_find_spec = importlib.util.find_spec
+importlib.util.find_spec = lambda name, package=None: (
+    None if name.split('.')[0] in BLOCKED else _find_spec(name, package))
 
 import numpy as np
 import torch
@@ -107,9 +115,40 @@ model.train(handler, input_resolution={{'spatial': '30km',
 again = Sup3rGan.load(os.path.join(tmp, 'gan_0'), device='cpu')
 assert len(again.history) == 1 and 'val_loss_gen' in again.history
 assert again._gen_opt_state['count'] == model._gen_opt_state['count']
+print('TRAINED', len(model.history))
+
+model.inference_mode = 'fast'
+fast = model.generate(lr.astype(np.float32))
+model.inference_mode = 'exact'
+exact = model.generate(lr.astype(np.float32))
+assert fast.dtype == np.float32 and fast.shape == exact.shape
+assert np.abs(fast - exact).max() <= 0.04 * np.abs(exact).max()
+print('FAST', fast.shape)
+
+for dtype, remat in (('bfloat16', False), (None, True)):
+    model.train_dtype, model.train_remat = dtype, remat
+    details = model.run_gradient_descent(
+        lr.astype(np.float32), np.zeros((1, 12, 12, 12, 2), np.float32),
+        train_gen=True, train_disc=True)
+    assert all(np.isfinite(v) for v in details.values()), details
+model.train_dtype, model.train_remat = None, False
+print('BF16 AND REMAT')
+
+from sup3r_tpu_torch.preprocessing import DualBatchHandler, DualRasterizer
+
+dual = DualRasterizer(
+    (make_fake_dset((8, 8, 6), ['u_100m', 'v_100m'], freq='4h'),
+     make_fake_dset((24, 24, 24), ['u_100m', 'v_100m'])),
+    s_enhance=3, t_enhance=4)
+handler = DualBatchHandler([dual], batch_size=1, n_batches=2, s_enhance=3,
+                           t_enhance=4, sample_shape=(12, 12, 12))
+model.train(handler, input_resolution={{'spatial': '30km',
+                                        'temporal': '60min'}},
+            n_epoch=1, out_dir=None)
+assert len(model.history) == 2
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not loaded, loaded
-print('TRAINED', len(model.history))
+print('DUAL TRAINED', len(model.history))
 '''
 
 
@@ -125,6 +164,9 @@ def test_port_serves_with_jax_and_friends_blocked():
     assert 'SERVED (1, 12, 12, 12, 2)' in proc.stdout
     assert 'FORWARD PASS 8' in proc.stdout
     assert 'TRAINED 1' in proc.stdout
+    assert 'FAST (1, 12, 12, 12, 2)' in proc.stdout
+    assert 'BF16 AND REMAT' in proc.stdout
+    assert 'DUAL TRAINED 2' in proc.stdout
 
 
 def test_no_card_without_explicit_cpu_raises(monkeypatch):

@@ -17,7 +17,10 @@ exits non-zero:
    accumulation order; ``reflect_conv`` runs 3xTF32 on the tensor cores,
    whose split drops ~2^-22 relative per product). ``small_reflect_conv``
    also at the shipped 8 -> 1 and 8 -> 3 tails and at the edges of its
-   tiling (``SMALL_CHECKS``);
+   tiling (``SMALL_CHECKS``); ``reflect_conv``'s 2D path at the eight
+   block shapes of the Sup3rCC chain's step 0 (``CHAIN_2D_SHAPES``: ci 7
+   / 64 / 65, co 64 / 1600 / 6, 14 x 14 and 70 x 70, batch = time 6)
+   and at ragged 2D shapes (``RAGGED_2D_CHECKS``);
 3. the main path: the flagship ``spatiotemporal/gen_3x_4x_2f`` generator
    at full width (64 filters, 16 residual blocks, seeded random
    weights) serves 3 requests of ``Sup3rGan.generate`` on a
@@ -41,8 +44,12 @@ exits non-zero:
    events of its name; ``launch_ms``, and ``kernel_ms_by`` says
    ``cuda_events``, where three profiler sessions lost launches),
    ``share_of_bound`` is bound_ms / kernel_ms.
-   ``reflect_conv`` also at each of its four main-path shapes,
-   ``small_reflect_conv`` at the 8 -> 1, 2 and 3 tails.
+   ``reflect_conv`` also at each of its four main-path shapes and
+   (``chain_2d_shapes``) at the chain's eight 2D shapes with their
+   calls in phase 10's last opt-in pass (``library_ms`` there is one
+   ``F.conv2d`` on a
+   4-sided reflect pad; the bound counts 9 taps), ``small_reflect_conv``
+   at the 8 -> 1, 2 and 3 tails.
 6. the chunked forward pass (printed before the ``kernels`` line): a
    NetCDF3 input of (64, 64, 40) low-res cells written with the port's
    helper, the full-width flagship saved and loaded through
@@ -103,8 +110,33 @@ exits non-zero:
    a ``DualBatchHandler`` of paired NetCDF3 files (``DataHandler`` ->
    ``DualRasterizer``), 2 epochs of 4 batches of 16 (s per batch,
    starvation rate).
+10. the Sup3rCC wind chain (printed before the ``kernels`` line): a
+   ``MultiStepGan`` of ``sup3rcc/gen_wind_5x_1x_6f`` (5x spatial, 4D,
+   topography as an input channel and through its Sup3rConcat layer)
+   and ``sup3rcc/gen_wind_1x_24x_6f`` (24x ``depth_to_time``, 5D), both
+   at full width from seed 0, saved and loaded through
+   ``ForwardPassStrategy(model_class='MultiStepGan',
+   exo_handler_kwargs={'topography': ...})`` over a daily NetCDF3 input
+   of (30, 30, 8) low-res cells with six features and a NetCDF3
+   topography source: chunks (10, 10, 4), pads 2 / 1, so 18 chunks
+   padded to (14, 14, 6), run chunk by chunk (a chain has no
+   ``fetch=``). The cold exo rasterization, then 3 timed passes to
+   NetCDF on each route (wall s, HR voxels/s over the (150, 150, 192)
+   HR domain, the stage split, the wrappers' launch counts, the 2D and
+   3D ``reflect_conv`` launches apart: none on the default route, 38 2D
+   and 36 3D per chunk on the opt-in route, as counted from the fused
+   networks; the last opt-in pass also hooks every fused block and
+   checks each 2D call's shape against ``CHAIN_2D_SHAPES`` and the calls
+   of each rank against the wrapper's count), one profiled pass per
+   route; every file read back (finite, the full domain, six features),
+   the routes within the parity bar of each other, one chunk of a small
+   domain on the card within the parity bar of the port's CPU chain,
+   and a test-sized 5D topography GAN through the device-batched exo
+   path equal to its chunk-by-chunk run (each feature held to 1e-4 of
+   its own largest magnitude).
 
-The last line is ``{"ok": true, "device": {...}}``.
+Before the ``kernels`` line, ``phase_seconds`` gives the seconds each
+phase took. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -114,13 +146,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sup3r_tpu_torch.configs import get_config
-from sup3r_tpu_torch.models import Sup3rGan
+from sup3r_tpu_torch.models import MultiStepGan, Sup3rGan
 from sup3r_tpu_torch.models.fuse import FusedReflectConv
 from sup3r_tpu_torch.ops import build
 from sup3r_tpu_torch.ops.output_pack import (
@@ -146,6 +179,7 @@ from sup3r_tpu_torch.utilities import RANDOM_GENERATOR, get_dset_attrs
 from sup3r_tpu_torch.utilities.test_helpers import (
     make_fake_dset,
     make_fake_nc_file,
+    make_fake_topo_nc_file,
 )
 from sup3r_tpu_torch.ops.kernels import (
     pack_weights,
@@ -416,14 +450,16 @@ def fwp_strategy(input_file, model_dir, out_pattern, device='cuda',
     return ForwardPassStrategy(**kw)
 
 
-def check_fwp_files(strategy, out_dir, keep=False):
+def check_fwp_files(strategy, out_dir, keep=False, domain=FWP_DOMAIN,
+                    features=FWP_FEATURES):
     """Read every chunk file back through ``LoaderNC`` and tile the
-    high-res domain; it must be finite and complete. Returns the tiled
-    domain's shape, and with ``keep`` the tiled array too."""
+    high-res domain; it must be finite and complete, with every feature.
+    Returns the tiled domain's shape, and with ``keep`` the tiled array
+    too."""
     slicer, s_en, t_en = (strategy.fwp_slicer, strategy.s_enhance,
                           strategy.t_enhance)
-    shape = (FWP_DOMAIN[0] * s_en, FWP_DOMAIN[1] * s_en,
-             FWP_DOMAIN[2] * t_en, len(FWP_FEATURES))
+    shape = (domain[0] * s_en, domain[1] * s_en, domain[2] * t_en,
+             len(features))
     full = np.full(shape, np.nan, np.float32)
     for idx, path in enumerate(strategy.out_files):
         if not os.path.exists(path):
@@ -433,7 +469,7 @@ def check_fwp_files(strategy, out_dir, keep=False):
         s_hr = slicer.s_hr_slices[s_idx]
         t_lr = slicer.t_lr_slices[t_idx]
         full[s_hr[0], s_hr[1], t_lr.start * t_en:t_lr.stop * t_en] = \
-            np.stack([data[f] for f in FWP_FEATURES], axis=-1)
+            np.stack([data[f] for f in features], axis=-1)
     if not np.isfinite(full).all():
         raise AssertionError('forward pass: the stitched output is not '
                              f'finite and complete at {shape}')
@@ -479,10 +515,13 @@ def fwp_pass(input_file, model_dir, out_dir, route, index):
     return wall_s, launches
 
 
-def fwp_profiled_pass(input_file, model_dir, out_dir, route):
-    """One more pass under ``torch.profiler``: the device-busy time
-    (the sum of the device events of kernels and copies, on all streams)
-    against the wall time, so the device's idle share."""
+def fwp_profiled_pass(make_strategy, out_dir, route,
+                      phase='forward_pass_profile'):
+    """One more pass (planning included) under ``torch.profiler``: the
+    device-busy time (the sum of the device events of kernels and copies,
+    on all streams) against the wall time, so the device's idle share,
+    and the kernels and copies that take the most device time.
+    ``make_strategy(out_pattern)`` builds the pass's strategy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -490,8 +529,7 @@ def fwp_profiled_pass(input_file, model_dir, out_dir, route):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ForwardPass.run(fwp_strategy(
-            input_file, model_dir,
+        ForwardPass.run(make_strategy(
             os.path.join(out_dir, 'chunk_{file_id}.nc')), 0)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -500,11 +538,13 @@ def fwp_profiled_pass(input_file, model_dir, out_dir, route):
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    emit(phase='forward_pass_profile', route=route, wall_ms=wall_ms,
+    emit(phase=phase, route=route, wall_ms=wall_ms,
          device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+         d2h_ms=sum(e.self_device_time_total for e in events
+                    if 'DtoH' in e.key) / 1e3,
          top_device=[{'name': e.key[:90], 'calls': e.count,
                       'device_ms': e.self_device_time_total / 1e3}
-                     for e in events[:6]])
+                     for e in events[:8]])
 
 
 def fwp_drain_breakdown(input_file, model_dir, tmp, repeats=10):
@@ -662,9 +702,9 @@ def forward_pass_phase(name):
             emit(phase='forward_pass_route', route=route, wall_s=walls,
                  hr_voxels_per_s=int(np.prod(FWP_DOMAIN)) * 9 * 4 / float(
                      np.median(walls)), nvidia_smi=name)
-            fwp_profiled_pass(input_file, model_dir,
-                              os.path.join(tmp, f'{route}_profiled'),
-                              route)
+            fwp_profiled_pass(
+                lambda out: fwp_strategy(input_file, model_dir, out),
+                os.path.join(tmp, f'{route}_profiled'), route)
         served.inference_pallas = False
         fwp_drain_breakdown(input_file, model_dir, tmp)
         fwp_reference_checks(model_dir, tmp)
@@ -1133,6 +1173,25 @@ def launch_counts():
 
 def zero_counts():
     small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+    reflect_conv_cf.launches_by_rank.update({2: 0, 3: 0})
+
+
+def chain_counts():
+    """``launch_counts`` with ``reflect_conv``'s count split by the
+    wrapper into 2D and 3D launches."""
+    by_rank = reflect_conv_cf.launches_by_rank
+    return {**launch_counts(), 'reflect_conv_2d': by_rank[2],
+            'reflect_conv_3d': by_rank[3]}
+
+
+def feature_errs(got, ref):
+    """Per feature (the last axis): the largest |got - ref| and its bar,
+    PARITY_RTOL x the feature's largest |ref|; and whether all pass."""
+    ref = np.asarray(ref)
+    ref = ref.reshape(-1, ref.shape[-1])
+    errs = np.abs(np.asarray(got).reshape(ref.shape) - ref).max(axis=0)
+    tols = PARITY_RTOL * np.abs(ref).max(axis=0)
+    return errs.tolist(), tols.tolist(), bool((errs <= tols).all())
 
 
 def fast_forward_pass(name):
@@ -1519,10 +1578,390 @@ def training_modes_phase(name, fp32):
     return {'bf16': per_bf16, 'remat': per_remat}
 
 
+#: phase 10, the Sup3rCC wind chain: daily low-res domain (s1, s2, t),
+#: chunk shape and pads (18 chunks, each padded to (14, 14, 6) LR), the
+#: six wind / surface features, the topography source's grid (finer than
+#: the 5x HR grid's 150 x 150) and the timed passes per route
+CHAIN_DOMAIN = (30, 30, 8)
+CHAIN_CHUNK = (10, 10, 4)
+CHAIN_S_PAD = 2
+CHAIN_T_PAD = 1
+CHAIN_FEATURES = ['u_10m', 'v_10m', 'u_100m', 'v_100m', 'temperature_2m',
+                  'relativehumidity_2m']
+CHAIN_TOPO_GRID = (180, 180)
+CHAIN_LAT = (40.0, 39.0)
+CHAIN_LON = (-105.5, -104.3)
+N_CHAIN_PASSES = 3
+#: the chain's output stats: outputs of the random networks land inside
+#: each feature's physical limits, so the writer keeps them as they are
+CHAIN_MEANS = {'u_10m': 0.0, 'v_10m': 0.0, 'u_100m': 0.0, 'v_100m': 0.0,
+               'temperature_2m': 10.0, 'relativehumidity_2m': 50.0,
+               'topography': 500.0}
+CHAIN_STDEVS = {'u_10m': 0.5, 'v_10m': 0.5, 'u_100m': 0.5, 'v_100m': 0.5,
+                'temperature_2m': 0.5, 'relativehumidity_2m': 0.2,
+                'topography': 300.0}
+#: ``reflect_conv``'s 2D main-path blocks in one chunk of step 0 (input
+#: shape (batch = time, ci, h, w), co, LeakyReLU alpha, launches per
+#: chunk on the opt-in route); phase 10 asserts them against the fused
+#: blocks' calls in a whole opt-in pass
+CHAIN_2D_SHAPES = (((6, 7, 14, 14), 64, 0.2, 1),
+                   ((6, 64, 14, 14), 64, 0.2, 8),
+                   ((6, 64, 14, 14), 64, None, 9),
+                   ((6, 64, 14, 14), 1600, 0.2, 1),
+                   ((6, 65, 70, 70), 64, 0.2, 1),
+                   ((6, 64, 70, 70), 64, 0.2, 8),
+                   ((6, 64, 70, 70), 64, None, 9),
+                   ((6, 64, 70, 70), 6, None, 1))
+#: ragged 2D checks of ``reflect_conv`` (x shape, co, alpha): a last N
+#: tile with 2 channels, ci neither a whole K chunk nor above one, the
+#: smallest input that reflects, widths the kernel's tile does not divide
+RAGGED_2D_CHECKS = (((3, 9, 13, 11), 130, 0.2),
+                    ((1, 3, 2, 2), 5, None),
+                    ((5, 65, 17, 23), 1600, None),
+                    ((2, 1, 31, 7), 72, 0.2))
+
+
+class ChainForwardPass(RecordedForwardPass):
+    """``RecordedForwardPass`` that counts its chunk-by-chunk runs and its
+    batched dispatches, and times a chunk run's stages:
+    ``run_generator`` (the chain on the device and its fetch),
+    ``_output_check`` and ``_write`` (transform + NetCDF)."""
+
+    def __init__(self, *args, **kwargs):
+        self.chunk_runs = self.dispatches = 0
+        super().__init__(*args, **kwargs)
+
+    def run_chunk(self, *args, **kwargs):
+        self.chunk_runs += 1
+        return super().run_chunk(*args, **kwargs)
+
+    def run_generator(self, *args, **kwargs):
+        return self.timer(ForwardPass.run_generator)(*args, **kwargs)
+
+    def _output_check(self, *args, **kwargs):
+        return self.timer(ForwardPass._output_check)(*args, **kwargs)
+
+    def _write(self, *args, **kwargs):
+        return self.timer(super()._write)(*args, **kwargs)
+
+    def _dispatch_chunk_batch(self, batch):
+        out = super()._dispatch_chunk_batch(batch)
+        self.dispatches += out is not None
+        return out
+
+
+def chain_inputs(tmp, domain=CHAIN_DOMAIN, seed=0):
+    """A daily NetCDF3 input of ``domain`` low-res cells with the six
+    features (drawn at the chain's norm stats), and a NetCDF3 topography
+    source over the same extent on a grid finer than the HR grid."""
+    rng = np.random.default_rng(seed)
+    s1, s2, t = domain
+    data = {f: rng.standard_normal((t, s1, s2)) * CHAIN_STDEVS[f]
+            + CHAIN_MEANS[f] for f in CHAIN_FEATURES}
+    input_file = make_fake_nc_file(
+        os.path.join(tmp, f'daily_{s1}x{s2}x{t}.nc'), domain, CHAIN_FEATURES,
+        freq='D', lat_range=CHAIN_LAT, lon_range=CHAIN_LON, data=data)
+    topo = make_fake_topo_nc_file(
+        os.path.join(tmp, 'topography.nc'), CHAIN_TOPO_GRID,
+        lat_range=(CHAIN_LAT[0] + 0.05, CHAIN_LAT[1] - 0.05),
+        lon_range=(CHAIN_LON[0] - 0.05, CHAIN_LON[1] + 0.05),
+        data=rng.random(CHAIN_TOPO_GRID) * 2000)
+    return input_file, topo
+
+
+def chain_members(device):
+    """The Sup3rCC wind chain at full width from seed 0: step 0
+    ``sup3rcc/gen_wind_5x_1x_6f`` (topography as an input channel and
+    through its Sup3rConcat layer), step 1 ``sup3rcc/gen_wind_1x_24x_6f``."""
+    disc = [{'class': 'Flatten'}, {'class': 'Dense', 'units': 1}]
+    res = {'spatial': '100km', 'temporal': '1440min'}
+    spatial = Sup3rGan(
+        get_config('sup3rcc/gen_wind_5x_1x_6f'), disc,
+        meta={'lr_features': CHAIN_FEATURES + ['topography'],
+              'hr_out_features': list(CHAIN_FEATURES),
+              's_enhance': 5, 't_enhance': 1, 'input_resolution': res},
+        means=CHAIN_MEANS, stdevs=CHAIN_STDEVS, device=device)
+    spatial.init_weights((1, 4, 4, 7), (1, 20, 20, 6), seed=0)
+    temporal = Sup3rGan(
+        get_config('sup3rcc/gen_wind_1x_24x_6f'), disc,
+        meta={'lr_features': list(CHAIN_FEATURES),
+              'hr_out_features': list(CHAIN_FEATURES),
+              's_enhance': 1, 't_enhance': 24, 'input_resolution': res},
+        means=CHAIN_MEANS, stdevs=CHAIN_STDEVS, device=device)
+    temporal.init_weights((1, 4, 4, 2, 6), (1, 4, 4, 48, 6), seed=0)
+    return spatial, temporal
+
+
+def chain_strategy(input_file, model_dirs, topo, out_pattern,
+                   device='cuda', **kwargs):
+    """The chain's strategy; its topography cache lives beside the
+    source (one cold rasterization for all passes)."""
+    kw = dict(file_paths=input_file, model_class='MultiStepGan',
+              model_kwargs={'model_dirs': model_dirs, 'device': device},
+              fwp_chunk_shape=CHAIN_CHUNK, spatial_pad=CHAIN_S_PAD,
+              temporal_pad=CHAIN_T_PAD, device_batch_size=6,
+              exo_handler_kwargs={'topography': {
+                  'source_file': topo, 'cache_dir': os.path.join(
+                      os.path.dirname(topo), 'exo_cache')}},
+              out_pattern=out_pattern)
+    kw.update(kwargs)
+    return ForwardPassStrategy(**kw)
+
+
+def chain_fused_calls(chain):
+    """Forward pre-hooks on every fused block of both members' serving
+    networks; returns (calls, remove): ``calls`` collects (n_spatial,
+    input shape, co, alpha) of each block call."""
+    calls, hooks = [], []
+    for member in chain.models:
+        for lyr in member._get_fused_apply().layers:
+            if isinstance(lyr, FusedReflectConv):
+                hooks.append(lyr.register_forward_pre_hook(
+                    lambda m, args: calls.append(
+                        (m.n_spatial, tuple(args[0].shape),
+                         m.conv.bias.shape[0], m.alpha))))
+
+    def remove():
+        for h in hooks:
+            h.remove()
+
+    return calls, remove
+
+
+def chain_pass(input_file, dirs, topo, out_dir, route, index, want):
+    """One timed ``ForwardPass.run`` of the chain to NetCDF; checks the
+    wrappers' launch counts against ``want`` and returns (wall s, tiled
+    output, launch counts)."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strategy = chain_strategy(input_file, dirs, topo,
+                              os.path.join(out_dir, 'chunk_{file_id}.nc'))
+    plan_s = time.perf_counter() - t0
+    ChainForwardPass.run(strategy, 0)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = chain_counts()
+    fwp = ChainForwardPass.last
+    _, full = check_fwp_files(strategy, out_dir, keep=True,
+                              domain=CHAIN_DOMAIN, features=CHAIN_FEATURES)
+    n_chunks = strategy.fwp_slicer.n_chunks
+    ok = (launches == want and fwp.chunk_runs == n_chunks
+          and fwp.dispatches == 0)
+    emit(phase='chain_pass', route=route, pass_index=index, chunks=n_chunks,
+         chunk_runs=fwp.chunk_runs, batched_dispatches=fwp.dispatches,
+         hr_shape=list(full.shape), wall_s=wall_s, plan_s=plan_s,
+         hr_voxels_per_s=int(np.prod(full.shape[:3])) / wall_s,
+         timer_s=fwp.timer.log, launches=launches, expected=want, ok=ok)
+    if not ok:
+        raise AssertionError(
+            f'chain pass ({route}): launches {launches} (expected {want}), '
+            f'{fwp.chunk_runs} chunk runs and {fwp.dispatches} batched '
+            f'dispatches for {n_chunks} chunks')
+    return wall_s, full, launches
+
+
+def chain_cpu_check(dirs, tmp):
+    """One chunk of a small domain: the card's chain output on both
+    routes against the port's CPU chain (the parity bar)."""
+    os.makedirs(os.path.join(tmp, 'small'))
+    small, topo = chain_inputs(os.path.join(tmp, 'small'), (4, 4, 2),
+                               seed=1)
+    kw = dict(fwp_chunk_shape=(4, 4, 2), spatial_pad=0, temporal_pad=0,
+              device_batch_size=1)
+    cpu = ForwardPass.run(chain_strategy(small, dirs, topo, None,
+                                         device='cpu', **kw), 0)
+    strategy = chain_strategy(small, dirs, topo, None, **kw)
+    chain = strategy.get_model()
+    errs, ok = {}, bool(np.isfinite(cpu[0]).all())
+    for route, pallas in (('default', False), ('opt_in', True)):
+        for m in chain.models:
+            m.inference_pallas = pallas
+        card = ForwardPass.run(strategy, 0)
+        errs[route], tols, ok_route = feature_errs(card[0], cpu[0])
+        ok = ok and ok_route
+    for m in chain.models:
+        m.inference_pallas = False
+    emit(phase='chain_cpu_check', chunk_hr_shape=list(cpu[0].shape),
+         features=CHAIN_FEATURES, max_abs_err=errs, tol=tols, ok=ok)
+    if not ok:
+        raise AssertionError(f'chain: card vs CPU {errs} > {tols}')
+
+
+def exo_batched_check(tmp):
+    """A test-sized 5D Sup3rGan with a Sup3rConcat topography layer
+    (tests/forward_pass/test_batched_fwp.py's) through the device-batched
+    exo path on the card, against its chunk-by-chunk run."""
+    features = ['u_100m', 'v_100m']
+    gen = [{'class': 'Conv3D', 'filters': 8, 'kernel_size': 3,
+            'strides': 1, 'padding': 'same'},
+           {'class': 'SpatioTemporalExpansion', 'spatial_mult': 2},
+           {'class': 'Sup3rConcat', 'name': 'topography'},
+           {'class': 'Conv3D', 'filters': 2, 'kernel_size': 3,
+            'strides': 1, 'padding': 'same'}]
+    model = Sup3rGan(gen, [{'class': 'Flatten'},
+                           {'class': 'Dense', 'units': 1}],
+                     meta={'lr_features': features,
+                           'hr_out_features': features,
+                           's_enhance': 2, 't_enhance': 1,
+                           'input_resolution': {'spatial': '12km',
+                                                'temporal': '60min'}},
+                     means={'u_100m': 0.1, 'v_100m': 0.1,
+                            'topography': 500.0},
+                     stdevs={'u_100m': 0.9, 'v_100m': 0.9,
+                             'topography': 300.0}, device='cuda')
+    model.init_weights((1, 6, 6, 4, 2), (1, 12, 12, 4, 2), seed=0)
+    model_dir = os.path.join(tmp, 'st_topo')
+    model.save(model_dir)
+    input_file = make_fake_nc_file(os.path.join(tmp, 'st_in.nc'),
+                                   (12, 12, 4), ['u100', 'v100'],
+                                   lat_range=CHAIN_LAT, lon_range=CHAIN_LON)
+    topo = os.path.join(tmp, 'topography.nc')
+    outs, runs = {}, {}
+    for batch in (4, 1):
+        strategy = ForwardPassStrategy(
+            file_paths=input_file,
+            model_kwargs={'model_dir': model_dir, 'device': 'cuda'},
+            fwp_chunk_shape=(4, 6, 4), spatial_pad=1, temporal_pad=0,
+            exo_handler_kwargs={'topography': {
+                'source_file': topo,
+                'cache_dir': os.path.join(tmp, 'exo_cache')}},
+            out_pattern=None, device_batch_size=batch)
+        outs[batch] = ChainForwardPass.run(strategy, 0)
+        fwp = ChainForwardPass.last
+        runs[batch] = {'batched_dispatches': fwp.dispatches,
+                       'chunk_runs': fwp.chunk_runs}
+    ok = sorted(outs[4]) == sorted(outs[1])
+    err, tol, ok_err = feature_errs(
+        np.stack([outs[4][i] for i in sorted(outs[4])]) if ok else 0.0,
+        np.stack([outs[1][i] for i in sorted(outs[1])]))
+    ok = ok and ok_err and runs[4] == {'batched_dispatches': 2,
+                                       'chunk_runs': 0}
+    emit(phase='exo_batched_check', chunks=len(outs[1]), runs=runs,
+         features=features, max_abs_err=err, tol=tol, ok=ok)
+    if not ok:
+        raise AssertionError(f'batched exo vs chunk by chunk: {err} > {tol} '
+                             f'or runs {runs}')
+
+
+def chain_phase(name):
+    """Phase 10: the Sup3rCC wind chain with topography through the
+    chunked ForwardPass on both routes; returns the wrappers' launch
+    counts of each route's last pass and the 2D block calls of the last
+    opt-in pass by (input shape, co, alpha)."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_chain_')
+    try:
+        input_file, topo = chain_inputs(tmp)
+        spatial, temporal = chain_members('cuda')
+        MultiStepGan([spatial, temporal]).save(os.path.join(tmp, 'chain'))
+        del spatial, temporal
+        dirs = [os.path.join(tmp, 'chain', f'model_step_{i}') for i in (0, 1)]
+        # the cold pass: the strategy rasterizes topography onto both
+        # steps' grids and writes the cache
+        with Timer() as cold:
+            strategy = chain_strategy(input_file, dirs, topo, None)
+        with Timer() as warm:
+            chain_strategy(input_file, dirs, topo, None)
+        steps = strategy.exo_data['topography']['steps']
+        emit(phase='chain_exo', cold_s=cold.elapsed, cached_s=warm.elapsed,
+             steps=[{k: v for k, v in s.items() if k != 'data'}
+                    | {'shape': list(s['data'].shape)} for s in steps],
+             chunks=strategy.fwp_slicer.n_chunks,
+             padded_lr_chunk=[c + 2 * p for c, p in zip(
+                 CHAIN_CHUNK, (CHAIN_S_PAD, CHAIN_S_PAD, CHAIN_T_PAD))])
+        chain = strategy.get_model()
+        n_chunks = strategy.fwp_slicer.n_chunks
+        # launches per chunk on the opt-in route, counted from the fused
+        # networks: every fused block the small kernel does not take
+        # (3D with ci * co <= 32)
+        blocks = [lyr.n_spatial for m in chain.models
+                  for lyr in m._get_fused_apply().layers
+                  if isinstance(lyr, FusedReflectConv) and not (
+                      lyr.n_spatial == 3
+                      and lyr.weight.shape[:2].numel() <= 32)]
+        per_chunk = {'2d': blocks.count(2), '3d': blocks.count(3)}
+        want = {'default': dict.fromkeys(
+                    ('small_reflect_conv', 'reflect_conv', 'reflect_conv_2d',
+                     'reflect_conv_3d'), 0),
+                'opt_in': {'small_reflect_conv': 0,
+                           'reflect_conv': n_chunks * (per_chunk['2d']
+                                                       + per_chunk['3d']),
+                           'reflect_conv_2d': n_chunks * per_chunk['2d'],
+                           'reflect_conv_3d': n_chunks * per_chunk['3d']}}
+        want_2d = Counter({(x, co, alpha): k * n_chunks
+                           for x, co, alpha, k in CHAIN_2D_SHAPES})
+        ChainForwardPass.run(chain_strategy(
+            input_file, dirs, topo,
+            os.path.join(tmp, 'warm', 'chunk_{file_id}.nc')), 0)
+        shutil.rmtree(os.path.join(tmp, 'warm'))
+        walls, outs, launches = {}, {}, {}
+        for route, pallas in (('default', False), ('opt_in', True)):
+            for m in chain.models:
+                m.inference_pallas = pallas
+            walls[route] = []
+            for i in range(N_CHAIN_PASSES):
+                # the last opt-in pass also hooks every fused block call
+                calls, remove = (chain_fused_calls(chain)
+                                 if pallas and i == N_CHAIN_PASSES - 1
+                                 else ([], lambda: None))
+                try:
+                    wall, outs[route], launches[route] = chain_pass(
+                        input_file, dirs, topo,
+                        os.path.join(tmp, f'{route}_{i}'), route, i,
+                        want[route])
+                finally:
+                    remove()
+                walls[route].append(wall)
+            if pallas:
+                calls_2d = Counter(c[1:] for c in calls if c[0] == 2)
+                n3d = sum(c[0] == 3 for c in calls)
+                ok = (calls_2d == want_2d
+                      and sum(calls_2d.values())
+                      == launches[route]['reflect_conv_2d']
+                      and n3d == launches[route]['reflect_conv_3d'])
+                emit(phase='chain_blocks', per_chunk=per_chunk,
+                     calls_2d=sum(calls_2d.values()), calls_3d=n3d,
+                     calls_2d_by_shape=[[list(x), co, alpha, n] for
+                                        (x, co, alpha), n in calls_2d.items()],
+                     launches=launches[route], ok=ok)
+                if not ok:
+                    raise AssertionError(
+                        f'chain blocks: 2D calls {dict(calls_2d)} (expected '
+                        f'{dict(want_2d)}), {n3d} 3D calls, launches '
+                        f'{launches[route]}')
+            emit(phase='chain_route', route=route, wall_s=walls[route],
+                 hr_voxels_per_s=int(np.prod(CHAIN_DOMAIN)) * 25 * 24
+                 / float(np.median(walls[route])), nvidia_smi=name)
+            fwp_profiled_pass(
+                lambda out: chain_strategy(input_file, dirs, topo, out),
+                os.path.join(tmp, f'{route}_profiled'), route,
+                phase='chain_profile')
+        for m in chain.models:
+            m.inference_pallas = False
+        errs, tols, ok = feature_errs(outs['opt_in'], outs['default'])
+        emit(phase='chain_routes_agree', features=CHAIN_FEATURES,
+             max_abs_err=errs, tol=tols, ok=ok)
+        if not ok:
+            raise AssertionError(f'chain: routes differ by {errs} > {tols}')
+        chain_cpu_check(dirs, tmp)
+        exo_batched_check(tmp)
+        return launches, calls_2d
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device: '
                          'torch.cuda.is_available() is False')
+    # seconds of each phase, printed before the kernels line
+    seconds, last = {}, [time.perf_counter()]
+
+    def mark(phase):
+        now = time.perf_counter()
+        seconds[phase] = now - last[0]
+        last[0] = now
+
     # 1. environment and build
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -1537,6 +1976,7 @@ def main():
          cuda=torch.version.cuda, build_s=timer.elapsed,
          build_dir=str(build.build_dir()))
 
+    mark('1_build')
     # 2. kernel vs plain
     gen = torch.Generator(device='cuda').manual_seed(0)
     tails = {co: conv_inputs(gen, TAIL_SHAPE, co) for co in (2, 1, 3)}
@@ -1559,7 +1999,18 @@ def main():
                  *conv_inputs(gen, (16, 64, 60, 60), 64), None)
     check_kernel('reflect_conv', reflect_conv_cf,
                  *conv_inputs(gen, (2, 5, 3, 7, 33), 70), 0.2)
+    # the 2D path: the Sup3rCC chain's step 0 blocks, then ragged shapes
+    chain_inputs_2d = [conv_inputs(gen, x_shape, co)
+                       for x_shape, co, _, _ in CHAIN_2D_SHAPES]
+    chain_errs_2d = [check_kernel('reflect_conv', reflect_conv_cf, *inputs,
+                                  alpha)
+                     for inputs, (_, _, alpha, _) in zip(chain_inputs_2d,
+                                                         CHAIN_2D_SHAPES)]
+    for x_shape, co, alpha in RAGGED_2D_CHECKS:
+        check_kernel('reflect_conv', reflect_conv_cf,
+                     *conv_inputs(gen, x_shape, co), alpha)
 
+    mark('2_kernel_checks')
     # 3. the main path
     model = flagship('cuda')
     lr = np.random.default_rng(0).standard_normal(LR_SHAPE).astype(
@@ -1635,6 +2086,7 @@ def main():
              top_device=top)
     del model, out, out_k
 
+    mark('3_4_serving_and_profiles')
     # 5. the kernels line, at the main-path shapes
     def timing(kname, fn, x, w, b, alpha):
         co = w.shape[0]
@@ -1659,8 +2111,10 @@ def main():
                 kernel_ms, kernel_ms_by = launch_ms, 'cuda_events'
             plain_ms = cuda_ms(
                 lambda: reflect_conv_reference(x, w, b, alpha), 20)
-            xp = F.pad(x, (1,) * 6, mode='reflect')
-            library_ms = cuda_ms(lambda: F.conv3d(xp, w, b), 20)
+            n_spatial = x.ndim - 2
+            xp = F.pad(x, (1,) * (2 * n_spatial), mode='reflect')
+            conv = F.conv3d if n_spatial == 3 else F.conv2d
+            library_ms = cuda_ms(lambda: conv(xp, w, b), 20)
         bound_ms, bound_by, peak = bound(name, tuple(x.shape), w.shape[0],
                                          w.numel())
         return {'shape': list(x.shape), 'co': w.shape[0], 'alpha': alpha,
@@ -1686,20 +2140,42 @@ def main():
                                   small_reflect_conv_cf, *inputs, None),
                            max_abs_err=tail_errs[co])
                   for co, inputs in tails.items()}
+    mark('5_kernel_timings')
     # 6. the chunked forward pass
     fwp_launches = forward_pass_phase(smi)
+    mark('6_forward_pass')
     # 7. training
     train = training_phase(smi, gen)
+    mark('7_training')
     # 8. fast and 'custom' serving
     per_request = fast_serving_phase(smi)
+    mark('8_fast_serving')
     # 9. bf16 and remat training, the paired feed
     per_step = training_modes_phase(smi, train['fp32'])
+    mark('9_training_modes')
+    # 10. the Sup3rCC wind chain with topography
+    per_chain, calls_2d = chain_phase(smi)
+    mark('10_chain')
+    chain_times = [dict(timing('reflect_conv', reflect_conv_cf, *inputs,
+                               alpha), max_abs_err=err,
+                        launches_per_opt_in_chain_pass=calls_2d[
+                            (x_shape, co, alpha)])
+                   for inputs, (x_shape, co, alpha, _), err in zip(
+                       chain_inputs_2d, CHAIN_2D_SHAPES, chain_errs_2d)]
     train_tail = timing('small_reflect_conv', small_reflect_conv_cf,
                         *conv_inputs(gen, TRAIN_TAIL_SHAPE, 2), None)
+    mark('5_kernel_timings_of_phases_7_10')
+    emit(phase='phase_seconds', seconds=seconds,
+         total_s=sum(seconds.values()))
 
     def per_fwp_pass(kname):
         return {route: counts[kname]
                 for route, counts in fwp_launches.items()}
+
+    def per_chain_pass(kname):
+        return {route: {k: v for k, v in counts.items()
+                        if k.startswith(kname)}
+                for route, counts in per_chain.items()}
 
     def per_mode(kname):
         return {'launches_per_fast_request': per_request['fast'][kname],
@@ -1710,6 +2186,8 @@ def main():
     kernels = [record('small_reflect_conv', tail_times[2],
                       tails=list(tail_times.values()),
                       launches_per_fwp_pass=per_fwp_pass(
+                          'small_reflect_conv'),
+                      launches_per_chain_pass=per_chain_pass(
                           'small_reflect_conv'),
                       launches_per_train_step=train[
                           'launches_per_train_step'],
@@ -1722,6 +2200,8 @@ def main():
                record('reflect_conv', body_times[2],
                       main_path_shapes=shapes,
                       launches_per_fwp_pass=per_fwp_pass('reflect_conv'),
+                      launches_per_chain_pass=per_chain_pass('reflect_conv'),
+                      chain_2d_shapes=chain_times,
                       launches_per_train_step=0,
                       **per_mode('reflect_conv'))]
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -1,15 +1,16 @@
 """Model base classes (the port of ``sup3r_tpu/models/abstract.py``):
 the inference contract, meta and feature properties, normalization
-stats, the forward-pass exo combine for plain-array exo, the save
+stats, the forward-pass exo combine (input- and output-resolution
+channels of structured ``ExoData``), the save
 directory's ``model_params.json``, and the training surface: the content
 loss, training-session params, the rolling loss record, the per-epoch
 history (a pandas-free ``Record``, written as ``history.csv``), early
 stopping, and the train step's options (``train_dtype``,
 ``train_remat``).
-
-Structured ``ExoData`` exo comes with the data-plane slice.
 """
 
+import functools
+import inspect
 import json
 import logging
 import os
@@ -49,19 +50,26 @@ def compute_dtype(name):
     return dtype
 
 
-def _is_structured_exo(exogenous_data):
-    """Whether ``exogenous_data`` is in the structured ``ExoData``
-    format (``{feature: {'steps': [...]}}``) rather than a plain
-    ``{feature: array}`` dict."""
-    return any(isinstance(v, dict) and 'steps' in v
-               for v in exogenous_data.values())
+def _as_exo_data(exogenous_data):
+    """``exogenous_data`` as ``ExoData`` when it is in the structured
+    format (``{feature: {'steps': [...]}}``), else None (a plain
+    ``{feature: array}`` dict carries layer rasters only)."""
+    from sup3r_tpu_torch.preprocessing.exo import ExoData
+
+    if exogenous_data is None or isinstance(exogenous_data, ExoData):
+        return exogenous_data
+    if not all(isinstance(v, dict) and 'steps' in v
+               for v in exogenous_data.values()):
+        return None
+    return ExoData(exogenous_data)
 
 
-def _structured_exo_not_ported():
-    return NotImplementedError(
-        'structured ExoData exo ({feature: {"steps": [...]}}) comes with '
-        'the data-plane slice of the port (ROADMAP queue 1 item 5); pass '
-        'a plain {feature: array} dict of layer rasters')
+@functools.lru_cache(maxsize=None)
+def supports_fetch(model_cls):
+    """Whether a model class's ``generate`` takes ``fetch=`` (the
+    single-model API that can hand back its output tensor on the
+    device)."""
+    return 'fetch' in inspect.signature(model_cls.generate).parameters
 
 
 class AbstractInterface:
@@ -402,22 +410,43 @@ class AbstractSingleModel(AbstractInterface):
     # ------------------------------------------------------------------
     # forward-pass exo combine
     def _combine_fwp_input(self, low_res, exogenous_data=None):
-        """Concat input-resolution exo channels onto low_res. A plain
-        ``{feature: array}`` dict is layer exo only, so low_res passes
-        through; the structured format is not ported yet."""
-        if exogenous_data is None:
+        """Concat input-resolution exo channels onto low_res when the
+        model expects more lr features than given (reference:
+        sup3r/models/interface.py:259). A tensor takes them on its
+        device; a numpy array on the host."""
+        exogenous_data = _as_exo_data(exogenous_data)
+        fnum_diff = len(self.lr_features) - low_res.shape[-1]
+        if exogenous_data is None or fnum_diff <= 0:
             return low_res
-        if _is_structured_exo(exogenous_data):
-            raise _structured_exo_not_ported()
-        return low_res
+        exo_feats = self.lr_features[-fnum_diff:]
+        missing = [f for f in exo_feats if f not in exogenous_data]
+        assert not missing, (
+            f'exogenous_data is missing input features {missing}')
+        exo = [exogenous_data.get_combine_type_data(f, 'input')
+               for f in exo_feats]
+        if isinstance(low_res, torch.Tensor):
+            return torch.cat([low_res] + [torch.as_tensor(
+                np.asarray(e), dtype=low_res.dtype, device=low_res.device)
+                for e in exo], dim=-1)
+        return np.concatenate([low_res] + [np.asarray(e) for e in exo],
+                              axis=-1)
 
     def _combine_fwp_output(self, hi_res, exogenous_data=None):
-        """Concat output-resolution exo channels onto hi_res (plain
-        dicts carry none; the structured format is not ported yet)."""
-        if exogenous_data is None:
+        """Concat output-resolution exo channels onto the fetched hi_res
+        (reference: sup3r/models/interface.py:310)."""
+        exogenous_data = _as_exo_data(exogenous_data)
+        fnum_diff = len(self.hr_out_features) - hi_res.shape[-1]
+        if exogenous_data is None or fnum_diff <= 0:
             return hi_res
-        if _is_structured_exo(exogenous_data):
-            raise _structured_exo_not_ported()
+        exo_feats = self.hr_out_features[-fnum_diff:]
+        missing = [f for f in exo_feats if f not in exogenous_data]
+        assert not missing, (
+            f'exogenous_data is missing output features {missing}')
+        for feature in exo_feats:
+            exo_output = exogenous_data.get_combine_type_data(feature,
+                                                              'output')
+            hi_res = np.concatenate([hi_res, np.asarray(exo_output)],
+                                    axis=-1)
         return hi_res
 
     # ------------------------------------------------------------------

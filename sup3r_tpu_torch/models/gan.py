@@ -431,14 +431,32 @@ class Sup3rGan(AbstractSingleModel):
             entries.append(cached)
         return cached[2]
 
-    def _exo_for_generate(self, exogenous_data):
-        """{feature: float32 tensor on the device} of mid-network
-        ('layer') rasters from a plain ``{feature: array}`` dict."""
+    def _parse_exo_for_generate(self, exogenous_data):
+        """{feature: float32 tensor on the device} of the mid-network
+        ('layer') rasters, from a plain ``{feature: array}`` dict or the
+        structured ``ExoData`` format ({feature: {'steps': [...]}})."""
         if not exogenous_data:
             return {}
-        return {k: torch.as_tensor(np.asarray(v, np.float32),
+        out = {}
+        for feat, val in exogenous_data.items():
+            if isinstance(val, dict) and 'steps' in val:
+                for step in val['steps']:
+                    if step.get('combine_type') == 'layer':
+                        out[feat] = step['data']
+            else:
+                out[feat] = val
+        return {k: torch.as_tensor(v, dtype=torch.float32,
                                    device=self.device)
-                for k, v in exogenous_data.items()}
+                for k, v in out.items()}
+
+    @staticmethod
+    def _has_output_exo(exogenous_data):
+        """Whether output-combine exo steps exist (their concat is a host
+        op, so they force a fetch)."""
+        return any(step.get('combine_type') == 'output'
+                   for val in (exogenous_data or {}).values()
+                   if isinstance(val, dict)
+                   for step in val.get('steps', []))
 
     def _norm_layer_exo(self, exo):
         """Normalize mid-network exo rasters with their own feature
@@ -455,8 +473,9 @@ class Sup3rGan(AbstractSingleModel):
 
     def generate(self, low_res, norm_in=True, un_norm_out=True,
                  exogenous_data=None, fetch=True):
-        """Public inference: normalize -> generator (+layer exo) ->
-        denormalize on ``self.device``, in the mode ``inference_mode``
+        """Public inference: (input-exo concat) -> normalize -> generator
+        (+layer exo) -> denormalize on ``self.device`` -> (output-exo
+        concat after the fetch), in the mode ``inference_mode``
         names (the network in ``inference_dtype``; its output, and so
         what this returns, float32 either way).
 
@@ -464,13 +483,14 @@ class Sup3rGan(AbstractSingleModel):
         first), numpy or tensor. Returns a channels-last numpy array;
         with ``fetch=False`` the output tensor on ``self.device``
         instead, without waiting for the device (the forward pass
-        crops and drains it while the next batch is dispatched). That
-        tensor was made under ``torch.inference_mode``: slice it, do
-        not modify it in place, and keep it out of training."""
+        crops and drains it while the next batch is dispatched), unless
+        output-combine exo needs the host concat. That tensor was made
+        under ``torch.inference_mode``: slice it, do not modify it in
+        place, and keep it out of training."""
         low_res = torch.as_tensor(low_res, dtype=torch.float32,
                                   device=self.device)
         low_res = self._combine_fwp_input(low_res, exogenous_data)
-        exo = self._exo_for_generate(exogenous_data)
+        exo = self._parse_exo_for_generate(exogenous_data)
         if norm_in and self._means is not None:
             low_res = self.norm_input(low_res)
             exo = self._norm_layer_exo(exo)
@@ -502,7 +522,7 @@ class Sup3rGan(AbstractSingleModel):
                 k: v.to(dtype) for k, v in fixed_exo.items()}).float()
             if un_norm is not None:
                 out = out * un_norm[0] + un_norm[1]
-        if not fetch:
+        if not fetch and not self._has_output_exo(exogenous_data):
             return out
         return self._combine_fwp_output(out.cpu().numpy(), exogenous_data)
 

@@ -2,7 +2,8 @@
 
 ``params_from_jax`` loads the JAX package's per-layer param list
 (``[{}, {'bias': ..., 'kernel': DHWIO}, ...]`` of numpy arrays) into the
-port's layer modules; ``params_to_jax`` gives that list back.
+port's layer modules; ``params_to_jax`` gives that list back;
+``chain_params_from_jax`` does it per member of a ``MultiStepGan``.
 ``load_jax_checkpoint`` / ``save_jax_checkpoint`` read and write a
 ``model_gen.msgpack`` / ``model_disc.msgpack`` as the JAX package's
 ``Sup3rGan.save`` does, so save directories are interchangeable.
@@ -51,6 +52,21 @@ def params_from_jax(network, params):
     if device is not None:
         network.to(device)
     return network
+
+
+def chain_params_from_jax(chain, params):
+    """Load a ``MultiStepGan``'s generators member by member: ``params``
+    holds one JAX per-layer list per member of ``chain.models`` (None for
+    a member without a network, e.g. ``LinearInterp``). On disk a chain
+    is one ``Sup3rGan`` checkpoint directory per member, which either
+    package's ``MultiStepGan.load`` reads."""
+    if len(params) != len(chain.models):
+        raise ValueError(f'{len(params)} param lists for a chain of '
+                         f'{len(chain.models)} members')
+    for member, member_params in zip(chain.models, params):
+        if member_params is not None:
+            params_from_jax(member.generator, member_params)
+    return chain
 
 
 def params_to_jax(network):

@@ -1,12 +1,71 @@
-"""Vertical-level interpolation (the derivers' level features).
+"""Spatiotemporal and vertical-level interpolation.
 
-Reference parity: sup3r/utilities/interpolation.py:17-233 (Interpolator:
-level masks, linear/log vertical interpolation). The port's copy of that
-part of ``sup3r_tpu/ops/interp.py``, on numpy arrays; ``st_interp``
-comes with the model-family slice (``models/linear.py``).
+Reference parity: sup3r/models/utilities.py:161 (st_interp),
+sup3r/utilities/interpolation.py:17-233 (Interpolator: level masks,
+linear/log vertical interpolation). The port's copy of
+``sup3r_tpu/ops/interp.py``: ``st_interp`` in torch on the tensor's
+device (``LinearInterp`` serves with it), the vertical interpolation of
+the derivers' level features on numpy arrays.
 """
 
 import numpy as np
+import torch
+
+
+def _axis_points(n, offset=True):
+    """Cell-centered sample positions of n points in a (0, 10) span,
+    built as ``arange(n) * (10/n)`` (``np.arange(0, 10, 10/n)`` returns
+    n+1 points when 10/n rounds down)."""
+    pts = np.arange(n) * (10 / n)
+    return pts + 5 / n if offset else pts
+
+
+def _interp1d_weights(src, dst):
+    """For each dst position (lo_idx, hi_idx, alpha) of linear
+    interpolation, with linear extrapolation beyond the src endpoints."""
+    lo = np.clip(np.searchsorted(src, dst) - 1, 0, len(src) - 2)
+    hi = lo + 1
+    return lo, hi, (dst - src[lo]) / (src[hi] - src[lo])
+
+
+def _lerp_axis(x, lo, hi, alpha, axis):
+    """Gather-and-lerp one axis of a tensor onto (lo, hi, alpha)."""
+    dev = x.device
+    a_lo = x.index_select(axis, torch.as_tensor(lo, device=dev))
+    a_hi = x.index_select(axis, torch.as_tensor(hi, device=dev))
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    w = torch.as_tensor(alpha, dtype=x.dtype, device=dev).reshape(shape)
+    return a_lo * (1 - w) + a_hi * w
+
+
+def st_interp_axes(x, s_enhance, t_enhance, t_centered=False,
+                   axes=(0, 1, 2)):
+    """``st_interp`` over the (s1, s2, t) ``axes`` of a tensor of any
+    rank (e.g. a (n, s1, s2, t, f) batch in one pass)."""
+    shape = [x.shape[a] for a in axes]
+    assert all(s > 1 for s in shape), \
+        'st_interp input cannot have axes of length 1'
+    out = x
+    for axis, n, en, offset in zip(axes, shape,
+                                   (s_enhance, s_enhance, t_enhance),
+                                   (True, True, t_centered)):
+        lo, hi, alpha = _interp1d_weights(_axis_points(n, offset),
+                                          _axis_points(n * en, offset))
+        out = _lerp_axis(out, lo, hi, alpha, axis)
+    return out
+
+
+def st_interp(low, s_enhance, t_enhance, t_centered=False):
+    """Tri-linear spatiotemporal interpolation of a ``(s1, s2, t)``
+    field onto the enhanced grid, with cell-centered spatial registration
+    and linear extrapolation at the edges (the reference's
+    RegularGridInterpolator-with-extrapolation baseline, built from
+    separable gather + lerp). A tensor stays on its device; a numpy
+    array runs on the CPU. Returns a tensor."""
+    low = torch.as_tensor(low)
+    assert low.ndim == 3, 'st_interp input must be 3D (s1, s2, t)'
+    return st_interp_axes(low, s_enhance, t_enhance, t_centered)
 
 
 

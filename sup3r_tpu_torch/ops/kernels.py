@@ -30,7 +30,8 @@ Wrappers take channels-first tensors (``(n, c, *spatial)``, OI.. weights):
 the layout the port's network runs in. A tensor on the CPU takes the
 plain version (``reflect_conv_reference``); a CUDA tensor launches the
 kernel or raises. Each wrapper's ``launches`` attribute counts its kernel
-launches (forward launches only). ``small_reflect_conv`` and
+launches (forward launches only); ``reflect_conv_cf.launches_by_rank``
+splits its count by the input's spatial rank. ``small_reflect_conv`` and
 ``reflect_conv`` keep the JAX package's channels-last signatures for
 tests and callers holding JAX layouts.
 
@@ -298,6 +299,8 @@ def reflect_conv_cf(x, weight, bias, alpha=None):
 
 
 reflect_conv_cf.launches = 0
+#: the same launches split by spatial rank (2D or 3D input)
+reflect_conv_cf.launches_by_rank = {2: 0, 3: 0}
 
 
 def reflect_conv_packed(x, packed, bias, co, n_tile, alpha=None):
@@ -317,6 +320,7 @@ def reflect_conv_packed(x, packed, bias, co, n_tile, alpha=None):
     if err:
         raise RuntimeError(f'reflect_conv launch failed: CUDA error {err}')
     reflect_conv_cf.launches += 1
+    reflect_conv_cf.launches_by_rank[n_spatial] += 1
     return y
 
 

@@ -3,12 +3,14 @@
 Reference parity: sup3r/pipeline/forward_pass.py:32-673 (pad_source_data
 :122, run_generator :188, _reshape_data_chunk :280, _output_check :385,
 run :428). The port's copy of ``sup3r_tpu/pipeline/forward_pass.py``
-for the single-device path without exogenous data: ``generate(...,
-fetch=False)`` hands back the generator's output as a tensor on the
-card, each chunk's halo is cropped there, and the drain of one device
-batch (device-to-host copy, output transform, file writes) runs on a
-drain thread, on its own CUDA stream, while the next batch is prepared
-and dispatched.
+for the single-device path: ``generate(..., fetch=False)`` hands back the
+generator's output as a tensor on the card, each chunk's halo is cropped
+there, and the drain of one device batch (device-to-host copy, output
+transform, file writes) runs on a drain thread, on its own CUDA stream,
+while the next batch is prepared and dispatched. Exogenous rasters are
+padded with their chunk and reach ``generate`` per model step; 4D models,
+models without ``fetch=`` (``MultiStepGan``, ``LinearInterp``), mixed exo
+structures and output-combine exo run chunk by chunk.
 """
 
 import contextlib
@@ -19,6 +21,7 @@ from warnings import warn
 import numpy as np
 import torch
 
+from sup3r_tpu_torch.models.abstract import supports_fetch
 from sup3r_tpu_torch.postprocessing.writers import (
     OutputHandlerH5,
     OutputHandlerNC,
@@ -112,35 +115,66 @@ class ForwardPass:
 
     # ------------------------------------------------------------------
     def get_input_chunk(self, chunk_index=0, mode='reflect'):
-        """Strategy chunk + boundary padding."""
+        """Strategy chunk + boundary padding (of its exo rasters too)."""
         chunk = self.strategy.init_chunk(chunk_index)
-        chunk.input_data = self.pad_source_data(
-            chunk.input_data, chunk.pad_width, mode=mode)
+        chunk.input_data, chunk.exo_data = self.pad_source_data(
+            chunk.input_data, chunk.pad_width, chunk.exo_data, mode=mode)
         return chunk
 
-    @staticmethod
-    def pad_source_data(input_data, pad_width, mode='reflect'):
+    def _get_step_enhance(self, step):
+        """Cumulative enhancement of an exo step (reference:
+        forward_pass.py:89): up to its model for input steps, through it
+        for layer and output steps."""
+        combine_type = step['combine_type']
+        model_step = step['model']
+        assert combine_type in ('input', 'output', 'layer'), (
+            f'Bad combine_type in step {step}')
+        stop = model_step if combine_type == 'input' else model_step + 1
+        return (int(np.prod(self.model.s_enhancements[:stop])),
+                int(np.prod(self.model.t_enhancements[:stop])))
+
+    def pad_source_data(self, input_data, pad_width, exo_data,
+                        mode='reflect'):
         """Reflect-pad the (s1, s2, t, f) input (``np.pad``; the JAX
         package's multithreaded C++ copy of it waits for a later slice,
-        ROADMAP queue 1 item 5)."""
-        return np.pad(input_data, (*pad_width, (0, 0)), mode=mode)
+        ROADMAP queue 1 item 5) and each exo raster by the pads scaled
+        with its step's enhancement. A time-invariant (s1, s2, 1) raster
+        is first repeated over t_enhance x the unpadded time length."""
+        out = np.pad(input_data, (*pad_width, (0, 0)), mode=mode)
+        for entry in (exo_data or {}).values():
+            for step in entry['steps']:
+                s_en, t_en = self._get_step_enhance(step)
+                exo_pad = (*((en * pw[0], en * pw[1]) for en, pw in zip(
+                    (s_en, s_en, t_en), pad_width)), (0, 0))
+                arr = step['data']
+                if arr.ndim == 3:
+                    arr = np.repeat(arr[:, :, None],
+                                    step['t_enhance'] * input_data.shape[2],
+                                    axis=2)
+                step['data'] = np.pad(arr, exo_pad, mode=mode)
+        return out, exo_data
 
     # ------------------------------------------------------------------
     @classmethod
     def run_generator(cls, data_chunk, hr_crop_slices, model,
-                      s_enhance=None, t_enhance=None):
+                      s_enhance=None, t_enhance=None, exo_data=None):
         """Reshape -> model.generate -> crop overlap.
 
-        ``generate(fetch=False)`` hands back the output tensor on the
-        model's device, so the halo CROP happens there and the
-        device->host copy moves only the kept voxels. Returns the
-        cropped tensor (a view of the generate result: callers must
-        not modify it in place)."""
-        data_chunk, i_lr_t, i_lr_s = cls._reshape_data_chunk(
-            model, data_chunk)
-        hi_res = model.generate(data_chunk, fetch=False)
+        A model whose ``generate`` takes ``fetch=`` hands back the output
+        tensor on its device, so the halo CROP happens there and the
+        device->host copy moves only the kept voxels; the others
+        (``MultiStepGan``, ``LinearInterp``) return numpy and are cropped
+        on the host. Returns the cropped tensor or array (a view of the
+        generate result: callers must not modify it in place)."""
+        data_chunk, exo_data, i_lr_t, i_lr_s = cls._reshape_data_chunk(
+            model, data_chunk, exo_data)
+        kwargs = {'fetch': False} if supports_fetch(type(model)) else {}
+        hi_res = model.generate(data_chunk, exogenous_data=exo_data,
+                                **kwargs)
         if hi_res.ndim == 4:
-            hi_res = hi_res.permute(1, 2, 0, 3)[None]
+            hi_res = (hi_res.permute(1, 2, 0, 3)
+                      if isinstance(hi_res, torch.Tensor)
+                      else hi_res.transpose(1, 2, 0, 3))[None]
         if s_enhance is not None and (
                 hi_res.shape[1] != s_enhance * data_chunk.shape[i_lr_s]):
             raise RuntimeError(
@@ -154,16 +188,22 @@ class ForwardPass:
         return hi_res[0][hr_crop_slices]
 
     @staticmethod
-    def _reshape_data_chunk(model, data_chunk):
+    def _reshape_data_chunk(model, data_chunk, exo_data):
         """4D models consume (t, s1, s2, f); 5D models consume
-        (1, s1, s2, t, f)."""
+        (1, s1, s2, t, f). Each exo raster takes the layout of the model
+        step it feeds."""
+        members = getattr(model, 'models', [model])
+        for entry in (exo_data or {}).values():
+            for step in entry['steps']:
+                assert step['model'] < len(members), (
+                    f'exo step model index {step["model"]} out of range')
+                arr = step['data']
+                step['data'] = (np.transpose(arr, (2, 0, 1, 3))
+                                if members[step['model']].is_4d
+                                else arr[None])
         if model.is_4d:
-            i_lr_t, i_lr_s = 0, 1
-            data_chunk = np.transpose(data_chunk, (2, 0, 1, 3))
-        else:
-            i_lr_t, i_lr_s = 3, 1
-            data_chunk = data_chunk[None]
-        return np.asarray(data_chunk), i_lr_t, i_lr_s
+            return np.transpose(data_chunk, (2, 0, 1, 3)), exo_data, 0, 1
+        return np.asarray(data_chunk)[None], exo_data, 3, 1
 
     # ------------------------------------------------------------------
     @classmethod
@@ -211,8 +251,11 @@ class ForwardPass:
         cropped = self.run_generator(
             chunk.input_data, chunk.hr_crop_slice, self.model,
             s_enhance=self.strategy.s_enhance,
-            t_enhance=self.strategy.t_enhance)
-        if self._pack_single_gate(chunk):
+            t_enhance=self.strategy.t_enhance, exo_data=chunk.exo_data)
+        # a model that had to fetch (output-combine exo) finishes
+        # through the host transform: the generator never runs twice
+        if (self._pack_single_gate(chunk)
+                and isinstance(cropped, torch.Tensor)):
             self._pack_write([(chunk, cropped)],
                              allowed_const=allowed_const)
             return False, None
@@ -230,18 +273,22 @@ class ForwardPass:
     def _pack_single_gate(self, chunk):
         """Whether this chunk's per-chunk run uses the device-packed
         output path (crop + transform + storage quantization on the
-        device — see ``_pack_write``): H5 file output.
+        device — see ``_pack_write``): H5 file output and a model whose
+        ``generate`` takes ``fetch=`` (``MultiStepGan`` and
+        ``LinearInterp`` keep the host path).
         ``pack_output_on_device=True`` errors if this chunk cannot pack
         — same contract as the batched ``_pack_gate``."""
         flag = getattr(self.strategy, 'pack_output_on_device', None)
         if flag is False:
             return False
         ok = (self.output_handler_class is OutputHandlerH5
-              and chunk.out_file is not None)
+              and chunk.out_file is not None
+              and supports_fetch(type(self.model)))
         if flag is True and not ok:
             raise RuntimeError(
                 'pack_output_on_device=True but this chunk cannot '
-                'pack on device (needs H5 output and out_pattern set)')
+                'pack on device (needs H5 output, out_pattern set, and a '
+                'model whose generate supports fetch=)')
         return ok
 
     def run_chunks_batched(self, chunk_ids, batch_size):
@@ -259,7 +306,7 @@ class ForwardPass:
 
         def run_batch(batch, drain_pool, drain_futs):
             dispatched = self.timer(self._dispatch_chunk_batch)(batch)
-            if dispatched is None:  # per-chunk path (4D models)
+            if dispatched is None:  # per-chunk path
                 outputs.update({
                     c.index: self.run_chunk(
                         c,
@@ -299,7 +346,8 @@ class ForwardPass:
             while inflight:
                 chunk = inflight.popleft().result()
                 submit_next()
-                key = chunk.input_data.shape
+                key = (chunk.input_data.shape,
+                       chunk.exo_data is not None)
                 buffers.setdefault(key, []).append(chunk)
                 if len(buffers[key]) == batch_size:
                     run_batch(buffers.pop(key), drain_pool,
@@ -313,27 +361,94 @@ class ForwardPass:
     def _dispatch_chunk_batch(self, batch):
         """Stack same-shaped chunks and launch the device batch.
         Returns ``(output tensor, n_real, ready event)`` without waiting
-        for the device (None when chunks must run individually: 4D
-        models already batch over time)."""
+        for the device, or None when the chunks must run one by one: 4D
+        models (they already batch over time), models without
+        ``norm_input`` / ``fetch=`` (every chain), chunks whose exo
+        structures differ, and output-combine exo (a host concat)."""
         if self.model.is_4d:
             return None
+        if not (hasattr(self.model, 'norm_input')
+                and supports_fetch(type(self.model))):
+            if not getattr(self, '_batch_gate_logged', False):
+                self._batch_gate_logged = True
+                logger.info('%s does not support device batching; running '
+                            'chunks individually',
+                            type(self.model).__name__)
+            return None
+        exo_batched = None
+        if any(c.exo_data for c in batch):
+            exo_batched = self._stack_exo(batch)
+            if exo_batched is None or self.model._has_output_exo(
+                    exo_batched):
+                return None
         stacked = np.stack([c.input_data for c in batch], axis=0)
         n_real = len(batch)
         # pad partial batches up to the configured device batch size by
         # repeating the last chunk: one batch shape per chunk shape
         full = getattr(self.strategy, 'device_batch_size', 1)
-        if n_real < full:
-            stacked = np.concatenate(
-                [stacked, np.repeat(stacked[-1:], full - n_real, axis=0)],
-                axis=0)
+
+        def pad_full(arr):
+            if n_real < full:
+                return np.concatenate(
+                    [arr, np.repeat(arr[-1:], full - n_real, axis=0)],
+                    axis=0)
+            return arr
+
+        stacked = pad_full(stacked)
+        layer_exo = None
+        if exo_batched is not None:
+            for entry in exo_batched.values():
+                for step in entry['steps']:
+                    step['data'] = pad_full(step['data'])
+            stacked = self.model._combine_fwp_input(
+                np.asarray(stacked, dtype=np.float32), exo_batched)
+            # mid-network rasters, normalized with their own feature
+            # stats (generate skips exo norm when norm_in=False)
+            layer_exo = self.model._norm_layer_exo({
+                feature: step['data']
+                for feature, entry in exo_batched.items()
+                for step in entry['steps']
+                if step.get('combine_type') == 'layer'})
         lr = self.model.norm_input(stacked)
         out = self.model.generate(lr, norm_in=False, un_norm_out=True,
+                                  exogenous_data=layer_exo or None,
                                   fetch=False)
         ready = None
         if self._drain_stream is not None:
             ready = torch.cuda.Event()
             ready.record()
         return out, n_real, ready
+
+    @staticmethod
+    def _stack_exo(batch):
+        """Stack the chunks' exo rasters into one batched ``ExoData``, or
+        None if their structures differ."""
+        from sup3r_tpu_torch.preprocessing.exo import ExoData
+
+        first = batch[0].exo_data
+        if not all(c.exo_data is not None
+                   and sorted(c.exo_data) == sorted(first) for c in batch):
+            return None
+        out = {}
+        for feat, entry in first.items():
+            steps = []
+            for i, step in enumerate(entry['steps']):
+                datas = []
+                for c in batch:
+                    csteps = c.exo_data[feat]['steps']
+                    if (len(csteps) != len(entry['steps'])
+                            or csteps[i]['combine_type']
+                            != step['combine_type']
+                            or np.shape(csteps[i]['data'])
+                            != np.shape(step['data'])):
+                        return None
+                    datas.append(np.asarray(csteps[i]['data'],
+                                            dtype=np.float32))
+                steps.append({**{k: v for k, v in step.items()
+                                 if k != 'data'},
+                              'data': np.stack(datas, axis=0)})
+            out[feat] = {'steps': steps}
+        return ExoData(out)
 
     def _drain_context(self, out, ready):
         """Inference mode, on the drain stream after ``ready`` when the

@@ -10,7 +10,7 @@ slice (ROADMAP queue 1 item 9).
 The analytic model walks the network's layer shapes: peak residency
 for a feed-forward conv stack is dominated by the largest adjacent
 (input, output) activation pair plus temps; params and the I/O buffers
-ride on top.
+ride on top. A multi-step chain budgets for its hungriest member.
 """
 
 import logging
@@ -47,9 +47,33 @@ def _layer_shapes(layers, in_shape):
 
 def estimate_activation_bytes(model, lr_shape):
     """Peak activation bytes to run ONE batch element of shape
-    ``lr_shape`` (no batch dim) through the model's generator,
-    float32 (multi-step chains come with the model-family slice)."""
-    gen = model.generator
+    ``lr_shape`` (no batch dim) through the model, float32.
+
+    Multi-step chains (``model.models``) take the max over their
+    members' estimates at each member's (enhanced) input shape: a
+    dispatch runs every member, so the planner budgets for the hungriest
+    step. Models without a generator (linear, physics) count their input
+    and output."""
+    members = getattr(model, 'models', None)
+    if members:
+        shape = tuple(lr_shape)
+        peak = 0
+        for member in members:
+            peak = max(peak, estimate_activation_bytes(member, shape))
+            se = int(getattr(member, 's_enhance', 1) or 1)
+            te = int(getattr(member, 't_enhance', 1) or 1)
+            if len(shape) == 4:
+                shape = (shape[0] * se, shape[1] * se, shape[2] * te,
+                         shape[3])
+            else:
+                shape = (shape[0] * se, shape[1] * se, shape[2])
+        return peak
+    gen = getattr(model, 'generator', None)
+    if gen is None:
+        s = int(np.prod(lr_shape)) * 4
+        se = int(getattr(model, 's_enhance', 1) or 1) ** 2
+        te = int(getattr(model, 't_enhance', 1) or 1)
+        return s * (1 + se * te)
     if getattr(model, 'is_4d', False) and len(lr_shape) == 4:
         # spatial models fold time into the batch at dispatch
         # (forward_pass._reshape_data_chunk): estimate one time slice

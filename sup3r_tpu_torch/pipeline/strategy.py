@@ -3,9 +3,11 @@
 Reference parity: sup3r/pipeline/strategy.py:58-700 (ForwardPassStrategy,
 ForwardPassChunk :38, node_chunks :364, incremental restart :667). The
 port's copy of ``sup3r_tpu/pipeline/strategy.py`` for the eager,
-single-device path without exogenous data: ``exo_handler_kwargs``,
-``chunked_io``, bias correction and ``use_mesh`` come with later slices
-(ROADMAP queue 1 items 5 and 9) and raise ``NotImplementedError``.
+single-device path, with exogenous data (``exo_handler_kwargs``) and
+``Sup3rGan`` / ``MultiStepGan`` / ``LinearInterp`` models: ``chunked_io``,
+bias correction, ``use_mesh`` and the other model classes come with
+later slices (ROADMAP queue 1 items 5, 7 and 9) and raise
+``NotImplementedError``.
 """
 
 import logging
@@ -20,6 +22,7 @@ from sup3r_tpu_torch.postprocessing.writers import OutputHandler
 from sup3r_tpu_torch.preprocessing.data_handlers import (
     get_input_handler_class,
 )
+from sup3r_tpu_torch.preprocessing.exo import ExoData, ExoDataHandler
 from sup3r_tpu_torch.preprocessing.rasterizers import Rasterizer
 from sup3r_tpu_torch.utilities import Timer, TimeIndex
 
@@ -192,8 +195,10 @@ class ForwardPassStrategy:
         model = self.get_model()
         self.s_enhance = model.s_enhance
         self.t_enhance = model.t_enhance
-        self.input_features = list(model.lr_features)
-        self.exo_features = []
+        self.input_features = [
+            f for f in model.lr_features
+            if f not in (self.exo_handler_kwargs or {})]
+        self.exo_features = list(self.exo_handler_kwargs or {})
         self.features = self.input_features
 
         ihk = dict(self.input_handler_kwargs)
@@ -263,7 +268,10 @@ class ForwardPassStrategy:
             spatial_pad=self.spatial_pad, chunk_shape=chunk_shape,
             min_width=min_width)
 
-        self.exo_data = None
+        # the head node only plans node_chunks: it skips the exo
+        # rasterization, which the worker nodes do themselves
+        self.exo_data = (None if self.head_node
+                         else self.load_exo_data(model))
         self.gids = np.arange(
             grid_shape[0] * self.s_enhance
             * grid_shape[1] * self.s_enhance).reshape(
@@ -282,10 +290,6 @@ class ForwardPassStrategy:
         """Raise for the options whose modules later slices of the port
         bring, rather than silently running something else."""
         later = {
-            'exo_handler_kwargs': (
-                bool(self.exo_handler_kwargs),
-                'exogenous data (preprocessing/exo.py, ExoData) comes '
-                'with a later slice (ROADMAP queue 1 item 5)'),
             'chunked_io': (
                 bool(self.chunked_io),
                 'windowed per-chunk reads (preprocessing/lazy.py) come '
@@ -312,12 +316,12 @@ class ForwardPassStrategy:
         default is the card)."""
         from sup3r_tpu_torch import models as models_mod
 
-        if self.model_class != 'Sup3rGan':
-            raise NotImplementedError(
-                f'model_class={self.model_class!r}: the port serves '
-                'Sup3rGan; the other model classes come with the '
-                'model-family slice (ROADMAP queue 1 item 7)')
-        ModelClass = getattr(models_mod, self.model_class)
+        # a class of a later slice raises NotImplementedError naming its
+        # ROADMAP item here
+        ModelClass = getattr(models_mod, self.model_class, None)
+        if ModelClass is None:
+            raise KeyError(f'Could not find model class '
+                           f'"{self.model_class}" in sup3r_tpu_torch.models')
         kwargs = self.model_kwargs
         if isinstance(kwargs, str):
             kwargs = {'model_dir': kwargs}
@@ -336,10 +340,39 @@ class ForwardPassStrategy:
             if identity is not None:
                 # same-identity insert REPLACES a stale entry
                 _MODEL_CACHE[identity] = (fingerprint, model)
+        if self.inference_mode != 'exact' and not hasattr(
+                type(model), 'inference_mode'):
+            raise ValueError(f'{self.model_class} does not support '
+                             f'inference_mode={self.inference_mode!r}')
         # reset the mode unconditionally: a cached instance may carry
         # another strategy's setting
-        model.inference_mode = self.inference_mode
+        if hasattr(type(model), 'inference_mode'):
+            model.inference_mode = self.inference_mode
         return model
+
+    def load_exo_data(self, model):
+        """ExoData of every exo feature (reference: strategy.py:583-628).
+        The rasters live on the raw file time axis, as the slicer's chunk
+        slices do; the cache defaults under the output directory unless
+        ``SUP3R_TPU_EXO_CACHE_DIR`` pins one."""
+        if not self.exo_handler_kwargs:
+            return None
+        data = {}
+        ihk_exo = {k: v for k, v in self.input_handler_kwargs.items()
+                   if k != 'time_slice'}
+        for feature in self.exo_features:
+            kwargs = dict(self.exo_handler_kwargs[feature])
+            kwargs.setdefault('file_paths', self.file_paths)
+            kwargs.setdefault('input_handler_kwargs', ihk_exo)
+            if (self.out_pattern is not None
+                    and not os.environ.get('SUP3R_TPU_EXO_CACHE_DIR')):
+                kwargs.setdefault('cache_dir', os.path.join(
+                    os.path.dirname(os.path.abspath(self.out_pattern)),
+                    'exo_cache'))
+            kwargs['feature'] = feature
+            kwargs['model'] = model
+            data.update(ExoDataHandler(**kwargs).data)
+        return ExoData(data)
 
     # ------------------------------------------------------------------
     @property
@@ -511,16 +544,19 @@ class ForwardPassStrategy:
             return None
 
     def prep_chunk_data(self, chunk_index=0):
-        """Load the padded low-res input for a chunk (no exo data in
-        this slice of the port: the second value is None)."""
+        """The padded low-res input of a chunk and its exo rasters
+        (``ExoData.get_chunk`` of the padded slices, or None)."""
         s_idx, t_idx = self.fwp_slicer.get_chunk_indices(chunk_index)
         lr_pad_slice = self.fwp_slicer.s_lr_pad_slices[s_idx]
         ti_pad_slice = self.fwp_slicer.t_lr_pad_slices[t_idx]
+        exo_data = (self.exo_data.get_chunk(
+            [lr_pad_slice[0], lr_pad_slice[1], ti_pad_slice])
+            if self.exo_data is not None else None)
         data = self.input_handler.data
         input_data = data.as_array(self.features)[
             lr_pad_slice[0], lr_pad_slice[1],
             self._local_t(ti_pad_slice)]
-        return np.array(input_data), None
+        return np.array(input_data), exo_data
 
     def init_chunk(self, chunk_index=0):
         """Build the ForwardPassChunk for a chunk id."""

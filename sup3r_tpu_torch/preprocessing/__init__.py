@@ -1,5 +1,7 @@
 """Data plane of the port: loaders, rasterizers, derivers and the
-``DataHandler`` that feed the forward pass, and the training feed
+``DataHandler`` that feed the forward pass, the exogenous rasters
+(``ExoData``, ``ExoDataHandler``, topography and sza rasterizers), and
+the training feed
 (samplers, stats, batch queues, the ``BatchHandler`` and the paired
 ``DualBatchHandler``), on numpy and scipy (h5py only for HDF5 input)."""
 
@@ -17,6 +19,12 @@ from sup3r_tpu_torch.preprocessing.batch_queues import (  # noqa: F401
 from sup3r_tpu_torch.preprocessing.data_handlers import (  # noqa: F401
     DataHandler,
     get_input_handler_class,
+)
+from sup3r_tpu_torch.preprocessing.exo import (  # noqa: F401
+    ExoData,
+    ExoDataHandler,
+    ExoRasterizer,
+    SzaRasterizer,
 )
 from sup3r_tpu_torch.preprocessing.grid import (  # noqa: F401
     GridDataset,

@@ -1,8 +1,8 @@
 """Fake data for tests and on-card runs of the port (the counterparts
 of ``make_fake_dset`` and ``make_fake_nc_file`` in
-``sup3r_tpu/utilities/test_helpers.py``): an in-memory GridDataset, and
-NetCDF3 through scipy, without pandas, so the card's machine can make its
-own input."""
+``sup3r_tpu/utilities/test_helpers.py``): an in-memory GridDataset,
+NetCDF3 input through scipy, and a NetCDF3 topography source, without
+pandas or h5py, so the card's machine can make its own input."""
 
 import numpy as np
 
@@ -88,4 +88,29 @@ def make_fake_nc_file(path, shape, features, start='2023-01-01',
                    else RANDOM_GENERATOR.random(shape_full))
             var = f.createVariable(feat, 'f4', dims)
             var[:] = np.asarray(arr, dtype=np.float32)
+    return path
+
+
+def make_fake_topo_nc_file(path, shape, lat_range=(40.2, 38.8),
+                           lon_range=(-105.7, -104.1), data=None):
+    """Write a NetCDF3 topography source (via scipy): one static
+    ``topography`` variable on a (lat, lon) grid of ``shape`` (s1, s2),
+    finer than the low-res input it serves, with no time axis. Values
+    are ``RANDOM_GENERATOR`` draws in U(0, 1000) (metres, as the H5
+    helper's ``elevation``) unless ``data`` gives the (s1, s2) array."""
+    from scipy.io import netcdf_file
+
+    s1, s2 = shape
+    if data is None:
+        data = RANDOM_GENERATOR.random((s1, s2)) * 1000
+    with netcdf_file(path, 'w') as f:
+        f.createDimension('lat', s1)
+        f.createDimension('lon', s2)
+        f.createVariable('lat', 'f4', ('lat',))[:] = np.linspace(
+            *lat_range, s1)
+        f.createVariable('lon', 'f4', ('lon',))[:] = np.linspace(
+            *lon_range, s2)
+        var = f.createVariable('topography', 'f4', ('lat', 'lon'))
+        var[:] = np.asarray(data, dtype=np.float32)
+        var.units = b'm'
     return path

@@ -262,13 +262,13 @@ def test_nan_input_and_constant_output_raise(tmp_path, saved):
 
 
 @pytest.mark.parametrize('kwargs,match', [
-    ({'exo_handler_kwargs': {'topography': {'source_file': 'x.h5'}}},
+    ({'exo_handler_kwargs': {'u_10m_obs': {'source_file': 'x.h5'}}},
      'exo.py'),
     ({'chunked_io': True}, 'lazy.py'),
     ({'bias_correct_method': 'linear'}, 'bias'),
     ({'use_mesh': True}, 'item 9'),
     ({'input_handler_name': 'DailyDataHandler'}, 'item 5'),
-    ({'model_class': 'MultiStepGan'}, 'item 7'),
+    ({'model_class': 'SolarMultiStepGan'}, 'item 7'),
     ({'input_handler_name': 'DataHandlerNCforCC'}, 'climate-change'),
 ])
 def test_later_slices_raise(tmp_path, saved, kwargs, match):

@@ -159,8 +159,9 @@ def test_fast_mode_is_not_ported(models, low_res):
 
 
 def test_layer_exo_matches_jax():
-    """A plain {feature: array} exo dict reaches a Sup3rConcat layer,
-    normalized with the feature's own stats, as in the JAX package."""
+    """A plain {feature: array} exo dict, and the structured ExoData
+    form, reach a Sup3rConcat layer, normalized with the feature's own
+    stats, as in the JAX package."""
     gen = [{'class': 'Sup3rConcat', 'name': 'topography'},
            {'class': 'Conv2D', 'filters': 2, 'kernel_size': 3,
             'padding': 'same'}]
@@ -180,8 +181,11 @@ def test_layer_exo_matches_jax():
     np.testing.assert_allclose(
         model.generate(lr, exogenous_data=exo),
         jmodel.generate(lr, exogenous_data=exo), rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match='data-plane'):
-        model.generate(lr, exogenous_data={'topography': {'steps': []}})
+    steps = {'topography': {'steps': [
+        {'model': 0, 'combine_type': 'layer', 'data': exo['topography']}]}}
+    np.testing.assert_allclose(
+        model.generate(lr, exogenous_data=steps),
+        jmodel.generate(lr, exogenous_data=steps), rtol=RTOL, atol=ATOL)
 
 
 def test_save_params_reads_back_in_jax(models, tmp_path):

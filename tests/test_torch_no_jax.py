@@ -2,7 +2,10 @@
 jax, jaxlib, flax, optax, the JAX package, pandas, h5py and msgpack all
 unimportable — as on the card's machine — and it never drops quietly to
 the CPU. The blocked run also saves a model, reloads it, runs the
-chunked ForwardPass from a NetCDF3 input to NetCDF output, takes one
+chunked ForwardPass from a NetCDF3 input to NetCDF output, runs it again
+for a MultiStepGan (a topography GAN then LinearInterp) with a NetCDF3
+topography source (preprocessing.exo, models.multi_step, models.linear),
+takes one
 train step and trains one BatchHandler epoch (history, checkpoint with
 optimizer state, reload), serves in fast mode, takes a bf16 and a remat
 step, and trains one epoch over a DualBatchHandler of DualRasterizer
@@ -97,6 +100,41 @@ assert data['u_100m'].shape == (12, 12, 12)
 assert np.isfinite(data['u_100m']).all()
 print('FORWARD PASS', len(files))
 
+from sup3r_tpu_torch.configs import generator_cc_spatial
+from sup3r_tpu_torch.models import LinearInterp, MultiStepGan
+from sup3r_tpu_torch.utilities.test_helpers import make_fake_topo_nc_file
+
+topo = make_fake_topo_nc_file(os.path.join(tmp, 'topo.nc'), (30, 30),
+                              lat_range=(40.2, 38.8),
+                              lon_range=(-105.7, -104.1))
+feats = ['u_100m', 'v_100m']
+spatial = Sup3rGan(generator_cc_spatial(2, 2, filters=8, n_resblocks=1),
+                   [{{'class': 'Flatten'}}, {{'class': 'Dense', 'units': 1}}],
+                   meta={{'lr_features': feats + ['topography'],
+                         'hr_out_features': feats, 's_enhance': 2,
+                         't_enhance': 1}},
+                   means={{'u_100m': 0.5, 'v_100m': 0.5, 'topography': 500.0}},
+                   stdevs={{'u_100m': 0.3, 'v_100m': 0.3,
+                           'topography': 300.0}}, device='cpu')
+spatial.init_weights((1, 4, 4, 3), (1, 8, 8, 2))
+MultiStepGan([spatial, LinearInterp(feats, 1, 2, device='cpu')]).save(
+    os.path.join(tmp, 'chain'))
+strategy = ForwardPassStrategy(
+    file_paths=inp, model_class='MultiStepGan',
+    model_kwargs={{'model_dirs': [os.path.join(tmp, 'chain', f'model_step_{{i}}')
+                                 for i in (0, 1)], 'device': 'cpu'}},
+    fwp_chunk_shape=(4, 4, 3), spatial_pad=1, temporal_pad=1,
+    exo_handler_kwargs={{'topography': {{'source_file': topo}}}},
+    out_pattern=os.path.join(tmp, 'chain_out', 'chunk_{{file_id}}.nc'))
+ForwardPass.run(strategy, 0)
+files = sorted(f for f in os.listdir(os.path.join(tmp, 'chain_out'))
+               if f.endswith('.nc'))
+assert len(files) == 8, files
+data = LoaderNC(os.path.join(tmp, 'chain_out', files[0])).data
+assert data['u_100m'].shape == (8, 8, 6)
+assert np.isfinite(data['u_100m']).all()
+print('CHAIN WITH EXO', len(files))
+
 from sup3r_tpu_torch.preprocessing import BatchHandler
 from sup3r_tpu_torch.utilities.test_helpers import make_fake_dset
 
@@ -163,6 +201,7 @@ def test_port_serves_with_jax_and_friends_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'SERVED (1, 12, 12, 12, 2)' in proc.stdout
     assert 'FORWARD PASS 8' in proc.stdout
+    assert 'CHAIN WITH EXO 8' in proc.stdout
     assert 'TRAINED 1' in proc.stdout
     assert 'FAST (1, 12, 12, 12, 2)' in proc.stdout
     assert 'BF16 AND REMAT' in proc.stdout

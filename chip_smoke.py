@@ -134,6 +134,32 @@ exits non-zero:
    and a test-sized 5D topography GAN through the device-batched exo
    path equal to its chunk-by-chunk run (each feature held to 1e-4 of
    its own largest magnitude).
+11. the Sup3rCC solar chain and SolarCC training (printed before the
+   ``kernels`` line): a ``SolarMultiStepGan`` of phase 10's spatial wind
+   member, ``generator_cc_spatial(1, 5, with_topography=False)`` for
+   clearsky_ratio and a ``SolarCC`` on ``sup3rcc/gen_solar_1x_8x_1f`` (64
+   filters, 16 residual blocks, 8x ``depth_to_time``) served at 24x, all
+   at full width from seed 0, through ``ForwardPassStrategy(model_class=
+   'SolarMultiStepGan')`` over phase 10's domain with clearsky_ratio in
+   [0, 1] beside the six features: 18 chunks chunk by chunk, HR (150, 150,
+   192) of clearsky_ratio to NetCDF. 3 timed passes and one profiled pass
+   per route (wall s, HR voxels/s, busy / idle, D2H ms); the wrappers'
+   launches by rank (none on the default route; 76 2D and 36 3D blocks
+   per chunk on the opt-in route), equal to the hooked block calls of the
+   last opt-in pass, by shape (``CHAIN_2D_SHAPES``, ``SOLAR_2D_SHAPES``,
+   ``SOLAR_3D_SHAPES``); the routes, and one chunk of a small domain
+   against the port's CPU chain, within 1e-4 of max. Then SolarCC
+   training with ``spatiotemporal/disc_test``: a batch 2 step on the card
+   against the CPU's for the three gates (as phase 7), the timed cell
+   (batch 8 of LR (20, 20, 9, 3) -> HR (20, 20, 72, 1) from
+   ``default_rng(1)``: median step ms of 12 after 3 warm-ups, launches,
+   the step's peak, one profiled step) and ``SolarCC.train`` over a
+   ``BatchHandlerCC`` of ``DataHandlerH5SolarCC`` data from NetCDF3
+   files, 2 epochs of 4 batches of 8 with validation (s per batch,
+   starvation), the checkpoint reloaded at 24x. After the phase, each new
+   ``reflect_conv`` shape (``SOLAR_NEW_SHAPES``) is held to its plain
+   version (1e-5 of max) and timed for the ``kernels`` line
+   (``solar_chain_shapes``).
 
 Before the ``kernels`` line, ``phase_seconds`` gives the seconds each
 phase took. The last line is ``{"ok": true, "device": {...}}``.
@@ -152,8 +178,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sup3r_tpu_torch.configs import get_config
-from sup3r_tpu_torch.models import MultiStepGan, Sup3rGan
+from sup3r_tpu_torch.configs import generator_cc_spatial, get_config
+from sup3r_tpu_torch.models import MultiStepGan, SolarCC, Sup3rGan
 from sup3r_tpu_torch.models.fuse import FusedReflectConv
 from sup3r_tpu_torch.ops import build
 from sup3r_tpu_torch.ops.output_pack import (
@@ -171,7 +197,9 @@ from sup3r_tpu_torch.models.weights import params_from_jax, params_to_jax
 from sup3r_tpu_torch.ops.conv_ad import _fold_reflect_halos, reflect_conv_ad
 from sup3r_tpu_torch.preprocessing import (
     BatchHandler,
+    BatchHandlerCC,
     DataHandler,
+    DataHandlerH5SolarCC,
     DualBatchHandler,
     DualRasterizer,
 )
@@ -841,26 +869,25 @@ def rel_err(got, want, skip_last=False):
     return out
 
 
-def train_check():
-    """Phase 7b: one flagship step at batch 2 on the card against the
-    port's CPU step from the same weights, batch and state, for the
-    three gating cases. Losses within 1e-4; weights and Adam moments
+def step_check(phase, make_model, lr, hr, exact_grads, **record):
+    """One step of ``make_model(device)`` on the card against the port's
+    CPU step from the same weights, batch, state and step counter, for
+    the three gating cases. Losses within 1e-4; weights and Adam moments
     within 1e-4 of each tensor's largest magnitude, or within the step's
     fp32 conditioning where that is wider: at initialization the
     discriminator's outputs are ~1e-3 of its activations, so its
     gradients carry fp32 rounding of ~1e-3 of their size on any device.
-    That conditioning is measured against a float64 step on the card:
-    the card's gradients (from its Adam moments, mu = 0.1 g after one
-    step) must be as close to float64 as the CPU's are (within 2x, or
+    That conditioning is measured against a float64 step on the card
+    (``exact_grads(model, lr, hr)``: both losses' gradients of the first
+    step): the card's gradients (from its Adam moments, mu = 0.1 g after
+    one step) must be as close to float64 as the CPU's are (within 2x, or
     1e-4)."""
-    lr, hr = train_batch(CHECK_BATCH, seed=2)
-    card = train_model('cuda', CHECK_OPT)
-    cpu = train_model('cpu', CHECK_OPT)
+    card, cpu = make_model('cuda'), make_model('cpu')
     start = [params_to_jax(card._gen), params_to_jax(card._disc)]
-    ref = train_model('cuda', CHECK_OPT)
+    ref = make_model('cuda')
     ref._gen.double()
     ref._disc.double()
-    exact = step_grads(ref, lr, hr)
+    exact = exact_grads(ref, lr, hr)
     del ref
     tols, worst = {}, 0.0
     for gate, (do_gen, do_disc) in GATES.items():
@@ -869,6 +896,7 @@ def train_check():
             params_from_jax(model._disc, start[1])
             model._gen_opt_state = model._gen_tx.init(model.gen_params)
             model._disc_opt_state = model._disc_tx.init(model.disc_params)
+            model._step_counter = 0
         got = card.run_gradient_descent(lr, hr, W_ADV, do_gen, do_disc)
         want = cpu.run_gradient_descent(lr, hr, W_ADV, do_gen, do_disc)
         errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
@@ -897,13 +925,20 @@ def train_check():
                   and errs[f'mu{tag}'] <= tols[tag]
                   and errs[f'nu{tag}'] <= 2 * tols[tag])
         worst = max(worst, max(errs.values()))
-        emit(phase='train_check', gate=gate, batch=CHECK_BATCH,
-             losses_card=got, rel_err=errs, loss_tol=PARITY_RTOL,
+        emit(phase=phase, gate=gate, **record, losses_card=got, rel_err=errs,
+             loss_tol=PARITY_RTOL,
              tol={k.strip('_'): v for k, v in tols.items()},
              fp32_conditioning=conditioning or None, ok=ok)
         if not ok:
-            raise AssertionError(f'train step ({gate}): card vs CPU {errs}')
+            raise AssertionError(f'{phase} ({gate}): card vs CPU {errs}')
     return worst
+
+
+def train_check():
+    """Phase 7b: ``step_check`` of one flagship step at batch 2."""
+    lr, hr = train_batch(CHECK_BATCH, seed=2)
+    return step_check('train_check', lambda d: train_model(d, CHECK_OPT),
+                      lr, hr, step_grads, batch=CHECK_BATCH)
 
 
 def train_step_phase(name, model, phase='train_step',
@@ -1708,12 +1743,12 @@ def chain_strategy(input_file, model_dirs, topo, out_pattern,
     return ForwardPassStrategy(**kw)
 
 
-def chain_fused_calls(chain):
-    """Forward pre-hooks on every fused block of both members' serving
+def chain_fused_calls(members):
+    """Forward pre-hooks on every fused block of the members' serving
     networks; returns (calls, remove): ``calls`` collects (n_spatial,
     input shape, co, alpha) of each block call."""
     calls, hooks = [], []
-    for member in chain.models:
+    for member in members:
         for lyr in member._get_fused_apply().layers:
             if isinstance(lyr, FusedReflectConv):
                 hooks.append(lyr.register_forward_pre_hook(
@@ -1728,15 +1763,16 @@ def chain_fused_calls(chain):
     return calls, remove
 
 
-def chain_pass(input_file, dirs, topo, out_dir, route, index, want):
-    """One timed ``ForwardPass.run`` of the chain to NetCDF; checks the
-    wrappers' launch counts against ``want`` and returns (wall s, tiled
-    output, launch counts)."""
+def chain_pass(make_strategy, out_dir, route, index, want,
+               features=CHAIN_FEATURES, phase='chain_pass'):
+    """One timed ``ForwardPass.run`` of a chain to NetCDF (the strategy
+    from ``make_strategy(out_pattern)``); checks the wrappers' launch
+    counts against ``want`` and returns (wall s, tiled output, launch
+    counts)."""
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    strategy = chain_strategy(input_file, dirs, topo,
-                              os.path.join(out_dir, 'chunk_{file_id}.nc'))
+    strategy = make_strategy(os.path.join(out_dir, 'chunk_{file_id}.nc'))
     plan_s = time.perf_counter() - t0
     ChainForwardPass.run(strategy, 0)
     torch.cuda.synchronize()
@@ -1744,48 +1780,48 @@ def chain_pass(input_file, dirs, topo, out_dir, route, index, want):
     launches = chain_counts()
     fwp = ChainForwardPass.last
     _, full = check_fwp_files(strategy, out_dir, keep=True,
-                              domain=CHAIN_DOMAIN, features=CHAIN_FEATURES)
+                              domain=CHAIN_DOMAIN, features=features)
     n_chunks = strategy.fwp_slicer.n_chunks
     ok = (launches == want and fwp.chunk_runs == n_chunks
           and fwp.dispatches == 0)
-    emit(phase='chain_pass', route=route, pass_index=index, chunks=n_chunks,
+    emit(phase=phase, route=route, pass_index=index, chunks=n_chunks,
          chunk_runs=fwp.chunk_runs, batched_dispatches=fwp.dispatches,
          hr_shape=list(full.shape), wall_s=wall_s, plan_s=plan_s,
          hr_voxels_per_s=int(np.prod(full.shape[:3])) / wall_s,
          timer_s=fwp.timer.log, launches=launches, expected=want, ok=ok)
     if not ok:
         raise AssertionError(
-            f'chain pass ({route}): launches {launches} (expected {want}), '
+            f'{phase} ({route}): launches {launches} (expected {want}), '
             f'{fwp.chunk_runs} chunk runs and {fwp.dispatches} batched '
             f'dispatches for {n_chunks} chunks')
     return wall_s, full, launches
 
 
-def chain_cpu_check(dirs, tmp):
-    """One chunk of a small domain: the card's chain output on both
-    routes against the port's CPU chain (the parity bar)."""
-    os.makedirs(os.path.join(tmp, 'small'))
-    small, topo = chain_inputs(os.path.join(tmp, 'small'), (4, 4, 2),
-                               seed=1)
+def chain_cpu_check(make_strategy, small, topo, members,
+                    features=CHAIN_FEATURES, phase='chain_cpu_check'):
+    """One chunk of a small (4, 4, 2) domain (``small``, ``topo``): the
+    card's chain output on both routes against the port's CPU chain (the
+    parity bar). ``make_strategy(input, topo, out, device=, **kw)`` builds
+    the strategy, ``members(chain)`` lists the members a route sets."""
     kw = dict(fwp_chunk_shape=(4, 4, 2), spatial_pad=0, temporal_pad=0,
               device_batch_size=1)
-    cpu = ForwardPass.run(chain_strategy(small, dirs, topo, None,
-                                         device='cpu', **kw), 0)
-    strategy = chain_strategy(small, dirs, topo, None, **kw)
+    cpu = ForwardPass.run(make_strategy(small, topo, None, device='cpu',
+                                        **kw), 0)
+    strategy = make_strategy(small, topo, None, **kw)
     chain = strategy.get_model()
     errs, ok = {}, bool(np.isfinite(cpu[0]).all())
     for route, pallas in (('default', False), ('opt_in', True)):
-        for m in chain.models:
+        for m in members(chain):
             m.inference_pallas = pallas
         card = ForwardPass.run(strategy, 0)
         errs[route], tols, ok_route = feature_errs(card[0], cpu[0])
         ok = ok and ok_route
-    for m in chain.models:
+    for m in members(chain):
         m.inference_pallas = False
-    emit(phase='chain_cpu_check', chunk_hr_shape=list(cpu[0].shape),
-         features=CHAIN_FEATURES, max_abs_err=errs, tol=tols, ok=ok)
+    emit(phase=phase, chunk_hr_shape=list(cpu[0].shape), features=features,
+         max_abs_err=errs, tol=tols, ok=ok)
     if not ok:
-        raise AssertionError(f'chain: card vs CPU {errs} > {tols}')
+        raise AssertionError(f'{phase}: card vs CPU {errs} > {tols}')
 
 
 def exo_batched_check(tmp):
@@ -1901,12 +1937,13 @@ def chain_phase(name):
             walls[route] = []
             for i in range(N_CHAIN_PASSES):
                 # the last opt-in pass also hooks every fused block call
-                calls, remove = (chain_fused_calls(chain)
+                calls, remove = (chain_fused_calls(chain.models)
                                  if pallas and i == N_CHAIN_PASSES - 1
                                  else ([], lambda: None))
                 try:
                     wall, outs[route], launches[route] = chain_pass(
-                        input_file, dirs, topo,
+                        lambda out: chain_strategy(input_file, dirs, topo,
+                                                   out),
                         os.path.join(tmp, f'{route}_{i}'), route, i,
                         want[route])
                 finally:
@@ -1943,9 +1980,422 @@ def chain_phase(name):
              max_abs_err=errs, tol=tols, ok=ok)
         if not ok:
             raise AssertionError(f'chain: routes differ by {errs} > {tols}')
-        chain_cpu_check(dirs, tmp)
+        os.makedirs(os.path.join(tmp, 'small'))
+        chain_cpu_check(
+            lambda small, topo, out, **kw: chain_strategy(
+                small, dirs, topo, out, **kw),
+            *chain_inputs(os.path.join(tmp, 'small'), (4, 4, 2), seed=1),
+            lambda chain: chain.models)
         exo_batched_check(tmp)
         return launches, calls_2d
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: phase 11, the Sup3rCC solar chain: phase 10's domain, chunks and pads
+#: with clearsky_ratio beside the six wind features; the temporal member's
+#: lr features; the clearsky ratio's stats
+SOLAR_FEATURES = ['clearsky_ratio'] + CHAIN_FEATURES
+SOLAR_T_FEATURES = ['clearsky_ratio', 'u_100m', 'v_100m']
+SOLAR_MEANS = {**CHAIN_MEANS, 'clearsky_ratio': 0.5}
+SOLAR_STDEVS = {**CHAIN_STDEVS, 'clearsky_ratio': 0.25}
+#: ``reflect_conv``'s blocks in one chunk of the solar members that phase
+#: 10 does not give it: the spatial solar member's 2D blocks with their
+#: launches per chunk (its first block takes clearsky_ratio alone, no
+#: Sup3rConcat after the expansion, a 64 -> 1 tail), and the temporal
+#: SolarCC's 3D blocks (3 input channels at t = 6, the 64 -> 512 block
+#: before ``depth_to_time``, the 64 -> 1 tail at t = 48); phase 11 asserts
+#: them against the fused blocks' calls
+SOLAR_2D_SHAPES = (((6, 1, 14, 14), 64, 0.2, 1),
+                   ((6, 64, 14, 14), 64, 0.2, 8),
+                   ((6, 64, 14, 14), 64, None, 9),
+                   ((6, 64, 14, 14), 1600, 0.2, 1),
+                   ((6, 64, 70, 70), 64, 0.2, 9),
+                   ((6, 64, 70, 70), 64, None, 9),
+                   ((6, 64, 70, 70), 1, None, 1))
+SOLAR_3D_SHAPES = (((1, 3, 70, 70, 6), 64, 0.2, 1),
+                   ((1, 64, 70, 70, 6), 64, 0.2, 17),
+                   ((1, 64, 70, 70, 6), 64, None, 16),
+                   ((1, 64, 70, 70, 6), 512, 0.2, 1),
+                   ((1, 64, 70, 70, 48), 1, None, 1))
+#: the new shapes among them, held to the plain version and timed
+SOLAR_NEW_SHAPES = (SOLAR_2D_SHAPES[0], SOLAR_2D_SHAPES[6]) + SOLAR_3D_SHAPES
+#: the SolarCC training cell: batch, LR and HR (three days of daylight
+#: windows at 8x), the card-vs-CPU check's batch and grid
+SOLAR_TRAIN_BATCH = 8
+SOLAR_TRAIN_LR = (20, 20, 9, 3)
+SOLAR_TRAIN_HR = (20, 20, 72, 1)
+SOLAR_CHECK_GRID = (12, 12)
+#: the temporal member's tail conv is drawn at this fraction of its seeded
+#: scale, so the random chain's clearsky ratio lands inside its physical
+#: range (0, 1): the writer NN-fills values outside it, a step that two
+#: routes within rounding of each other would take differently
+SOLAR_TAIL_SCALE = 0.02
+
+
+def solar_inputs(tmp, domain=CHAIN_DOMAIN, seed=0):
+    """Phase 10's inputs with clearsky_ratio in [0, 1] beside the six wind
+    features."""
+    rng = np.random.default_rng(seed)
+    s1, s2, t = domain
+    data = {f: rng.standard_normal((t, s1, s2)) * CHAIN_STDEVS[f]
+            + CHAIN_MEANS[f] for f in CHAIN_FEATURES}
+    data['clearsky_ratio'] = rng.random((t, s1, s2))
+    input_file = make_fake_nc_file(
+        os.path.join(tmp, f'solar_daily_{s1}x{s2}x{t}.nc'), domain,
+        SOLAR_FEATURES, freq='D', lat_range=CHAIN_LAT, lon_range=CHAIN_LON,
+        data=data)
+    topo = make_fake_topo_nc_file(
+        os.path.join(tmp, 'topography.nc'), CHAIN_TOPO_GRID,
+        lat_range=(CHAIN_LAT[0] + 0.05, CHAIN_LAT[1] - 0.05),
+        lon_range=(CHAIN_LON[0] - 0.05, CHAIN_LON[1] + 0.05),
+        data=rng.random(CHAIN_TOPO_GRID) * 2000)
+    return input_file, topo
+
+
+def solar_temporal(device, lr_shape=(1, 4, 4, 3, 3), hr_shape=(1, 4, 4, 24, 1),
+                   optimizer=None):
+    """The temporal member: ``SolarCC`` on ``sup3rcc/gen_solar_1x_8x_1f``
+    (64 filters, 16 residual blocks, 64 x 8 channels before
+    ``depth_to_time``) with ``spatiotemporal/disc_test``, from seed 0, its
+    tail conv scaled by ``SOLAR_TAIL_SCALE``."""
+    model = SolarCC(
+        get_config('sup3rcc/gen_solar_1x_8x_1f'),
+        get_config('spatiotemporal/disc_test'), optimizer=optimizer,
+        learning_rate=TRAIN_LR_RATE,
+        meta={'lr_features': list(SOLAR_T_FEATURES),
+              'hr_out_features': ['clearsky_ratio'], 's_enhance': 1,
+              't_enhance': 8,
+              'input_resolution': {'spatial': '4km', 'temporal': '1440min'}},
+        means={f: SOLAR_MEANS[f] for f in SOLAR_T_FEATURES},
+        stdevs={f: SOLAR_STDEVS[f] for f in SOLAR_T_FEATURES}, device=device)
+    model.init_weights(lr_shape, hr_shape, seed=0)
+    tail = [lyr for lyr in model._gen.layers if hasattr(lyr, 'weight')][-1]
+    with torch.no_grad():
+        for p in tail.parameters():
+            p.mul_(SOLAR_TAIL_SCALE)
+    return model
+
+
+def solar_members(tmp):
+    """Saves the three groups at full width from seed 0: phase 10's
+    spatial wind member, ``generator_cc_spatial(1, 5,
+    with_topography=False)`` for clearsky_ratio and the temporal SolarCC;
+    returns their directories."""
+    wind, _ = chain_members('cuda')
+    solar = Sup3rGan(
+        generator_cc_spatial(1, 5, with_topography=False),
+        [{'class': 'Flatten'}, {'class': 'Dense', 'units': 1}],
+        meta={'lr_features': ['clearsky_ratio'],
+              'hr_out_features': ['clearsky_ratio'], 's_enhance': 5,
+              't_enhance': 1,
+              'input_resolution': {'spatial': '100km', 'temporal': '1440min'}},
+        means={'clearsky_ratio': SOLAR_MEANS['clearsky_ratio']},
+        stdevs={'clearsky_ratio': SOLAR_STDEVS['clearsky_ratio']},
+        device='cuda')
+    solar.init_weights((1, 4, 4, 1), (1, 20, 20, 1), seed=0)
+    dirs = {}
+    for name, model in (('spatial_solar', solar), ('spatial_wind', wind),
+                        ('temporal_solar', solar_temporal('cuda'))):
+        dirs[name] = [os.path.join(tmp, name)]
+        model.save(dirs[name][0])
+    return dirs
+
+
+def solar_strategy(input_file, dirs, topo, out_pattern, device='cuda',
+                   **kwargs):
+    """The solar chain's strategy (``SolarMultiStepGan`` with the serving
+    ``t_enhance`` of 24); its topography cache beside the source."""
+    kw = dict(file_paths=input_file, model_class='SolarMultiStepGan',
+              model_kwargs={
+                  **{f'{k}_model_dirs': v for k, v in dirs.items()},
+                  't_enhance': 24, 'device': device},
+              fwp_chunk_shape=CHAIN_CHUNK, spatial_pad=CHAIN_S_PAD,
+              temporal_pad=CHAIN_T_PAD,
+              exo_handler_kwargs={'topography': {
+                  'source_file': topo, 'cache_dir': os.path.join(
+                      os.path.dirname(topo), 'exo_cache')}},
+              out_pattern=out_pattern)
+    kw.update(kwargs)
+    return ForwardPassStrategy(**kw)
+
+
+def set_route(chain, pallas):
+    for m in chain.all_models:
+        m.inference_pallas = pallas
+
+
+def solar_step_grads(model, lr, hr, step):
+    """Both losses' gradients at one batch, computed as
+    ``SolarCC._train_step`` computes them at step ``step`` (the same
+    window draws), in the model's dtype."""
+    dtype = model.gen_params[0].dtype
+    lr = torch.as_tensor(lr, dtype=dtype, device=model.device)
+    hr = torch.as_tensor(hr, dtype=dtype, device=model.device)
+    model._step_counter = step
+    n_days = hr.shape[3] // 24
+    with exact_fp32():
+        out = model._train_gen_net().apply(lr, {})
+        starts = model.draw_window_starts(n_days, out.shape[3],
+                                          model._window_generator(0))
+        d_true = model._disc.apply(model.true_windows(hr))
+        d_gen = model._disc.apply(model.gen_windows(out, starts))
+        gen_loss = (model.content_loss(out, hr)
+                    + W_ADV * relativistic_disc_loss(d_gen, d_true))
+        disc_starts = model.draw_window_starts(n_days, out.shape[3],
+                                               model._window_generator(1))
+        disc_loss = relativistic_disc_loss(d_true, model._disc.apply(
+            model.gen_windows(out.detach(), disc_starts)))
+        return (torch.autograd.grad(gen_loss, model.gen_params),
+                torch.autograd.grad(disc_loss, model.disc_params))
+
+
+def solar_train_check():
+    """Phase 11f: ``step_check`` of one full-width SolarCC step at batch 2
+    on a 12 x 12 grid (the card and the CPU draw the same windows: both
+    are at step 1)."""
+    s1, s2 = SOLAR_CHECK_GRID
+    rng = np.random.default_rng(2)
+    lr = rng.random((2, s1, s2) + SOLAR_TRAIN_LR[2:]).astype(np.float32)
+    hr = rng.random((2, s1, s2) + SOLAR_TRAIN_HR[2:]).astype(np.float32)
+    shapes = ((1, s1, s2) + SOLAR_TRAIN_LR[2:],
+              (1, s1, s2) + SOLAR_TRAIN_HR[2:])
+    return step_check(
+        'solar_cc_train_check',
+        lambda d: solar_temporal(d, *shapes, optimizer=CHECK_OPT), lr, hr,
+        lambda m, a, b: solar_step_grads(m, a, b, 1), batch=2,
+        lr_shape=list(shapes[0][1:]), hr_shape=list(shapes[1][1:]))
+
+
+def solar_train_step(name):
+    """Phase 11g: the SolarCC training cell, timed: median step ms over 12
+    steps after 3 warm-ups (host clock, loss fetch included), launches per
+    step (none: both tails have ci * co = 64), the step's peak memory
+    above what was allocated before, and one profiled step."""
+    model = solar_temporal('cuda', (1,) + SOLAR_TRAIN_LR,
+                           (1,) + SOLAR_TRAIN_HR)
+    rng = np.random.default_rng(1)
+    lr = torch.as_tensor(rng.random((SOLAR_TRAIN_BATCH,) + SOLAR_TRAIN_LR),
+                         dtype=torch.float32, device='cuda')
+    hr = torch.as_tensor(rng.random((SOLAR_TRAIN_BATCH,) + SOLAR_TRAIN_HR),
+                         dtype=torch.float32, device='cuda')
+    for _ in range(N_WARM_STEPS):
+        model.run_gradient_descent(lr, hr, W_ADV, True, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    times, losses = [], None
+    for _ in range(N_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses = model.run_gradient_descent(lr, hr, W_ADV, True, True)
+        times.append(1e3 * (time.perf_counter() - t0))
+    per_step = {k: v / N_TRAIN_STEPS for k, v in launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(times))
+    profile_rec = train_profile(model, lr, hr)
+    ok = (per_step == {'small_reflect_conv': 0, 'reflect_conv': 0}
+          and all(np.isfinite(v) for v in losses.values()))
+    emit(phase='solar_cc_train_step', model='sup3rcc/gen_solar_1x_8x_1f',
+         disc='spatiotemporal/disc_test', batch=SOLAR_TRAIN_BATCH,
+         lr_shape=list(SOLAR_TRAIN_LR), hr_shape=list(SOLAR_TRAIN_HR),
+         steps=N_TRAIN_STEPS, step_ms=times, median_step_ms=median,
+         hr_voxels_per_s=SOLAR_TRAIN_BATCH * int(np.prod(SOLAR_TRAIN_HR[:3]))
+         / (median / 1e3), launches_per_step=per_step, losses=losses,
+         peak_device_gb=peak / 1e9, step_peak_gb=(peak - before) / 1e9,
+         nvidia_smi=name, ok=ok, **profile_rec)
+    if not ok:
+        raise AssertionError(f'SolarCC step: launches per step {per_step}; '
+                             f'losses {losses}')
+    return median, per_step
+
+
+def nsrdb_nc(path, shape, seed):
+    """A NetCDF3 file of hourly ghi and clearsky_ghi: a clear-sky diurnal
+    cycle (zero at night, so the hourly clearsky_ratio is NaN there) and
+    ghi a random fraction of it."""
+    s1, s2, t = shape
+    rng = np.random.default_rng(seed)
+    hours = np.arange(t) % 24
+    cs = np.clip(np.sin(np.pi * (hours - 6) / 12), 0, None) * 1000
+    cs = np.broadcast_to(cs[:, None, None], (t, s1, s2)) * (
+        0.9 + 0.1 * rng.random((1, s1, s2)))
+    ghi = cs * (0.2 + 0.8 * rng.random((t, s1, s2)))
+    return make_fake_nc_file(path, shape, ['ghi', 'clearsky_ghi'],
+                             start='2023-06-01', lat_range=CHAIN_LAT,
+                             lon_range=CHAIN_LON,
+                             data={'ghi': ghi, 'clearsky_ghi': cs})
+
+
+def solar_train_loop(step_ms):
+    """Phase 11h: ``SolarCC.train`` over a ``BatchHandlerCC`` of
+    ``DataHandlerH5SolarCC`` data from NetCDF3 files (ghi and clearsky_ghi
+    as LR-only features): 2 epochs of 4 batches of 8, validation, the
+    last checkpoint reloaded with the serving ``t_enhance`` of 24."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_solar_train_')
+    try:
+        feats = ['clearsky_ratio', 'ghi', 'clearsky_ghi']
+        train = DataHandlerH5SolarCC(nsrdb_nc(
+            os.path.join(tmp, 'nsrdb_train.nc'), (40, 40, 24 * 20), 3),
+            features=feats)
+        val = DataHandlerH5SolarCC(nsrdb_nc(
+            os.path.join(tmp, 'nsrdb_val.nc'), (24, 24, 24 * 12), 4),
+            features=feats)
+        handler = BatchHandlerCC(
+            [train], [val], batch_size=SOLAR_TRAIN_BATCH, n_batches=4,
+            s_enhance=1, t_enhance=8, sample_shape=SOLAR_TRAIN_HR[:3],
+            feature_sets={'lr_only_features': ['ghi', 'clearsky_ghi']})
+        model = solar_temporal('cuda', (1,) + SOLAR_TRAIN_LR,
+                               (1,) + SOLAR_TRAIN_HR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.train(handler, input_resolution={'spatial': '4km',
+                                               'temporal': '1440min'},
+                    n_epoch=2, weight_gen_advers=W_ADV,
+                    out_dir=os.path.join(tmp, 'scc_{epoch}'))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model.calc_val_loss(handler, W_ADV)
+        val_s = time.perf_counter() - t0
+        handler.stop()
+        history = model.history
+        loaded = SolarCC.load(os.path.join(tmp, 'scc_1'), t_enhance=24)
+        lr = np.random.default_rng(3).random(
+            (1, 20, 20, 3, 3)).astype(np.float32)
+        out = loaded.generate(lr)
+        ok = (len(history) == 2
+              and all(c in history and np.isfinite(history[c]).all()
+                      for c in ('train_loss_gen', 'train_loss_disc',
+                                'val_loss_gen', 'val_loss_disc'))
+              and handler.lr_shape == SOLAR_TRAIN_LR
+              and handler.hr_shape == SOLAR_TRAIN_HR
+              and loaded.meta['class'] == 'SolarCC'
+              and out.shape == (1, 20, 20, 72, 1)
+              and bool(np.isfinite(out).all()))
+        epoch_s = np.diff([0.0] + list(history['elapsed_time']))
+        emit(phase='solar_cc_train_loop', epochs=2, batches_per_epoch=4,
+             batch=SOLAR_TRAIN_BATCH, lr_shape=list(handler.lr_shape),
+             hr_shape=list(handler.hr_shape), wall_s=wall_s,
+             epoch_s=list(epoch_s), validation_s_per_epoch=val_s,
+             s_per_batch=float(np.mean(epoch_s - val_s)) / 4,
+             bare_step_s=step_ms / 1e3,
+             starvation_rate=handler._queue.starvation_rate,
+             history={c: list(history[c]) for c in history.columns},
+             reloaded_generate_shape=list(out.shape), ok=ok)
+        if not ok:
+            raise AssertionError('SolarCC train loop: history, shapes, '
+                                 'reload or generate failed')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def solar_phase(name):
+    """Phase 11: the Sup3rCC solar chain through the chunked ForwardPass
+    on both routes, then SolarCC training; returns the wrappers' launch
+    counts of each route's last pass, the block calls of the last opt-in
+    pass by (rank, input shape, co, alpha), and the launches per SolarCC
+    step."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_solar_')
+    try:
+        input_file, topo = solar_inputs(tmp)
+        dirs = solar_members(tmp)
+        strategy = solar_strategy(input_file, dirs, topo, None)
+        chain = strategy.get_model()
+        n_chunks = strategy.fwp_slicer.n_chunks
+        # launches per chunk on the opt-in route, counted from the fused
+        # networks of all three groups: every fused block the small
+        # kernel does not take
+        blocks = [lyr.n_spatial for m in chain.all_models
+                  for lyr in m._get_fused_apply().layers
+                  if isinstance(lyr, FusedReflectConv) and not (
+                      lyr.n_spatial == 3
+                      and lyr.weight.shape[:2].numel() <= 32)]
+        per_chunk = {'2d': blocks.count(2), '3d': blocks.count(3)}
+        want = {'default': dict.fromkeys(
+                    ('small_reflect_conv', 'reflect_conv', 'reflect_conv_2d',
+                     'reflect_conv_3d'), 0),
+                'opt_in': {'small_reflect_conv': 0,
+                           'reflect_conv': n_chunks * len(blocks),
+                           'reflect_conv_2d': n_chunks * per_chunk['2d'],
+                           'reflect_conv_3d': n_chunks * per_chunk['3d']}}
+        want_calls = Counter({(2, x, co, a): k * n_chunks
+                              for x, co, a, k in CHAIN_2D_SHAPES})
+        for x, co, a, k in SOLAR_2D_SHAPES:
+            want_calls[(2, x, co, a)] += k * n_chunks
+        for x, co, a, k in SOLAR_3D_SHAPES:
+            want_calls[(3, x, co, a)] += k * n_chunks
+        emit(phase='solar_chain_setup', chunks=n_chunks,
+             padded_lr_chunk=[c + 2 * p for c, p in zip(
+                 CHAIN_CHUNK, (CHAIN_S_PAD, CHAIN_S_PAD, CHAIN_T_PAD))],
+             members={k: [type(m).__name__ for m in g.models]
+                      for k, g in zip(dirs, chain.groups)},
+             t_enhance=chain.t_enhance, s_enhance=chain.s_enhance,
+             blocks_per_chunk=per_chunk)
+        ChainForwardPass.run(solar_strategy(
+            input_file, dirs, topo,
+            os.path.join(tmp, 'warm', 'chunk_{file_id}.nc')), 0)
+        shutil.rmtree(os.path.join(tmp, 'warm'))
+        walls, outs, launches = {}, {}, {}
+        calls = []
+        for route, pallas in (('default', False), ('opt_in', True)):
+            set_route(chain, pallas)
+            walls[route] = []
+            for i in range(N_CHAIN_PASSES):
+                hooked, remove = (chain_fused_calls(chain.all_models)
+                                  if pallas and i == N_CHAIN_PASSES - 1
+                                  else ([], lambda: None))
+                try:
+                    wall, outs[route], launches[route] = chain_pass(
+                        lambda out: solar_strategy(input_file, dirs, topo,
+                                                   out),
+                        os.path.join(tmp, f'{route}_{i}'), route, i,
+                        want[route], features=['clearsky_ratio'],
+                        phase='solar_chain_pass')
+                finally:
+                    remove()
+                calls = hooked or calls
+                walls[route].append(wall)
+            emit(phase='solar_chain_route', route=route, wall_s=walls[route],
+                 hr_voxels_per_s=int(np.prod(CHAIN_DOMAIN)) * 25 * 24
+                 / float(np.median(walls[route])), nvidia_smi=name)
+            fwp_profiled_pass(
+                lambda out: solar_strategy(input_file, dirs, topo, out),
+                os.path.join(tmp, f'{route}_profiled'), route,
+                phase='solar_chain_profile')
+        set_route(chain, False)
+        got_calls = Counter(calls)
+        ok = (got_calls == want_calls
+              and sum(n for k, n in got_calls.items() if k[0] == 2)
+              == launches['opt_in']['reflect_conv_2d']
+              and sum(n for k, n in got_calls.items() if k[0] == 3)
+              == launches['opt_in']['reflect_conv_3d'])
+        emit(phase='solar_chain_blocks', per_chunk=per_chunk,
+             calls_by_shape=[[rank, list(x), co, a, n] for
+                             (rank, x, co, a), n in got_calls.items()],
+             launches=launches['opt_in'], ok=ok)
+        if not ok:
+            raise AssertionError(
+                f'solar chain blocks: calls {dict(got_calls)} (expected '
+                f'{dict(want_calls)}), launches {launches["opt_in"]}')
+        errs, tols, ok = feature_errs(outs['opt_in'], outs['default'])
+        emit(phase='solar_chain_routes_agree', features=['clearsky_ratio'],
+             max_abs_err=errs, tol=tols, ok=ok)
+        if not ok:
+            raise AssertionError(f'solar chain: routes differ by {errs} > '
+                                 f'{tols}')
+        os.makedirs(os.path.join(tmp, 'small'))
+        chain_cpu_check(
+            lambda small, topo, out, **kw: solar_strategy(
+                small, dirs, topo, out, **kw),
+            *solar_inputs(os.path.join(tmp, 'small'), (4, 4, 2), seed=1),
+            lambda chain: chain.all_models, features=['clearsky_ratio'],
+            phase='solar_chain_cpu_check')
+        del chain, strategy
+        check_err = solar_train_check()
+        step_ms, per_step = solar_train_step(name)
+        solar_train_loop(step_ms)
+        return launches, got_calls, per_step, check_err
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2165,6 +2615,19 @@ def main():
     train_tail = timing('small_reflect_conv', small_reflect_conv_cf,
                         *conv_inputs(gen, TRAIN_TAIL_SHAPE, 2), None)
     mark('5_kernel_timings_of_phases_7_10')
+    # 11. the Sup3rCC solar chain, SolarCC training
+    per_solar, solar_calls, per_solar_step, solar_check_err = solar_phase(
+        smi)
+    mark('11_solar')
+    solar_times = []
+    for x_shape, co, alpha, _ in SOLAR_NEW_SHAPES:
+        inputs = conv_inputs(gen, x_shape, co)
+        err = check_kernel('reflect_conv', reflect_conv_cf, *inputs, alpha)
+        solar_times.append(dict(
+            timing('reflect_conv', reflect_conv_cf, *inputs, alpha),
+            max_abs_err=err, launches_per_opt_in_solar_chain_pass=solar_calls[
+                (len(x_shape) - 2, x_shape, co, alpha)]))
+    mark('11_kernel_checks_and_timings')
     emit(phase='phase_seconds', seconds=seconds,
          total_s=sum(seconds.values()))
 
@@ -2172,10 +2635,10 @@ def main():
         return {route: counts[kname]
                 for route, counts in fwp_launches.items()}
 
-    def per_chain_pass(kname):
+    def per_chain_pass(per_route, kname):
         return {route: {k: v for k, v in counts.items()
                         if k.startswith(kname)}
-                for route, counts in per_chain.items()}
+                for route, counts in per_route.items()}
 
     def per_mode(kname):
         return {'launches_per_fast_request': per_request['fast'][kname],
@@ -2188,7 +2651,11 @@ def main():
                       launches_per_fwp_pass=per_fwp_pass(
                           'small_reflect_conv'),
                       launches_per_chain_pass=per_chain_pass(
-                          'small_reflect_conv'),
+                          per_chain, 'small_reflect_conv'),
+                      launches_per_solar_chain_pass=per_chain_pass(
+                          per_solar, 'small_reflect_conv'),
+                      launches_per_solar_cc_train_step=per_solar_step[
+                          'small_reflect_conv'],
                       launches_per_train_step=train[
                           'launches_per_train_step'],
                       **per_mode('small_reflect_conv'),
@@ -2200,8 +2667,15 @@ def main():
                record('reflect_conv', body_times[2],
                       main_path_shapes=shapes,
                       launches_per_fwp_pass=per_fwp_pass('reflect_conv'),
-                      launches_per_chain_pass=per_chain_pass('reflect_conv'),
+                      launches_per_chain_pass=per_chain_pass(per_chain,
+                                                              'reflect_conv'),
                       chain_2d_shapes=chain_times,
+                      launches_per_solar_chain_pass=per_chain_pass(
+                          per_solar, 'reflect_conv'),
+                      solar_chain_shapes=solar_times,
+                      launches_per_solar_cc_train_step=per_solar_step[
+                          'reflect_conv'],
+                      solar_cc_train_check_rel_err=solar_check_err,
                       launches_per_train_step=0,
                       **per_mode('reflect_conv'))]
     print(json.dumps({'kernels': kernels}), flush=True)

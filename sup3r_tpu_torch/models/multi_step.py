@@ -1,12 +1,16 @@
-"""Multi-step model chains: serial GANs (and ``LinearInterp`` steps).
+"""Multi-step model chains: serial GANs (and ``LinearInterp`` steps), and
+the Sup3rCC solar composite.
 
-Reference parity: sup3r/models/multi_step.py:20-886 (MultiStepGan :23).
-The port's copy of ``MultiStepGan`` of ``sup3r_tpu/models/multi_step.py``:
-between two steps the intermediate stays on the models' device as a
-tensor (each member's ``generate(fetch=False)``) while the arithmetic is
-the JAX chain's: each step denormalizes its output, and the next
-normalizes it with its own stats. ``MultiStepSurfaceMetGan`` and
-``SolarMultiStepGan`` come with their members (ROADMAP queue 1 item 7).
+Reference parity: sup3r/models/multi_step.py:20-886 (MultiStepGan :23,
+SolarMultiStepGan :484). The port's copy of ``MultiStepGan`` and
+``SolarMultiStepGan`` of ``sup3r_tpu/models/multi_step.py``: between two
+steps the intermediate stays on the models' device as a tensor (each
+member's ``generate(fetch=False)``) while the arithmetic is the JAX
+chain's: each step denormalizes its output, and the next normalizes it
+with its own stats. The solar composite's two spatial groups, their
+concat, the temporal group and its reflect pad all run on the device; it
+fetches once, at the end. ``MultiStepSurfaceMetGan`` comes with its
+member (ROADMAP queue 1 item 7).
 """
 
 import json
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from sup3r_tpu_torch.models.abstract import AbstractInterface, supports_fetch
+from sup3r_tpu_torch.models.solar_cc import reflect_pad_time
 from sup3r_tpu_torch.preprocessing.exo import ExoData
 
 logger = logging.getLogger(__name__)
@@ -191,6 +196,12 @@ class MultiStepGan(AbstractInterface):
                  exogenous_data=None):
         """Run all steps in serial (reference: multi_step.py:196); the
         last step fetches, so this returns a float32 numpy array."""
+        return self._run(low_res, norm_in, un_norm_out, exogenous_data,
+                         fetch=True)
+
+    def _run(self, low_res, norm_in, un_norm_out, exogenous_data, fetch):
+        """``generate``; with ``fetch=False`` the last step's output stays
+        on the device too where that step can hand it back."""
         if isinstance(exogenous_data, dict) and not isinstance(
                 exogenous_data, ExoData):
             exogenous_data = ExoData(exogenous_data)
@@ -205,7 +216,7 @@ class MultiStepGan(AbstractInterface):
             hi_res = self._transpose_model_input(model, hi_res)
             hi_res = self._match_model_input(i, hi_res, i_exo)
             kwargs = {}
-            if (i < last and supports_fetch(type(model))
+            if ((i < last or not fetch) and supports_fetch(type(model))
                     and not model._has_output_exo(i_exo)):
                 # the intermediate stays on the device
                 kwargs['fetch'] = False
@@ -218,3 +229,186 @@ class MultiStepGan(AbstractInterface):
         """Save each step's model to a numbered subdirectory."""
         for i, model in enumerate(self._models):
             model.save(os.path.join(out_dir, f'model_step_{i}'))
+
+
+class SolarMultiStepGan(MultiStepGan):
+    """Sup3rCC solar composite: parallel spatial clearsky-ratio and
+    spatial wind groups, concatenated into the temporal (SolarCC) group
+    (reference: multi_step.py:484-886). ``models`` is the wind group and
+    the temporal group, as in the JAX package (the exo steps follow it);
+    ``groups`` holds all three groups, ``all_models`` their members."""
+
+    def __init__(self, spatial_solar_models, spatial_wind_models,
+                 temporal_solar_models, t_enhance=None):
+        super().__init__(models=[*spatial_wind_models.models,
+                                 *temporal_solar_models.models])
+        self._spatial_solar_models = spatial_solar_models
+        self._spatial_wind_models = spatial_wind_models
+        self._temporal_solar_models = temporal_solar_models
+        self._t_enhance = t_enhance
+        self.preflight()
+        if t_enhance is not None:
+            assert len(temporal_solar_models.models) == 1, (
+                'Can only override t_enhance for a single temporal model')
+            temporal_solar_models.models[0].meta['t_enhance'] = t_enhance
+
+    def preflight(self):
+        """Consistency checks across the three groups (the solar group
+        takes clearsky_ratio alone: no exo, so no topography)."""
+        s_enh = np.prod(self._spatial_solar_models.s_enhancements)
+        w_enh = np.prod(self._spatial_wind_models.s_enhancements)
+        assert s_enh == w_enh, (
+            f'Solar ({s_enh}) and wind ({w_enh}) spatial enhancements must '
+            'match')
+        assert self._spatial_solar_models.lr_features == [
+            'clearsky_ratio'], (
+            'Spatial solar models must input only clearsky_ratio')
+        assert self._spatial_solar_models.hr_out_features == [
+            'clearsky_ratio'], (
+            'Spatial solar models must output only clearsky_ratio')
+        t_feats = self._temporal_solar_models.lr_features
+        assert t_feats[0] == 'clearsky_ratio', (
+            'Temporal solar model input feature 0 must be clearsky_ratio, '
+            f'got {t_feats}')
+        available = (self._spatial_wind_models.hr_out_features
+                     + self._spatial_solar_models.hr_out_features)
+        missing = [f for f in t_feats if f not in available]
+        assert not missing, (f'Temporal solar model needs {missing} not '
+                             'produced by the spatial models')
+
+    @property
+    def spatial_solar_models(self):
+        return self._spatial_solar_models
+
+    @property
+    def spatial_wind_models(self):
+        return self._spatial_wind_models
+
+    @property
+    def temporal_solar_models(self):
+        return self._temporal_solar_models
+
+    @property
+    def groups(self):
+        """(spatial solar, spatial wind, temporal solar) chains."""
+        return (self._spatial_solar_models, self._spatial_wind_models,
+                self._temporal_solar_models)
+
+    @property
+    def all_models(self):
+        """Every member of the three groups."""
+        return [m for g in self.groups for m in g.models]
+
+    @property
+    def inference_mode(self):
+        """The common mode of every member of the three groups, or
+        ``'custom'`` if they disagree."""
+        modes = {m.inference_mode for m in self.all_models
+                 if hasattr(type(m), 'inference_mode')}
+        if len(modes) == 1:
+            return modes.pop()
+        return 'custom' if modes else 'exact'
+
+    @inference_mode.setter
+    def inference_mode(self, mode):
+        for group in self.groups:
+            group.inference_mode = mode
+
+    @property
+    def meta(self):
+        return (self._spatial_solar_models.meta
+                + self._spatial_wind_models.meta
+                + self._temporal_solar_models.meta)
+
+    @property
+    def lr_features(self):
+        return (self._spatial_solar_models.lr_features
+                + self._spatial_wind_models.lr_features)
+
+    @property
+    def hr_out_features(self):
+        return self._temporal_solar_models.hr_out_features
+
+    @property
+    def idf_wind(self):
+        """Input channel indices of the wind group (less topography)."""
+        return np.array([self.lr_features.index(f)
+                         for f in self._spatial_wind_models.lr_features
+                         if f != 'topography'])
+
+    @property
+    def idf_solar(self):
+        """Input channel indices of the solar group (less topography)."""
+        return np.array([self.lr_features.index(f)
+                         for f in self._spatial_solar_models.lr_features
+                         if f != 'topography'])
+
+    @property
+    def idf_wind_out(self):
+        """Wind output channels the temporal group takes."""
+        t_feats = self._temporal_solar_models.lr_features
+        return np.array([
+            self._spatial_wind_models.hr_out_features.index(f)
+            for f in t_feats[1:]])
+
+    def generate(self, low_res, norm_in=True, un_norm_out=True,
+                 exogenous_data=None):
+        """4D (t, s1, s2, f) in -> 5D (1, s1, s2, t * t_enhance, 1)
+        clearsky ratio out, a float32 numpy array. The spatial groups take
+        the input channels of their features, the solar group no exo; the
+        temporal group takes the solar output then the wind outputs it
+        needs, and the exo steps after the wind group's."""
+        if isinstance(exogenous_data, dict) and not isinstance(
+                exogenous_data, ExoData):
+            exogenous_data = ExoData(exogenous_data)
+        if exogenous_data is not None:
+            s_exo, t_exo = exogenous_data.split(
+                [len(self._spatial_wind_models)])
+        else:
+            s_exo = t_exo = None
+        device = self.device
+        low_res = torch.as_tensor(np.asarray(low_res, dtype=np.float32)
+                                  if not isinstance(low_res, torch.Tensor)
+                                  else low_res, device=device)
+        hi_res_wind = self._spatial_wind_models._run(
+            low_res[..., self.idf_wind.tolist()], norm_in, True, s_exo,
+            fetch=False)
+        hi_res_solar = self._spatial_solar_models._run(
+            low_res[..., self.idf_solar.tolist()], norm_in, True, None,
+            fetch=False)
+        hi_res_wind = torch.as_tensor(hi_res_wind, device=device)
+        hi_res_solar = torch.as_tensor(hi_res_solar, device=device)
+        with torch.inference_mode():
+            hi_res = torch.cat(
+                [hi_res_solar, hi_res_wind[..., self.idf_wind_out.tolist()]],
+                dim=3)
+            hi_res = hi_res.permute(1, 2, 0, 3)[None]
+        hi_res = self._temporal_solar_models._run(
+            hi_res, True, un_norm_out, t_exo, fetch=False)
+        with torch.inference_mode():
+            hi_res = self.temporal_pad(low_res, hi_res)
+        if isinstance(hi_res, torch.Tensor):
+            hi_res = hi_res.cpu().numpy()
+        return hi_res
+
+    def temporal_pad(self, low_res, hi_res, mode='reflect'):
+        """Reflect the output's time axis to t_in * t_enhance (SolarCC
+        crops to its daylight hours; reference: multi_step.py:824)."""
+        if mode != 'reflect':
+            raise ValueError(f'temporal_pad mode must be "reflect", got '
+                             f'{mode!r}')
+        t_shape = low_res.shape[0] * self.t_enhance
+        return reflect_pad_time(hi_res, int((t_shape - hi_res.shape[-2])
+                                            / 2))
+
+    @classmethod
+    def load(cls, spatial_solar_model_dirs, spatial_wind_model_dirs,
+             temporal_solar_model_dirs, t_enhance=None, verbose=True,
+             device='cuda'):
+        """Load the three groups from their save directories onto
+        ``device``."""
+        groups = [MultiStepGan.load(dirs, verbose=verbose, device=device)
+                  for dirs in (spatial_solar_model_dirs,
+                               spatial_wind_model_dirs,
+                               temporal_solar_model_dirs)]
+        return cls(*groups, t_enhance=t_enhance)

@@ -59,7 +59,17 @@ def chain_params_from_jax(chain, params):
     holds one JAX per-layer list per member of ``chain.models`` (None for
     a member without a network, e.g. ``LinearInterp``). On disk a chain
     is one ``Sup3rGan`` checkpoint directory per member, which either
-    package's ``MultiStepGan.load`` reads."""
+    package's ``MultiStepGan.load`` reads. A ``SolarMultiStepGan`` takes
+    one such list per group (spatial solar, spatial wind, temporal
+    solar)."""
+    groups = getattr(chain, 'groups', None)
+    if groups is not None:
+        if len(params) != len(groups):
+            raise ValueError(f'{len(params)} param groups for a chain of '
+                             f'{len(groups)} groups')
+        for group, group_params in zip(groups, params):
+            chain_params_from_jax(group, group_params)
+        return chain
     if len(params) != len(chain.models):
         raise ValueError(f'{len(params)} param lists for a chain of '
                          f'{len(chain.models)} members')

@@ -10,7 +10,9 @@ slice (ROADMAP queue 1 item 9).
 The analytic model walks the network's layer shapes: peak residency
 for a feed-forward conv stack is dominated by the largest adjacent
 (input, output) activation pair plus temps; params and the I/O buffers
-ride on top. A multi-step chain budgets for its hungriest member.
+ride on top. A multi-step chain budgets for its hungriest member; the
+solar composite counts all three of its groups, with the intermediates
+that stay on the device while the later groups run.
 """
 
 import logging
@@ -54,6 +56,9 @@ def estimate_activation_bytes(model, lr_shape):
     dispatch runs every member, so the planner budgets for the hungriest
     step. Models without a generator (linear, physics) count their input
     and output."""
+    groups = getattr(model, 'groups', None)
+    if groups:
+        return _solar_chain_bytes(groups, lr_shape)
     members = getattr(model, 'models', None)
     if members:
         shape = tuple(lr_shape)
@@ -90,6 +95,31 @@ def estimate_activation_bytes(model, lr_shape):
     peak_pair = max(a + b for a, b in zip(sizes[:-1], sizes[1:]))
     params = sum(int(p.numel()) * 4 for p in (model.gen_params or ()))
     return int(1.5 * peak_pair + params + sizes[0] + sizes[-1])
+
+
+def _solar_chain_bytes(groups, lr_shape):
+    """Peak bytes of a ``SolarMultiStepGan`` on one (s1, s2, t, f) chunk:
+    the wind group, then the solar group beside the wind output, then the
+    temporal group beside both outputs and their concat (all three stay
+    on the device until the temporal group's output is fetched)."""
+    solar, wind, temporal = groups
+    s1, s2, t = (int(v) for v in lr_shape[:3])
+    se = int(np.prod(wind.s_enhancements))
+    hr_cells = s1 * se * s2 * se * t
+
+    def in_shape(group):
+        n = len([f for f in group.lr_features if f != 'topography'])
+        return (s1, s2, t, n)
+
+    wind_out = 4 * hr_cells * len(wind.hr_out_features)
+    solar_out = 4 * hr_cells * len(solar.hr_out_features)
+    t_feats = len(temporal.lr_features)
+    return int(max(
+        estimate_activation_bytes(wind, in_shape(wind)),
+        wind_out + estimate_activation_bytes(solar, in_shape(solar)),
+        wind_out + solar_out + 4 * hr_cells * t_feats
+        + estimate_activation_bytes(
+            temporal, (s1 * se, s2 * se, t, t_feats))))
 
 
 def resolve_device_batch_size(model, padded_lr_shape, n_features,

@@ -2,11 +2,13 @@
 ``DataHandler`` that feed the forward pass, the exogenous rasters
 (``ExoData``, ``ExoDataHandler``, topography and sza rasterizers), and
 the training feed
-(samplers, stats, batch queues, the ``BatchHandler`` and the paired
-``DualBatchHandler``), on numpy and scipy (h5py only for HDF5 input)."""
+(samplers, stats, batch queues, the ``BatchHandler``, the paired
+``DualBatchHandler`` and the climate-change ``BatchHandlerCC`` over the
+daily data handlers), on numpy and scipy (h5py only for HDF5 input)."""
 
 from sup3r_tpu_torch.preprocessing.batch_handlers import (  # noqa: F401
     BatchHandler,
+    BatchHandlerCC,
     DualBatchHandler,
 )
 from sup3r_tpu_torch.preprocessing.batch_queues import (  # noqa: F401
@@ -17,7 +19,10 @@ from sup3r_tpu_torch.preprocessing.batch_queues import (  # noqa: F401
 )
 
 from sup3r_tpu_torch.preprocessing.data_handlers import (  # noqa: F401
+    DailyDataHandler,
     DataHandler,
+    DataHandlerH5SolarCC,
+    DataHandlerH5WindCC,
     get_input_handler_class,
 )
 from sup3r_tpu_torch.preprocessing.exo import (  # noqa: F401
@@ -41,6 +46,8 @@ from sup3r_tpu_torch.preprocessing.rasterizers import (  # noqa: F401
 )
 from sup3r_tpu_torch.preprocessing.samplers import (  # noqa: F401
     DualSampler,
+    DualSamplerCC,
     Sampler,
+    nsrdb_reduce_daily_data,
 )
 from sup3r_tpu_torch.preprocessing.stats import StatsCollection  # noqa

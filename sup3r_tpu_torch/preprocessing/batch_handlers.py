@@ -8,7 +8,8 @@ are copied into pinned host memory and sent with a ``non_blocking`` copy
 on a side stream; the train step's stream waits on an event recorded
 after the copy. A pageable copy would block the host behind the running
 step. ``DualBatchHandler`` feeds pre-paired LR / HR data (a
-``DualRasterizer``'s). The climate-change, conditional and data-centric
+``DualRasterizer``'s); ``BatchHandlerCC`` feeds daily LR / hourly HR
+pairs from the daily data handlers. The conditional and data-centric
 handlers come with their models (ROADMAP queue 1 item 7).
 """
 
@@ -22,7 +23,11 @@ from sup3r_tpu_torch.preprocessing.batch_queues import (
     DualBatchQueue,
     SingleBatchQueue,
 )
-from sup3r_tpu_torch.preprocessing.samplers import DualSampler, Sampler
+from sup3r_tpu_torch.preprocessing.samplers import (
+    DualSampler,
+    DualSamplerCC,
+    Sampler,
+)
 from sup3r_tpu_torch.preprocessing.stats import (
     StatsCollection,
     unwrap_container,
@@ -221,10 +226,31 @@ class DualBatchHandler(BaseBatchHandler):
                             **self._sampler_args)
 
 
+class BatchHandlerCC(DualBatchHandler):
+    """Climate-change handler: daily LR / hourly HR pairs from the daily
+    data handlers' (daily, hourly) data. Its LR shape has the sample's
+    days times the model's ``t_enhance`` / 24 steps: the HR sample is
+    ``t_enhance`` x the LR one even where the sampler reduced a day to its
+    daylight window."""
+
+    SAMPLER = DualSamplerCC
+
+    @property
+    def hr_shape(self):
+        s = self._queue.samplers[0]
+        return (*s.hr_sample_shape, len(s.hr_features))
+
+    @property
+    def lr_shape(self):
+        s = self._queue.samplers[0]
+        t = s.hr_sample_shape[2] // s.t_enhance
+        return (s.lr_sample_shape[0], s.lr_sample_shape[1], t,
+                len(s.lr_features))
+
+
 __getattr__ = not_ported(
-    __name__, ('BatchHandlerCC', 'BatchHandlerMom1', 'BatchHandlerMom1SF',
+    __name__, ('BatchHandlerMom1', 'BatchHandlerMom1SF',
                'BatchHandlerMom2', 'BatchHandlerMom2Sep',
                'BatchHandlerMom2SF', 'BatchHandlerMom2SepSF',
                'BatchHandlerDC'),
-    'ROADMAP queue 1 item 7, the climate-change, conditional and '
-    'data-centric handlers')
+    'ROADMAP queue 1 item 7, the conditional and data-centric handlers')

@@ -5,8 +5,9 @@ Reference parity: sup3r/preprocessing/derivers/base.py (derive :208,
 check_registry :83-147, do_level_interpolation :352, time_roll /
 hr_spatial_coarsen / nan post-ops :413-501) and methods.py (the
 DerivedFeature classes + registries :504-555). The port's copy of
-``sup3r_tpu/preprocessing/derivers.py`` with the base registry; the
-climate-change registries come with their data handlers.
+``sup3r_tpu/preprocessing/derivers.py`` with the base registry and the
+H5 climate-change handlers' (``RegistryH5WindCC``, ``RegistryH5SolarCC``);
+``RegistryNCforCC`` comes with ``DataHandlerNCforCC``.
 """
 
 import logging
@@ -104,6 +105,20 @@ def _vwind(ctx, height):
     return v
 
 
+def _usolar(ctx):
+    """Grid-aligned u from NSRDB wind_speed / wind_direction."""
+    u, _ = transform_rotate_wind(ctx['wind_speed'], ctx['wind_direction'],
+                                 ctx.lat_lon)
+    return u
+
+
+def _vsolar(ctx):
+    """Grid-aligned v from NSRDB wind_speed / wind_direction."""
+    _, v = transform_rotate_wind(ctx['wind_speed'], ctx['wind_direction'],
+                                 ctx.lat_lon)
+    return v
+
+
 def _sza(ctx):
     """Solar zenith angle raster (degrees)."""
     return solar_zenith(ctx.time_index, ctx.lat_lon)
@@ -171,6 +186,24 @@ RegistryBase = {
     'longitude_feature': _Method(_longitude_feature),
     'sod_encoding': _Method(_sod_encoding),
     'soy_encoding': _Method(_soy_encoding),
+}
+
+#: the daily climate-change handlers' registries: daily extremes come from
+#: the hourly field they name (the daily coarsening takes their max / min)
+RegistryH5WindCC = {
+    **RegistryBase,
+    'temperature_max_(.*)m': 'temperature_(.*)m',
+    'temperature_min_(.*)m': 'temperature_(.*)m',
+    'relativehumidity_max_(.*)m': 'relativehumidity_(.*)m',
+    'relativehumidity_min_(.*)m': 'relativehumidity_(.*)m',
+}
+
+RegistryH5SolarCC = {
+    **RegistryH5WindCC,
+    'windspeed': 'wind_speed',
+    'winddirection': 'wind_direction',
+    'u': _Method(_usolar, ('wind_speed', 'wind_direction')),
+    'v': _Method(_vsolar, ('wind_speed', 'wind_direction')),
 }
 
 class Deriver:

@@ -4,8 +4,9 @@
 
 Every draw comes from the port's locked ``RANDOM_GENERATOR`` in the JAX
 package's order, so the same seed gives the same samples. ``DualSampler``
-crops aligned LR / HR pairs from a ``PairedDataset``. ``SamplerDC`` and
-``DualSamplerCC`` come with their models (ROADMAP queue 1 item 7).
+crops aligned LR / HR pairs from a ``PairedDataset``; ``DualSamplerCC``
+samples whole days from a (daily, hourly) one. ``SamplerDC`` comes with
+its model (ROADMAP queue 1 item 7).
 """
 
 import logging
@@ -13,7 +14,13 @@ import logging
 import numpy as np
 
 from sup3r_tpu_torch.names import parse_feature
-from sup3r_tpu_torch.utilities import RANDOM_GENERATOR, not_ported
+from sup3r_tpu_torch.ops.coarsen import spatial_coarsening
+from sup3r_tpu_torch.preprocessing.grid import GridDataset, PairedDataset
+from sup3r_tpu_torch.utilities import (
+    RANDOM_GENERATOR,
+    nn_fill_array,
+    not_ported,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -179,6 +186,23 @@ class Sampler:
         return self.data.sample(self.get_sample_index())
 
 
+def nsrdb_reduce_daily_data(data, shape, csr_ind=0):
+    """Reduce a 5D batch's time axis to ``shape`` steps around its
+    daylight hours: NaN clearsky_ratio marks night (reference:
+    samplers/utilities.py:258). All-night data comes back unreduced."""
+    night_mask = np.isnan(data[:, :, :, :, csr_ind]).any(axis=(0, 1, 2))
+    if shape >= data.shape[3]:
+        return data
+    if night_mask.all():
+        return data
+    day_ilocs = np.where(~night_mask)[0]
+    padding = shape - len(day_ilocs)
+    half_pad = int(np.ceil(padding / 2))
+    start = max(day_ilocs[0] - half_pad, 0)
+    start = min(start, data.shape[3] - shape)
+    return data[..., start:start + shape, :]
+
+
 class DualSampler:
     """Paired LR / HR sampler with enhancement-consistent crops
     (reference: samplers/dual.py:17)."""
@@ -265,7 +289,86 @@ class DualSampler:
         return lr, hr
 
 
+class DualSamplerCC(DualSampler):
+    """Climate-change sampler over a (daily, hourly) PairedDataset.
+
+    Samples whole days: low-res samples come from the daily member and
+    high-res samples from the hourly member; for solar (clearsky_ratio)
+    with 1 < t_enhance < 24 the hourly sample is reduced to its daylight
+    window (reference: samplers/cc.py:17-204)."""
+
+    def __init__(self, data, sample_shape=None, batch_size=16,
+                 s_enhance=1, t_enhance=24, feature_sets=None):
+        """``data``: a PairedDataset with daily and hourly members;
+        ``sample_shape`` is the HIGH-RES sample shape, its time length a
+        multiple of t_enhance (n_days = t_len // t_enhance)."""
+        if not ('daily' in data.members and 'hourly' in data.members):
+            raise ValueError('DualSamplerCC needs a PairedDataset with daily '
+                             'and hourly members')
+        daily, hourly = data['daily'], data['hourly']
+        lr = daily
+        hr = hourly if t_enhance != 1 else daily
+        if s_enhance > 1:
+            lr = GridDataset(
+                spatial_coarsening(lr.data, s_enhance, obs_axis=False),
+                lr.features,
+                lat_lon=spatial_coarsening(lr.lat_lon, s_enhance,
+                                           obs_axis=False),
+                time_index=lr.time_index)
+        sample_shape = tuple(sample_shape or (10, 10, 24))
+        if sample_shape[2] % t_enhance:
+            raise ValueError(f'sample_shape[2]={sample_shape[2]} must be a '
+                             f'multiple of t_enhance={t_enhance}')
+        self.n_days = sample_shape[2] // t_enhance
+        self.hr_sample_t = (self.n_days * 24 if t_enhance != 1
+                            else self.n_days)
+        self.final_t = sample_shape[2]
+        super().__init__(
+            PairedDataset(low_res=lr, high_res=hr),
+            sample_shape=(sample_shape[0], sample_shape[1],
+                          self.hr_sample_t),
+            batch_size=batch_size, s_enhance=s_enhance,
+            t_enhance=(24 if t_enhance != 1 else 1),
+            feature_sets=feature_sets)
+        # the index math samples whole days (hourly = 24x daily); the
+        # t_enhance others read is the model's factor
+        self._index_t_enhance = self.t_enhance
+        self.t_enhance = t_enhance
+        self.hr_sample_shape = sample_shape
+        self.sample_shape = sample_shape
+
+    def get_sample_index(self):
+        lr_box = uniform_box_sampler(self.lr_data.shape,
+                                     self.lr_sample_shape[:2])
+        lr_t = uniform_time_sampler(self.lr_data.shape,
+                                    self.lr_sample_shape[2])
+        hr_box = [slice(s.start * self.s_enhance, s.stop * self.s_enhance)
+                  for s in lr_box]
+        hr_t = slice(lr_t.start * self._index_t_enhance,
+                     lr_t.stop * self._index_t_enhance)
+        return ((*lr_box, lr_t, self.lr_features),
+                (*hr_box, hr_t, self.hr_features))
+
+    def __next__(self):
+        lr, hr = super().__next__()
+        if 'clearsky_ratio' in self.hr_out_features and self.t_enhance != 1:
+            i_cs = self.hr_features.index('clearsky_ratio')
+            hr = nsrdb_reduce_daily_data(hr[None], self.final_t,
+                                         csr_ind=i_cs)[0]
+            if hr.shape[2] != self.final_t:
+                # all-night samples come back unreduced: centre-crop so
+                # every sample of a batch has the same length
+                start = max((hr.shape[2] - self.final_t) // 2, 0)
+                hr = hr[:, :, start:start + self.final_t]
+            if np.isnan(hr[..., i_cs]).any():
+                hr[..., i_cs] = nn_fill_array(hr[..., i_cs])
+        elif hr.shape[2] != self.final_t:
+            # non-solar: centre crop to the requested time length
+            start = (hr.shape[2] - self.final_t) // 2
+            hr = hr[:, :, start:start + self.final_t]
+        return lr, hr
+
+
 __getattr__ = not_ported(
-    __name__, ('SamplerDC', 'DualSamplerCC'),
-    'ROADMAP queue 1 item 7, the data-centric and climate-change '
-    'samplers')
+    __name__, ('SamplerDC',),
+    'ROADMAP queue 1 item 7, the data-centric sampler')

@@ -267,8 +267,8 @@ def test_nan_input_and_constant_output_raise(tmp_path, saved):
     ({'chunked_io': True}, 'lazy.py'),
     ({'bias_correct_method': 'linear'}, 'bias'),
     ({'use_mesh': True}, 'item 9'),
-    ({'input_handler_name': 'DailyDataHandler'}, 'item 5'),
-    ({'model_class': 'SolarMultiStepGan'}, 'item 7'),
+    ({'input_handler_name': 'DataHandlerNCforCCwithPowerLaw'}, 'item 5'),
+    ({'model_class': 'MultiStepSurfaceMetGan'}, 'item 7'),
     ({'input_handler_name': 'DataHandlerNCforCC'}, 'climate-change'),
 ])
 def test_later_slices_raise(tmp_path, saved, kwargs, match):

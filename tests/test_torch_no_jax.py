@@ -8,8 +8,13 @@ topography source (preprocessing.exo, models.multi_step, models.linear),
 takes one
 train step and trains one BatchHandler epoch (history, checkpoint with
 optimizer state, reload), serves in fast mode, takes a bf16 and a remat
-step, and trains one epoch over a DualBatchHandler of DualRasterizer
-data."""
+step, trains one epoch over a DualBatchHandler of DualRasterizer
+data, runs the Sup3rCC solar chain (SolarMultiStepGan with a SolarCC
+temporal member) through the ForwardPass from a daily NetCDF3 input, and
+trains a SolarCC epoch over a BatchHandlerCC of DataHandlerH5SolarCC data
+from a NetCDF3 file of ghi and clearsky_ghi (preprocessing.samplers,
+batch_handlers, data_handlers; the solar package imports, its H5 I/O
+needing h5py)."""
 
 import os
 import subprocess
@@ -19,7 +24,7 @@ import pytest
 import torch
 
 from sup3r_tpu_torch.configs import generator_st
-from sup3r_tpu_torch.models import Sup3rGan
+from sup3r_tpu_torch.models import SolarCC, Sup3rGan
 
 torch.set_num_threads(1)
 
@@ -184,9 +189,74 @@ model.train(handler, input_resolution={{'spatial': '30km',
                                         'temporal': '60min'}},
             n_epoch=1, out_dir=None)
 assert len(model.history) == 2
+print('DUAL TRAINED', len(model.history))
+
+from sup3r_tpu_torch.configs import generator_cc_temporal
+from sup3r_tpu_torch.models import SolarCC, SolarMultiStepGan
+from sup3r_tpu_torch.preprocessing import BatchHandlerCC, DataHandlerH5SolarCC
+from sup3r_tpu_torch.solar import Solar  # noqa: F401
+
+disc = [{{'class': 'Flatten'}}, {{'class': 'Dense', 'units': 1}}]
+solar = Sup3rGan(generator_cc_spatial(1, 2, filters=8, n_resblocks=1,
+                                      with_topography=False), disc,
+                 meta={{'lr_features': ['clearsky_ratio'],
+                       'hr_out_features': ['clearsky_ratio'],
+                       's_enhance': 2, 't_enhance': 1}},
+                 means={{'clearsky_ratio': 0.5}},
+                 stdevs={{'clearsky_ratio': 0.2}}, device='cpu')
+solar.init_weights((1, 4, 4, 1), (1, 8, 8, 1))
+solar.save(os.path.join(tmp, 'ssm'))
+temporal = SolarCC(generator_cc_temporal(1, 8, 4, filters=8, n_resblocks=1,
+                                         chan_per_step=8), disc,
+                   meta={{'lr_features': ['clearsky_ratio'] + feats,
+                         'hr_out_features': ['clearsky_ratio'],
+                         's_enhance': 1, 't_enhance': 8}},
+                   means={{'clearsky_ratio': 0.5, 'u_100m': 0.5,
+                          'v_100m': 0.5}},
+                   stdevs={{'clearsky_ratio': 0.2, 'u_100m': 0.3,
+                           'v_100m': 0.3}}, device='cpu')
+temporal.init_weights((1, 4, 4, 3, 3), (1, 4, 4, 24, 1))
+temporal.save(os.path.join(tmp, 'tsm'))
+daily = make_fake_nc_file(os.path.join(tmp, 'daily.nc'), (8, 8, 4),
+                          ['clearsky_ratio', 'u_100m', 'v_100m'],
+                          freq='D')
+strategy = ForwardPassStrategy(
+    file_paths=daily, model_class='SolarMultiStepGan',
+    model_kwargs={{'spatial_solar_model_dirs': [os.path.join(tmp, 'ssm')],
+                  'spatial_wind_model_dirs': [os.path.join(
+                      tmp, 'chain', 'model_step_0')],
+                  'temporal_solar_model_dirs': [os.path.join(tmp, 'tsm')],
+                  't_enhance': 24, 'device': 'cpu'}},
+    fwp_chunk_shape=(4, 4, 2), spatial_pad=1, temporal_pad=1,
+    exo_handler_kwargs={{'topography': {{'source_file': topo}}}},
+    out_pattern=os.path.join(tmp, 'solar_out', 'chunk_{{file_id}}.nc'))
+ForwardPass.run(strategy, 0)
+files = sorted(f for f in os.listdir(os.path.join(tmp, 'solar_out'))
+               if f.endswith('.nc'))
+assert len(files) == 8, files
+data = LoaderNC(os.path.join(tmp, 'solar_out', files[0])).data
+assert data['clearsky_ratio'].shape == (8, 8, 48)
+assert np.isfinite(data['clearsky_ratio']).all()
+print('SOLAR CHAIN', len(files))
+
+rng = np.random.default_rng(0)
+cs = 2 + 998 * rng.random((72, 6, 6))
+nsrdb = make_fake_nc_file(os.path.join(tmp, 'nsrdb.nc'), (6, 6, 72),
+                          ['ghi', 'clearsky_ghi'],
+                          data={{'ghi': cs * rng.random(cs.shape),
+                                'clearsky_ghi': cs}})
+handler = DataHandlerH5SolarCC(nsrdb, features=['clearsky_ratio'])
+batcher = BatchHandlerCC([handler], batch_size=1, n_batches=2, s_enhance=1,
+                         t_enhance=8, sample_shape=(4, 4, 24))
+cc = SolarCC(generator_cc_temporal(1, 8, 4, filters=8, n_resblocks=1,
+                                   chan_per_step=8), disc, device='cpu')
+cc.train(batcher, input_resolution={{'spatial': '4km',
+                                     'temporal': '1440min'}},
+         n_epoch=1, out_dir=None)
+assert np.isfinite(cc.history['train_loss_gen']).all()
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not loaded, loaded
-print('DUAL TRAINED', len(model.history))
+print('SOLARCC TRAINED', len(cc.history))
 '''
 
 
@@ -206,6 +276,8 @@ def test_port_serves_with_jax_and_friends_blocked():
     assert 'FAST (1, 12, 12, 12, 2)' in proc.stdout
     assert 'BF16 AND REMAT' in proc.stdout
     assert 'DUAL TRAINED 2' in proc.stdout
+    assert 'SOLAR CHAIN 8' in proc.stdout
+    assert 'SOLARCC TRAINED 1' in proc.stdout
 
 
 def test_no_card_without_explicit_cpu_raises(monkeypatch):
@@ -217,3 +289,5 @@ def test_no_card_without_explicit_cpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Sup3rGan(gen, disc, device='cuda:0')
     assert Sup3rGan(gen, disc, device='cpu').device.type == 'cpu'
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SolarCC(gen, disc)

@@ -214,7 +214,7 @@ def test_not_ported_options_raise():
             {'class': 'Dropout', 'rate': 0.1}]}, device='cpu')
     for module, name, item in (
             ('preprocessing.batch_handlers', 'BatchHandlerDC', 'item 7'),
-            ('preprocessing.batch_handlers', 'BatchHandlerCC', 'item 7'),
+            ('preprocessing.batch_handlers', 'BatchHandlerMom1', 'item 7'),
             ('preprocessing.batch_queues', 'QueueMom1', 'item 7'),
             ('preprocessing.samplers', 'SamplerDC', 'item 7'),
             ('models', 'Sup3rGanDC', 'item 7')):

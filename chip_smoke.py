@@ -17,7 +17,8 @@ exits non-zero:
    accumulation order; ``reflect_conv`` runs 3xTF32 on the tensor cores,
    whose split drops ~2^-22 relative per product). ``small_reflect_conv``
    also at the shipped 8 -> 1 and 8 -> 3 tails and at the edges of its
-   tiling (``SMALL_CHECKS``); ``reflect_conv``'s 2D path at the eight
+   tiling and at the WithObs tail's ci 12 (``SMALL_CHECKS``);
+   ``reflect_conv``'s 2D path at the eight
    block shapes of the Sup3rCC chain's step 0 (``CHAIN_2D_SHAPES``: ci 7
    / 64 / 65, co 64 / 1600 / 6, 14 x 14 and 70 x 70, batch = time 6)
    and at ragged 2D shapes (``RAGGED_2D_CHECKS``);
@@ -161,6 +162,32 @@ exits non-zero:
    version (1e-5 of max) and timed for the ``kernels`` line
    (``solar_chain_shapes``).
 
+12. the Sup3rCC trh chain, observations and data-centric training
+   (printed before the ``kernels`` line): a ``MultiStepSurfaceMetGan`` of
+   the physics ``SurfaceSpatialMetModel`` (5x; temperature and relative
+   humidity) and ``sup3rcc/gen_trh_1x_24x_2f`` (64 filters, 16 residual
+   blocks, 32 x 24 channels before ``depth_to_time``) at full width from
+   seed 0, through ``ForwardPassStrategy(model_class=
+   'MultiStepSurfaceMetGan')`` over phase 10's domain with a smooth
+   NetCDF3 topography: the surface step on the whole domain against its
+   float64 version on the CPU (1e-5 of each field's max) and its device
+   ms a padded chunk, 3 timed passes and one profiled pass per route,
+   launches equal to the temporal member's hooked block calls by shape
+   (``TRH_3D_SHAPES``; none on the default route, 36 a chunk opt-in), the
+   routes and a chunk against the port's CPU chain within 1e-4 of each
+   feature's max. Then ``Sup3rGanWithObs`` on the flagship with
+   ``Sup3rConcatObs`` for u and v before its tail (12 -> 2 on
+   ``small_reflect_conv``): the kernel's gradients at ci 12, a batch 2
+   card step against the CPU's (three gates, float64 conditioning), the
+   training cell timed and profiled, ``generate`` with observation
+   rasters and a ForwardPass whose ``ObsRasterizer`` reads a NetCDF3
+   station grid; and ``Sup3rGanDC.train`` over a ``BatchHandlerDC`` (4 x
+   2 bins, 2 epochs of 4 batches of 16): s per batch, starvation, the bin
+   weights a probability vector off uniform. After the phase, the trh
+   chain's new ``reflect_conv`` shapes (``TRH_NEW_SHAPES``) and the ci 12
+   tail are held to their plain versions and timed for the ``kernels``
+   line (``trh_chain_shapes``, ``obs_shape``).
+
 Before the ``kernels`` line, ``phase_seconds`` gives the seconds each
 phase took. The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -179,7 +206,14 @@ import torch
 import torch.nn.functional as F
 
 from sup3r_tpu_torch.configs import generator_cc_spatial, get_config
-from sup3r_tpu_torch.models import MultiStepGan, SolarCC, Sup3rGan
+from sup3r_tpu_torch.models import (
+    MultiStepGan,
+    SolarCC,
+    Sup3rGan,
+    Sup3rGanDC,
+    Sup3rGanWithObs,
+    SurfaceSpatialMetModel,
+)
 from sup3r_tpu_torch.models.fuse import FusedReflectConv
 from sup3r_tpu_torch.ops import build
 from sup3r_tpu_torch.ops.output_pack import (
@@ -198,6 +232,7 @@ from sup3r_tpu_torch.ops.conv_ad import _fold_reflect_halos, reflect_conv_ad
 from sup3r_tpu_torch.preprocessing import (
     BatchHandler,
     BatchHandlerCC,
+    BatchHandlerDC,
     DataHandler,
     DataHandlerH5SolarCC,
     DualBatchHandler,
@@ -270,6 +305,7 @@ SMALL_CHECKS = (
     ((2, 32, 13, 11, 40), 1, 0.2),   # ci = 32, co = 1
     ((2, 8, 13, 17, 64), 2, None),   # (H, W) the tile does not divide
     ((2, 4, 7, 5, 9), 5, 0.2),       # ragged everywhere, ci * co = 20
+    ((16, 12, 36, 36, 48), 2, None),  # the WithObs training tail, ci 12
 )
 
 
@@ -942,7 +978,8 @@ def train_check():
 
 
 def train_step_phase(name, model, phase='train_step',
-                     want=(('small_reflect_conv', 1), ('reflect_conv', 0))):
+                     want=(('small_reflect_conv', 1), ('reflect_conv', 0)),
+                     label='spatiotemporal/gen_3x_4x_2f'):
     """Phase 7c: bench.py's cell, timed (in the model's ``train_dtype``
     and ``train_remat``); ``want`` the launches per step. Returns the
     batch, the median step ms, the launches per step and the peak
@@ -970,7 +1007,7 @@ def train_step_phase(name, model, phase='train_step',
     median = float(np.median(times))
     peak = torch.cuda.max_memory_allocated()
     memory = {'peak_gb': peak / 1e9, 'step_peak_gb': (peak - before) / 1e9}
-    emit(phase=phase, model='spatiotemporal/gen_3x_4x_2f',
+    emit(phase=phase, model=label,
          train_dtype=model.train_dtype, train_remat=model.train_remat,
          disc='spatiotemporal/disc_test', batch=TRAIN_BATCH,
          lr_shape=list(TRAIN_LR), hr_shape=list(TRAIN_HR),
@@ -2400,6 +2437,436 @@ def solar_phase(name):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: phase 12, the Sup3rCC trh chain: phase 10's domain, chunks and pads with
+#: temperature and relative humidity (their stats and the LR data as the
+#: wind chain's, so the random chain's output stays inside both features'
+#: limits), a smooth topography (a mountain range's relief: the lapse
+#: rate and the RH regression then move the fields by O(1) of their
+#: stats)
+TRH_FEATURES = ['temperature_2m', 'relativehumidity_2m']
+TRH_MEANS = {f: CHAIN_MEANS[f] for f in TRH_FEATURES}
+TRH_STDEVS = {f: CHAIN_STDEVS[f] for f in TRH_FEATURES}
+#: the temporal member's 3D blocks in one chunk on the opt-in route (input
+#: shape, co, alpha, launches per chunk): 2 input channels at t = 6, the
+#: body, the 64 -> 768 block before ``depth_to_time`` and the narrow 32 ->
+#: 2 tail at t = 144 (ci * co = 64, so not the small kernel's)
+TRH_3D_SHAPES = (((1, 2, 70, 70, 6), 64, 0.2, 1),
+                 ((1, 64, 70, 70, 6), 64, 0.2, 17),
+                 ((1, 64, 70, 70, 6), 64, None, 16),
+                 ((1, 64, 70, 70, 6), 768, 0.2, 1),
+                 ((1, 32, 70, 70, 144), 2, None, 1))
+#: the shapes no earlier phase gives ``reflect_conv``, held to the plain
+#: version and timed for the kernels line
+TRH_NEW_SHAPES = (TRH_3D_SHAPES[0], TRH_3D_SHAPES[4])
+#: the WithObs cell: two ``Sup3rConcatObs`` before the flagship's tail make
+#: it 12 -> 2 (``small_reflect_conv`` at a new input width)
+OBS_FEATURES = ['u_100m', 'v_100m']
+OBS_FRAC = {'spatial_frac': [0.2, 0.4]}
+OBS_TAIL_SHAPE = (TRAIN_BATCH, 12) + TRAIN_HR[:3]
+#: the DC cell: fake hourly u/v train and val sets, 4 x 2 bins, 2 epochs
+DC_DATA = (72, 72, 240)
+DC_BINS = (4, 2)
+
+
+def trh_inputs(tmp, domain=CHAIN_DOMAIN, seed=0):
+    """A daily NetCDF3 input of ``domain`` low-res cells of temperature and
+    relative humidity, and a smooth NetCDF3 topography over the same
+    extent on a grid finer than the HR grid."""
+    rng = np.random.default_rng(seed)
+    s1, s2, t = domain
+    data = {f: rng.standard_normal((t, s1, s2)) * TRH_STDEVS[f]
+            + TRH_MEANS[f] for f in TRH_FEATURES}
+    input_file = make_fake_nc_file(
+        os.path.join(tmp, f'trh_daily_{s1}x{s2}x{t}.nc'), domain,
+        TRH_FEATURES, freq='D', lat_range=CHAIN_LAT, lon_range=CHAIN_LON,
+        data=data)
+    yy, xx = np.meshgrid(*(np.linspace(0, 1, n) for n in CHAIN_TOPO_GRID),
+                         indexing='ij')
+    relief = 800 + 300 * np.sin(2 * np.pi * (xx + 2 * yy)) * np.cos(
+        np.pi * xx)
+    topo = make_fake_topo_nc_file(
+        os.path.join(tmp, 'trh_topography.nc'), CHAIN_TOPO_GRID,
+        lat_range=(CHAIN_LAT[0] + 0.05, CHAIN_LAT[1] - 0.05),
+        lon_range=(CHAIN_LON[0] - 0.05, CHAIN_LON[1] + 0.05), data=relief)
+    return input_file, topo
+
+
+def trh_members(tmp):
+    """Saves the trh chain at full width from seed 0: the physics
+    ``SurfaceSpatialMetModel`` (5x) and ``sup3rcc/gen_trh_1x_24x_2f`` (64
+    filters, 16 residual blocks, 32 x 24 channels before
+    ``depth_to_time``, ``t_roll`` 12); returns the strategy's
+    ``model_kwargs`` without the device."""
+    surface_dir = os.path.join(tmp, 'trh_surface')
+    temporal_dir = os.path.join(tmp, 'trh_temporal')
+    SurfaceSpatialMetModel(TRH_FEATURES, s_enhance=5,
+                           device='cuda').save(surface_dir)
+    temporal = Sup3rGan(
+        get_config('sup3rcc/gen_trh_1x_24x_2f'),
+        [{'class': 'Flatten'}, {'class': 'Dense', 'units': 1}],
+        meta={'lr_features': list(TRH_FEATURES),
+              'hr_out_features': list(TRH_FEATURES), 's_enhance': 1,
+              't_enhance': 24,
+              'input_resolution': {'spatial': '4km', 'temporal': '1440min'}},
+        means=TRH_MEANS, stdevs=TRH_STDEVS, device='cuda')
+    temporal.init_weights((1, 4, 4, 2, 2), (1, 4, 4, 48, 2), seed=0)
+    temporal.save(temporal_dir)
+    return {'surface_model_kwargs': {'model_dir': surface_dir},
+            'temporal_model_kwargs': {'model_dirs': [temporal_dir]}}
+
+
+def trh_strategy(input_file, model_kwargs, topo, out_pattern, device='cuda',
+                 **kwargs):
+    """The trh chain's strategy; its topography cache beside the source."""
+    kw = dict(file_paths=input_file, model_class='MultiStepSurfaceMetGan',
+              model_kwargs={**model_kwargs, 'device': device},
+              fwp_chunk_shape=CHAIN_CHUNK, spatial_pad=CHAIN_S_PAD,
+              temporal_pad=CHAIN_T_PAD,
+              exo_handler_kwargs={'topography': {
+                  'source_file': topo, 'cache_dir': os.path.join(
+                      os.path.dirname(topo), 'exo_cache')}},
+              out_pattern=out_pattern)
+    kw.update(kwargs)
+    return ForwardPassStrategy(**kw)
+
+
+def surface_check(strategy, input_file):
+    """The card's surface step on the whole low-res domain against its
+    float64 version on the CPU (1e-5 of each field's largest magnitude),
+    and its device ms on one padded chunk (CUDA events)."""
+    surface = strategy.get_model().models[0]
+    data = LoaderNC(input_file).data
+    lr = np.stack([data[f] for f in TRH_FEATURES], -1).transpose(2, 0, 1, 3)
+    exo = strategy.exo_data.get_model_step_exo(0)
+    got = surface.generate(lr, exogenous_data=exo)
+    ref = SurfaceSpatialMetModel.load(
+        strategy.model_kwargs['surface_model_kwargs']['model_dir'],
+        device='cpu')
+    ref.dtype = torch.float64
+    want = ref.generate(lr, exogenous_data=exo, fetch=False).numpy()
+    errs = np.abs(got - want).reshape(-1, 2).max(axis=0)
+    tols = KERNEL_RTOL * np.abs(want).reshape(-1, 2).max(axis=0)
+    ok = bool(np.isfinite(got).all() and (errs <= tols).all())
+    pad = [c + 2 * p for c, p in zip(CHAIN_CHUNK, (CHAIN_S_PAD, CHAIN_S_PAD,
+                                                   CHAIN_T_PAD))]
+    chunk = torch.as_tensor(lr[:pad[2], :pad[0], :pad[1]], device='cuda')
+    steps = [dict(s) for s in exo['topography']['steps']]
+    steps[0]['data'] = steps[0]['data'][:pad[0], :pad[1]]
+    steps[1]['data'] = steps[1]['data'][:pad[0] * 5, :pad[1] * 5]
+    chunk_exo = {'topography': {'steps': steps}}
+    chunk_ms = cuda_ms(lambda: surface.generate(
+        chunk, exogenous_data=chunk_exo, fetch=False), 20)
+    emit(phase='trh_surface_check', lr_shape=list(lr.shape),
+         hr_shape=list(got.shape), features=TRH_FEATURES,
+         max_abs_err_vs_float64=errs.tolist(), tol=tols.tolist(),
+         padded_chunk=list(chunk.shape), chunk_device_ms=chunk_ms, ok=ok)
+    if not ok:
+        raise AssertionError(f'surface step vs float64: {errs} > {tols}')
+
+
+def trh_phase(name):
+    """Phase 12a: the Sup3rCC trh chain through the chunked ForwardPass on
+    both routes; returns the wrappers' launch counts of each route's last
+    pass and the temporal member's block calls of the last opt-in pass by
+    (input shape, co, alpha)."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_trh_')
+    try:
+        input_file, topo = trh_inputs(tmp)
+        model_kwargs = trh_members(tmp)
+
+        def make(out, **kw):
+            return trh_strategy(input_file, model_kwargs, topo, out, **kw)
+
+        strategy = make(None)
+        chain = strategy.get_model()
+        temporal = chain.models[1:]
+        n_chunks = strategy.fwp_slicer.n_chunks
+        blocks = [lyr.n_spatial for m in temporal
+                  for lyr in m._get_fused_apply().layers
+                  if isinstance(lyr, FusedReflectConv) and not (
+                      lyr.n_spatial == 3
+                      and lyr.weight.shape[:2].numel() <= 32)]
+        per_chunk = {'2d': blocks.count(2), '3d': blocks.count(3)}
+        want = {'default': dict.fromkeys(
+                    ('small_reflect_conv', 'reflect_conv', 'reflect_conv_2d',
+                     'reflect_conv_3d'), 0),
+                'opt_in': {'small_reflect_conv': 0,
+                           'reflect_conv': n_chunks * len(blocks),
+                           'reflect_conv_2d': n_chunks * per_chunk['2d'],
+                           'reflect_conv_3d': n_chunks * per_chunk['3d']}}
+        want_calls = Counter({(x, co, a): k * n_chunks
+                              for x, co, a, k in TRH_3D_SHAPES})
+        steps = strategy.exo_data['topography']['steps']
+        emit(phase='trh_chain_setup', chunks=n_chunks,
+             members=[type(m).__name__ for m in chain.models],
+             s_enhance=chain.s_enhance, t_enhance=chain.t_enhance,
+             exo_steps=[{k: v for k, v in s.items() if k != 'data'}
+                        | {'shape': list(s['data'].shape)} for s in steps],
+             blocks_per_chunk=per_chunk)
+        surface_check(strategy, input_file)
+        ChainForwardPass.run(make(os.path.join(tmp, 'warm',
+                                               'chunk_{file_id}.nc')), 0)
+        shutil.rmtree(os.path.join(tmp, 'warm'))
+        walls, outs, launches, calls = {}, {}, {}, []
+        for route, pallas in (('default', False), ('opt_in', True)):
+            for m in temporal:
+                m.inference_pallas = pallas
+            walls[route] = []
+            for i in range(N_CHAIN_PASSES):
+                hooked, remove = (chain_fused_calls(temporal)
+                                  if pallas and i == N_CHAIN_PASSES - 1
+                                  else ([], lambda: None))
+                try:
+                    wall, outs[route], launches[route] = chain_pass(
+                        make, os.path.join(tmp, f'{route}_{i}'), route, i,
+                        want[route], features=TRH_FEATURES,
+                        phase='trh_chain_pass')
+                finally:
+                    remove()
+                calls = hooked or calls
+                walls[route].append(wall)
+            emit(phase='trh_chain_route', route=route, wall_s=walls[route],
+                 median_s=float(np.median(walls[route])),
+                 hr_voxels_per_s=int(np.prod(CHAIN_DOMAIN)) * 25 * 24
+                 / float(np.median(walls[route])), nvidia_smi=name)
+            fwp_profiled_pass(make, os.path.join(tmp, f'{route}_profiled'),
+                              route, phase='trh_chain_profile')
+        for m in temporal:
+            m.inference_pallas = False
+        got_calls = Counter((x, co, a) for _, x, co, a in calls)
+        ok = (got_calls == want_calls and all(c[0] == 3 for c in calls)
+              and len(calls) == launches['opt_in']['reflect_conv_3d'])
+        emit(phase='trh_chain_blocks', per_chunk=per_chunk,
+             calls_by_shape=[[list(x), co, a, n]
+                             for (x, co, a), n in got_calls.items()],
+             launches=launches['opt_in'], ok=ok)
+        if not ok:
+            raise AssertionError(
+                f'trh chain blocks: calls {dict(got_calls)} (expected '
+                f'{dict(want_calls)}), launches {launches["opt_in"]}')
+        errs, tols, ok = feature_errs(outs['opt_in'], outs['default'])
+        emit(phase='trh_chain_routes_agree', features=TRH_FEATURES,
+             max_abs_err=errs, tol=tols, ok=ok)
+        if not ok:
+            raise AssertionError(f'trh chain: routes differ by {errs} > '
+                                 f'{tols}')
+        os.makedirs(os.path.join(tmp, 'small'))
+        chain_cpu_check(
+            lambda small, topo, out, **kw: trh_strategy(
+                small, model_kwargs, topo, out, **kw),
+            *trh_inputs(os.path.join(tmp, 'small'), (4, 4, 2), seed=1),
+            lambda chain: chain.models[1:], features=TRH_FEATURES,
+            phase='trh_chain_cpu_check')
+        return launches, got_calls
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def with_obs_gen():
+    """The flagship with ``Sup3rConcatObs`` for u and v after its last
+    LeakyReLU, before its tail conv (tests/training/test_model_family.py's
+    placement): the tail takes 8 + 2 x 2 = 12 channels."""
+    layers = list(get_config('spatiotemporal/gen_3x_4x_2f')['hidden_layers'])
+    last = max(i for i, lyr in enumerate(layers)
+               if lyr.get('class') == 'LeakyReLU')
+    obs = [{'class': 'Sup3rConcatObs', 'name': f'{f}_obs'}
+           for f in OBS_FEATURES]
+    return {'hidden_layers': layers[:last + 1] + obs + layers[last + 1:]}
+
+
+def obs_model(device, optimizer=None):
+    """The WithObs cell's model from seed 0: the flagship with the
+    observation layers, ``spatiotemporal/disc_test``, Adam lr 1e-4, the
+    observed fraction drawn in [0.2, 0.4], obs loss weight 0.5."""
+    model = Sup3rGanWithObs(
+        with_obs_gen(), get_config('spatiotemporal/disc_test'),
+        optimizer=optimizer, learning_rate=TRAIN_LR_RATE,
+        onshore_obs_frac=OBS_FRAC, loss_obs_weight=0.5,
+        meta={'lr_features': OBS_FEATURES, 'hr_out_features': OBS_FEATURES},
+        device=device)
+    model.init_weights((1,) + TRAIN_LR, (1,) + TRAIN_HR, seed=0)
+    return model
+
+
+def obs_step_grads(model, lr, hr):
+    """Both losses' gradients of a WithObs model's first step (the mask of
+    step 1), computed as ``Sup3rGan._train_step`` computes them, in the
+    model's dtype."""
+    dtype = model.gen_params[0].dtype
+    lr = torch.as_tensor(lr, dtype=dtype, device=model.device)
+    hr = torch.as_tensor(hr, dtype=dtype, device=model.device)
+    exo, not_obs = model._obs_exo(hr, torch.Generator().manual_seed(1))
+    with exact_fp32():
+        out = model._train_gen_net().apply(lr, exo)
+        d_true, d_gen = model._disc.apply(hr), model._disc.apply(out)
+        extra, _ = model._extra_gen_loss(out, hr, not_obs)
+        gen_loss = (model.loss_fun(out, hr) + extra
+                    + W_ADV * relativistic_disc_loss(d_gen, d_true))
+        disc_loss = relativistic_disc_loss(d_true, d_gen)
+        return (torch.autograd.grad(gen_loss, model.gen_params,
+                                    retain_graph=True),
+                torch.autograd.grad(disc_loss, model.disc_params))
+
+
+def obs_fwp_check(model, tmp):
+    """A short ForwardPass of the WithObs model whose ``ObsRasterizer``
+    reads a NetCDF3 gridded observation file that is NaN away from a few
+    stations: rasters sparse, outputs finite and tiled, the tail on
+    ``small_reflect_conv`` once per dispatch."""
+    model_dir = os.path.join(tmp, 'obs_gan')
+    model.set_norm_stats({f: 0.5 for f in OBS_FEATURES},
+                         {f: 0.3 for f in OBS_FEATURES})
+    model.save(model_dir)
+    domain = (20, 20, 12)
+    rng = np.random.default_rng(7)
+    input_file = make_fake_nc_file(os.path.join(tmp, 'obs_in.nc'), domain,
+                                   OBS_FEATURES, freq='4h',
+                                   lat_range=CHAIN_LAT, lon_range=CHAIN_LON)
+    hr = (60, 60, 48)
+    stations = rng.random(hr[:2]) < 0.02
+    obs = {f: np.where(stations[None], 0.5 + 0.3 * rng.standard_normal(
+        (hr[2],) + hr[:2]), np.nan) for f in OBS_FEATURES}
+    obs_file = make_fake_nc_file(os.path.join(tmp, 'stations.nc'), hr,
+                                 OBS_FEATURES, lat_range=CHAIN_LAT,
+                                 lon_range=CHAIN_LON, data=obs)
+    zero_counts()
+    strategy = ForwardPassStrategy(
+        file_paths=input_file, model_class='Sup3rGanWithObs',
+        model_kwargs={'model_dir': model_dir, 'device': 'cuda'},
+        fwp_chunk_shape=(10, 10, 12), spatial_pad=2, temporal_pad=0,
+        device_batch_size=4,
+        exo_handler_kwargs={f'{f}_obs': {
+            'source_file': obs_file,
+            'cache_dir': os.path.join(tmp, 'obs_cache')}
+            for f in OBS_FEATURES},
+        out_pattern=None)
+    outs = ChainForwardPass.run(strategy, 0)
+    fwp = ChainForwardPass.last
+    raster = strategy.exo_data['u_100m_obs']['steps'][0]['data']
+    launches = launch_counts()
+    observed = float(np.isfinite(raster).mean())
+    ok = (len(outs) == 4 and all(np.isfinite(o).all() and o.shape == (
+        30, 30, 48, 2) for o in outs.values()) and 0 < observed < 0.5
+        and launches == {'small_reflect_conv': fwp.dispatches + fwp.chunk_runs,
+                         'reflect_conv': 0})
+    emit(phase='obs_forward_pass', chunks=len(outs),
+         raster_shape=list(raster.shape), observed_share=observed,
+         batched_dispatches=fwp.dispatches, chunk_runs=fwp.chunk_runs,
+         launches=launches, ok=ok)
+    if not ok:
+        raise AssertionError(f'obs forward pass: {len(outs)} chunks, '
+                             f'observed {observed}, launches {launches}')
+
+
+def obs_phase(name, gen):
+    """Phase 12b: ``Sup3rGanWithObs`` on the flagship (12 -> 2 tail):
+    ``small_reflect_conv``'s gradients at ci 12, the card step against the
+    CPU's, the timed and profiled cell, ``generate`` with observation
+    rasters and a short ForwardPass with an ObsRasterizer. Returns the
+    launches per step and the gradient check's largest error."""
+    x, w, b = conv_inputs(gen, OBS_TAIL_SHAPE, 2)
+    dy = torch.randn((TRAIN_BATCH, 2) + OBS_TAIL_SHAPE[2:], device='cuda',
+                     generator=gen)
+    grad_err = grad_check('small_reflect_conv', small_reflect_conv_cf, x, w,
+                          b, None, dy)
+    lr, hr = train_batch(CHECK_BATCH, seed=2)
+    check_err = step_check('obs_train_check',
+                           lambda d: obs_model(d, CHECK_OPT), lr, hr,
+                           obs_step_grads, batch=CHECK_BATCH)
+    model = obs_model('cuda')
+    lr, hr, step_ms, per_step, memory = train_step_phase(
+        name, model, phase='obs_train_step',
+        label='spatiotemporal/gen_3x_4x_2f with Sup3rConcatObs (u, v)')
+    losses = model.run_gradient_descent(lr, hr, W_ADV, True, True)
+    emit(phase='obs_train_profile', obs_frac=losses['obs_frac'],
+         loss_obs=losses['loss_obs'], loss_non_obs=losses['loss_non_obs'],
+         **train_profile(model, lr, hr))
+    ok = OBS_FRAC['spatial_frac'][0] - 0.05 <= losses['obs_frac'] <= (
+        OBS_FRAC['spatial_frac'][1] + 0.05)
+    rng = np.random.default_rng(3)
+    low = rng.standard_normal((1,) + TRAIN_LR).astype(np.float32)
+    rasters = {}
+    for f in OBS_FEATURES:
+        raster = rng.standard_normal((1,) + TRAIN_HR[:3] + (1,))
+        raster[:, rng.random(TRAIN_HR[:2]) > 0.3] = np.nan
+        rasters[f'{f}_obs'] = raster.astype(np.float32)
+    zero_counts()
+    out = model.generate(low, exogenous_data=rasters)
+    launches = launch_counts()
+    ok = (ok and out.shape == (1,) + TRAIN_HR and bool(np.isfinite(
+        out).all()) and launches == {'small_reflect_conv': 1,
+                                     'reflect_conv': 0})
+    emit(phase='obs_generate', hr_shape=list(out.shape), launches=launches,
+         obs_frac=losses['obs_frac'], ok=ok)
+    if not ok:
+        raise AssertionError(f'WithObs: obs_frac {losses["obs_frac"]}, '
+                             f'generate {out.shape}, launches {launches}')
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_obs_')
+    try:
+        obs_fwp_check(model, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {'step_ms': step_ms, 'per_step': per_step, 'memory': memory,
+            'grad_max_abs_err': grad_err, 'train_check_rel_err': check_err}
+
+
+def dc_phase(name):
+    """Phase 12c: ``Sup3rGanDC.train`` over a ``BatchHandlerDC`` of fake
+    (72, 72, 240) u/v train and validation sets: the flagship with
+    ``spatiotemporal/disc_test``, batch 16, 4 x 2 bins, 2 epochs of 4
+    batches. Returns the launches per train step (validation apart)."""
+    n_s, n_t = DC_BINS
+    handler = BatchHandlerDC(
+        [make_fake_dset(DC_DATA, OBS_FEATURES)],
+        [make_fake_dset(DC_DATA, OBS_FEATURES)], batch_size=TRAIN_BATCH,
+        n_batches=4, s_enhance=3, t_enhance=4, sample_shape=TRAIN_HR[:3],
+        n_space_bins=n_s, n_time_bins=n_t)
+    model = Sup3rGanDC(get_config('spatiotemporal/gen_3x_4x_2f'),
+                       get_config('spatiotemporal/disc_test'),
+                       learning_rate=TRAIN_LR_RATE, device='cuda')
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.train(handler, input_resolution={'spatial': '3km',
+                                           'temporal': '60min'},
+                n_epoch=2, weight_gen_advers=W_ADV, out_dir=None)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    # one more validation pass alone: its seconds come off each epoch's
+    t0 = time.perf_counter()
+    model.calc_val_loss(handler, W_ADV)
+    val_s = time.perf_counter() - t0
+    handler.stop()
+    s_w = np.asarray(handler.spatial_weights)
+    t_w = np.asarray(handler.temporal_weights)
+    history = model.history
+    # a tail launch per train batch and per validation batch (one per bin)
+    n_val = n_s * n_t
+    ok = (len(history) == 2 and np.isfinite(history['val_loss_gen']).all()
+          and launches == {'small_reflect_conv': 2 * (4 + n_val),
+                           'reflect_conv': 0}
+          and abs(s_w.sum() - 1) < 1e-5 and abs(t_w.sum() - 1) < 1e-5
+          and (s_w >= 0).all() and (t_w >= 0).all()
+          and not np.allclose(s_w, 1 / n_s) and not np.allclose(t_w, 1 / n_t))
+    epoch_s = np.diff([0.0] + list(history['elapsed_time']))
+    emit(phase='dc_train_loop', epochs=2, batches_per_epoch=4,
+         val_batches_per_epoch=n_val, batch=TRAIN_BATCH, bins=list(DC_BINS),
+         wall_s=wall_s, epoch_s=list(epoch_s), validation_s_per_epoch=val_s,
+         s_per_batch=float(np.mean(epoch_s - val_s)) / 4,
+         starvation_rate=handler._queue.starvation_rate,
+         val_starvation_rate=handler.val_data.starvation_rate,
+         spatial_weights=s_w.tolist(), temporal_weights=t_w.tolist(),
+         history={c: list(history[c]) for c in history.columns},
+         launches=launches, nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'DC loop: weights {s_w} / {t_w}, launches '
+                             f'{launches}, history {len(history)}')
+    # the validation batches' launches come off: per train step
+    return {k: (v - 2 * n_val * (k == 'small_reflect_conv')) / 8
+            for k, v in launches.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device: '
@@ -2628,6 +3095,31 @@ def main():
             max_abs_err=err, launches_per_opt_in_solar_chain_pass=solar_calls[
                 (len(x_shape) - 2, x_shape, co, alpha)]))
     mark('11_kernel_checks_and_timings')
+    # 12. the Sup3rCC trh chain, WithObs and DC training
+    per_trh, trh_calls = trh_phase(smi)
+    mark('12a_trh_chain')
+    obs = obs_phase(smi, gen)
+    mark('12b_with_obs')
+    per_dc_step = dc_phase(smi)
+    mark('12c_dc')
+    trh_times = []
+    for x_shape, co, alpha, _ in TRH_NEW_SHAPES:
+        inputs = conv_inputs(gen, x_shape, co)
+        err = check_kernel('reflect_conv', reflect_conv_cf, *inputs, alpha)
+        trh_times.append(dict(
+            timing('reflect_conv', reflect_conv_cf, *inputs, alpha),
+            max_abs_err=err,
+            launches_per_opt_in_trh_chain_pass=trh_calls[(x_shape, co,
+                                                          alpha)]))
+    obs_inputs = conv_inputs(gen, OBS_TAIL_SHAPE, 2)
+    obs_tail = dict(
+        timing('small_reflect_conv', small_reflect_conv_cf, *obs_inputs,
+               None),
+        max_abs_err=check_kernel('small_reflect_conv', small_reflect_conv_cf,
+                                 *obs_inputs, None),
+        grad_max_abs_err=obs['grad_max_abs_err'],
+        launches_per_obs_train_step=obs['per_step']['small_reflect_conv'])
+    mark('12_kernel_checks_and_timings')
     emit(phase='phase_seconds', seconds=seconds,
          total_s=sum(seconds.values()))
 
@@ -2659,6 +3151,14 @@ def main():
                       launches_per_train_step=train[
                           'launches_per_train_step'],
                       **per_mode('small_reflect_conv'),
+                      launches_per_trh_chain_pass=per_chain_pass(
+                          per_trh, 'small_reflect_conv'),
+                      launches_per_obs_train_step=obs['per_step'][
+                          'small_reflect_conv'],
+                      launches_per_dc_train_step=per_dc_step[
+                          'small_reflect_conv'],
+                      obs_shape=obs_tail,
+                      obs_train_check_rel_err=obs['train_check_rel_err'],
                       train_shape=dict(
                           train_tail,
                           backward_library_ms=train[
@@ -2676,6 +3176,13 @@ def main():
                       launches_per_solar_cc_train_step=per_solar_step[
                           'reflect_conv'],
                       solar_cc_train_check_rel_err=solar_check_err,
+                      launches_per_trh_chain_pass=per_chain_pass(
+                          per_trh, 'reflect_conv'),
+                      trh_chain_shapes=trh_times,
+                      launches_per_obs_train_step=obs['per_step'][
+                          'reflect_conv'],
+                      launches_per_dc_train_step=per_dc_step[
+                          'reflect_conv'],
                       launches_per_train_step=0,
                       **per_mode('reflect_conv'))]
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -1,23 +1,29 @@
 """Models of the port: Sup3rGan (serving and training) and its network,
-the LinearInterp baseline, MultiStepGan chains, and the Sup3rCC solar
-models (SolarCC, SolarMultiStepGan)."""
+the LinearInterp baseline, MultiStepGan chains, the Sup3rCC solar models
+(SolarCC, SolarMultiStepGan), the physics SurfaceSpatialMetModel and its
+MultiStepSurfaceMetGan chain, the observation-fused Sup3rGanWithObs and
+the data-centric Sup3rGanDC."""
 
+from sup3r_tpu_torch.models.dc import Sup3rGanDC  # noqa: F401
 from sup3r_tpu_torch.models.gan import Sup3rGan  # noqa: F401
 from sup3r_tpu_torch.models.linear import LinearInterp  # noqa: F401
 from sup3r_tpu_torch.models.multi_step import (  # noqa: F401
     MultiStepGan,
+    MultiStepSurfaceMetGan,
     SolarMultiStepGan,
 )
 from sup3r_tpu_torch.models.network import Network  # noqa: F401
 from sup3r_tpu_torch.models.solar_cc import SolarCC  # noqa: F401
+from sup3r_tpu_torch.models.surface import SurfaceSpatialMetModel  # noqa
 from sup3r_tpu_torch.models.weights import (  # noqa: F401
     chain_params_from_jax,
     load_jax_checkpoint,
     params_from_jax,
 )
+from sup3r_tpu_torch.models.with_obs import Sup3rGanWithObs  # noqa: F401
 from sup3r_tpu_torch.utilities import not_ported
 
 __getattr__ = not_ported(
-    __name__, ('Sup3rCondMom', 'Sup3rGanDC', 'MultiStepSurfaceMetGan',
-               'SurfaceSpatialMetModel', 'Sup3rGanWithObs'),
-    'ROADMAP queue 1 item 7, the model family and its train steps')
+    __name__, ('Sup3rCondMom',),
+    'ROADMAP queue 1 item 7, the conditional-moment model and its train '
+    'step (the next slice)')

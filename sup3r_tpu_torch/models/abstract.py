@@ -146,8 +146,10 @@ class AbstractInterface:
 
     @property
     def obs_features(self):
-        """Observation-fusion feature names. The observation layers come
-        with the model-family slice, so a port network has none."""
+        """Observation-fusion feature names (from the generator's
+        observation layers)."""
+        if hasattr(self, '_gen'):
+            return self._gen.obs_features
         return []
 
     @property

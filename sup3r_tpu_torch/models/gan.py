@@ -64,6 +64,7 @@ from sup3r_tpu_torch.models.weights import (
     save_jax_checkpoint,
     unpackb,
 )
+from sup3r_tpu_torch.names import strip_obs_suffix
 from sup3r_tpu_torch.ops.coarsen import (
     spatial_coarsening,
     temporal_coarsening,
@@ -241,12 +242,36 @@ class Sup3rGan(AbstractSingleModel):
         return torch.Generator(device=self.device).manual_seed(
             self._step_counter)
 
+    def _dropout_kwargs(self, network, offset):
+        """The ``apply`` kwargs that turn a network's ``Dropout`` layers
+        on in a train step: a generator on the model's device seeded with
+        the step counter, one stream per network call (``offset``); none
+        for a network without dropout."""
+        if not network.has_dropout:
+            return {}
+        seed = 4 * self._step_counter + offset
+        return {'train': True, 'dropout_generator': torch.Generator(
+            device=self.device).manual_seed(seed)}
+
+    def _train_exo(self, hr):
+        """(exo rasters for the generator, state for
+        ``_extra_gen_loss``) of a training HR batch: the exo channels by
+        feature; subclasses add observation rasters."""
+        return self._split_exo(hr), None
+
+    def _extra_gen_loss(self, out, hr, state):
+        """(term added to the content loss, extra loss details) of a
+        train step; none for a plain GAN."""
+        return 0.0, {}
+
     def _train_step(self, lr, hr, weight_gen_advers, do_gen, do_disc):
         """One gated step on device tensors; returns the loss scalars
         (device tensors). With ``train_dtype`` both networks run in it:
         their inputs are cast here, their params in each layer, and
         their outputs come back to float32 before the exo concat and
-        the losses."""
+        the losses. A network with ``Dropout`` draws its masks from a
+        generator seeded with the step counter; then the discriminator's
+        loss runs it again with masks of its own, as the JAX step does."""
         self._check_train_options()
         self._step_counter += 1
         gen_params, disc_params = self.gen_params, self.disc_params
@@ -255,24 +280,37 @@ class Sup3rGan(AbstractSingleModel):
         names = self.hr_exo_features
         slc = slice(0, -len(names)) if names else slice(None)
         generator = self._loss_generator()
+        disc = self._disc
         with exact_fp32():
-            exo = self._split_exo(hr)
+            exo, state = self._train_exo(hr)
             with torch.set_grad_enabled(do_gen):
                 out = gen_apply(cast(lr), {k: cast(v) for k, v in
-                                           exo.items()}).float()
+                                           exo.items()},
+                                **self._dropout_kwargs(self._gen, 0)).float()
             full = (torch.cat([out] + [exo[f] for f in names], dim=-1)
                     if names else out)
             with torch.set_grad_enabled(do_gen or do_disc):
                 with torch.set_grad_enabled(do_disc):
-                    d_true = self._disc.apply(cast(hr)).float()
-                d_gen = self._disc.apply(cast(full)).float()
+                    d_true = disc.apply(cast(hr), **self._dropout_kwargs(
+                        disc, 1)).float()
+                d_gen = disc.apply(cast(full), **self._dropout_kwargs(
+                    disc, 2)).float()
                 content = apply_loss(self.loss_fun, out, hr[..., slc],
                                      generator=generator)
+                extra, details = self._extra_gen_loss(out, hr, state)
                 advers = relativistic_disc_loss(d_gen, d_true)
-                gen_loss = content + weight_gen_advers * advers
-                # the discriminator's loss reads the same outputs: its
-                # pre-update params on the generated output's value
-                disc_loss = relativistic_disc_loss(d_true, d_gen)
+                gen_loss = content + extra + weight_gen_advers * advers
+                if disc.has_dropout:
+                    with torch.set_grad_enabled(do_disc):
+                        kw = self._dropout_kwargs(disc, 3)
+                        disc_loss = relativistic_disc_loss(
+                            disc.apply(cast(hr), **kw).float(),
+                            disc.apply(cast(full.detach()), **kw).float())
+                else:
+                    # the discriminator's loss reads the same outputs:
+                    # its pre-update params on the generated output's
+                    # value
+                    disc_loss = relativistic_disc_loss(d_true, d_gen)
             if do_gen:
                 gen_grads = torch.autograd.grad(gen_loss, gen_params,
                                                 retain_graph=do_disc)
@@ -284,8 +322,9 @@ class Sup3rGan(AbstractSingleModel):
             if do_disc:
                 self._disc_tx.update(disc_params, disc_grads,
                                      self._disc_opt_state)
-        return {'loss_gen': gen_loss, 'loss_gen_content': content,
-                'loss_gen_advers': advers, 'loss_disc': disc_loss}
+        return {'loss_gen': gen_loss, 'loss_gen_content': content + extra,
+                'loss_gen_advers': advers, 'loss_disc': disc_loss,
+                **details}
 
     def _place_batch(self, arr):
         """A float32 tensor on the model's device (no copy for one that
@@ -461,13 +500,15 @@ class Sup3rGan(AbstractSingleModel):
     def _norm_layer_exo(self, exo):
         """Normalize mid-network exo rasters with their own feature
         stats (training concatenates NORMALIZED exo channels, so
-        inference must feed the layers the same scale)."""
+        inference must feed the layers the same scale); an observation
+        raster (``*_obs``) takes its base feature's stats."""
         if self._means is None:
             return exo
         out = {}
         for k, v in exo.items():
-            if k in self._means:
-                v = (v - self._means[k]) / (self._stdevs[k] or 1.0)
+            key = k if k in self._means else strip_obs_suffix(k)
+            if key in self._means:
+                v = (v - self._means[key]) / (self._stdevs[key] or 1.0)
             out[k] = v
         return out
 
@@ -497,7 +538,7 @@ class Sup3rGan(AbstractSingleModel):
         if self.gen_params is None:
             self.init_weights(tuple(low_res.shape),
                               self._dummy_hr_shape(tuple(low_res.shape)))
-        for f in self._gen.exo_features:
+        for f in self._gen.exo_features + self._gen.obs_features:
             if f not in exo:
                 raise KeyError(
                     f'Model requires exogenous feature "{f}" passed via '
@@ -576,6 +617,12 @@ class Sup3rGan(AbstractSingleModel):
         logger.info('Saved GAN to %s', out_dir)
 
     @classmethod
+    def _extra_load_kwargs(cls, params):
+        """Constructor kwargs a subclass restores from the saved
+        ``model_params`` (e.g. the observation settings)."""
+        return {}
+
+    @classmethod
     def load(cls, model_dir, device='cuda', verbose=True):
         """Load a GAN that ``save`` here or the JAX package's
         ``Sup3rGan.save`` wrote: ``model_params.json``, the weights, and
@@ -588,7 +635,7 @@ class Sup3rGan(AbstractSingleModel):
             loss=params.get('loss', 'MeanSquaredError'),
             meta=params.get('meta', {}),
             means=params.get('means'), stdevs=params.get('stdevs'),
-            device=device)
+            device=device, **cls._extra_load_kwargs(params))
         gen_in = params.get('gen_in_shape')
         disc_in = params.get('disc_in_shape')
         if gen_in is not None:
@@ -709,21 +756,58 @@ class Sup3rGan(AbstractSingleModel):
         out['total_batches'] = int(self.total_batches)
         return out
 
+    def _val_exo(self, hr):
+        """``_train_exo`` for a validation batch."""
+        return self._split_exo(hr), None
+
     def _val_step(self, lr, hr, weight_gen_advers):
-        """The losses of one validation batch (no gradients)."""
+        """The losses of one validation batch (no gradients), with the
+        train step's extra loss terms."""
         names = self.hr_exo_features
         slc = slice(0, -len(names)) if names else slice(None)
-        net = self._train_gen_net()
-        out = net.apply(lr, self._split_exo(hr))
+        exo, state = self._val_exo(hr)
+        out = self._train_gen_net().apply(lr, exo)
         full = self._combine_loss_input(hr, out)
         d_true = self._disc.apply(hr)
         d_gen = self._disc.apply(full)
         content = apply_loss(self.loss_fun, full[..., slc], hr[..., slc])
+        extra, details = self._extra_gen_loss(out, hr, state)
         advers = relativistic_disc_loss(d_gen, d_true)
         return {'loss_disc': relativistic_disc_loss(d_true, d_gen),
-                'loss_gen': content + weight_gen_advers * advers,
-                'loss_gen_content': content,
-                'loss_gen_advers': advers}
+                'loss_gen': content + extra + weight_gen_advers * advers,
+                'loss_gen_content': content + extra,
+                'loss_gen_advers': advers, **details}
+
+    def calc_loss(self, hi_res_true, hi_res_gen, weight_gen_advers=0.001,
+                  train_gen=True, train_disc=False, compute_disc=False):
+        """GAN losses of a (true, generated) HR pair (reference:
+        sup3r/models/base.py:830-911); returns (loss, details) as tensors
+        on the model's device, without gradients."""
+        hr = self._place_batch(hi_res_true)
+        with torch.no_grad(), exact_fp32():
+            out = self._combine_loss_input(hr, self._place_batch(
+                hi_res_gen))
+            if out.shape != hr.shape:
+                raise RuntimeError(
+                    f'Generated shape {tuple(out.shape)} != true shape '
+                    f'{tuple(hr.shape)}; check enhancement factors')
+            d_true = self._disc.apply(hr)
+            d_gen = self._disc.apply(out)
+            details, loss = {}, None
+            if compute_disc or train_disc:
+                details['loss_disc'] = relativistic_disc_loss(d_true, d_gen)
+            if train_gen:
+                names = self.hr_exo_features
+                slc = slice(0, -len(names)) if names else slice(None)
+                content = apply_loss(self.loss_fun, out[..., slc],
+                                     hr[..., slc])
+                advers = relativistic_disc_loss(d_gen, d_true)
+                loss = content + weight_gen_advers * advers
+                details.update(loss_gen=loss, loss_gen_content=content,
+                               loss_gen_advers=advers)
+            elif train_disc:
+                loss = details['loss_disc']
+        return loss, details
 
     def calc_val_loss(self, batch_handler, weight_gen_advers):
         """Mean validation losses over the val queue."""

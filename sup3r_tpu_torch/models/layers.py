@@ -21,9 +21,10 @@ JAX kernel, because ``jax.lax.conv_transpose`` (no ``transpose_kernel``)
 correlates the zero-dilated, zero-padded input with the kernel as-is
 while ``F.conv_transpose*d`` is the true adjoint of a correlation.
 
-Layers of the model-family slice (``Dropout``, ``Sup3rConcatObs``,
-``Sup3rObsModel``) are not ported yet and raise when a config names
-them.
+``Dropout`` draws its mask from the ``torch.Generator`` the caller puts
+in ``ctx['dropout_generator']`` (and acts only with ``ctx['train']``);
+the observation layers (``Sup3rConcatObs``, ``Sup3rObsModel``) read
+sparse, NaN-filled observation rasters from ``ctx['exo']``.
 """
 
 import inspect
@@ -181,6 +182,25 @@ class LeakyReLU(Layer):
         # jax.nn.leaky_relu: the same values as F.leaky_relu, but its
         # gradient at exactly 0 is 1, not alpha
         return torch.where(x >= 0, x, self.alpha * x)
+
+
+class Dropout(Layer):
+    """Inverted dropout: active only when ``ctx['train']`` is set and
+    ``ctx['dropout_generator']`` holds a ``torch.Generator``, whose draws
+    (on its own device) make the keep mask."""
+
+    def __init__(self, rate=0.5, **_):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, ctx):
+        generator = ctx.get('dropout_generator')
+        if not ctx.get('train') or generator is None or self.rate <= 0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator,
+                          device=generator.device) < keep
+        return torch.where(mask.to(x.device), x / keep, 0.0)
 
 
 class Flatten(Layer):
@@ -627,9 +647,72 @@ class Sup3rConcat(_ExoLayerBase):
         return torch.cat([x, self._get_exo(x, ctx)], dim=1)
 
 
+def _obs_and_mask(t):
+    """``[obs with NaN -> 0, isfinite mask]`` of a channels-first
+    observation raster: the zeros go in before any conv, so gradients
+    stay finite."""
+    mask = torch.isfinite(t)
+    return torch.where(mask, t, 0.0), mask.to(t.dtype)
+
+
+class Sup3rConcatObs(_ExoLayerBase):
+    """Concatenate a (sparse, NaN-filled) observation raster and its
+    validity mask as two extra channels."""
+
+    def out_shape(self, in_shape):
+        return (*in_shape[:-1], in_shape[-1] + 2)
+
+    def forward(self, x, ctx):
+        filled, mask = _obs_and_mask(self._get_exo(x, ctx))
+        return torch.cat([x, filled, mask], dim=1)
+
+
+class Sup3rObsModel(_ExoLayerBase):
+    """Learned fusion of sparse observations: obs and mask through a
+    1x1 projection (two with a LeakyReLU(0.2) between when ``filters``,
+    the hidden width, is given) added to the activation. Params in the
+    JAX package's layout: ``kernel`` (2, c or filters), ``bias``, and
+    ``kernel_out`` (filters, c), ``bias_out``."""
+
+    def __init__(self, name, filters=None, **_):
+        super().__init__(name)
+        self.filters = filters
+
+    def init(self, in_shape, generator):
+        c = in_shape[-1]
+        if self.filters is None:
+            self.load_jax({'kernel': _glorot_uniform((2, c), generator),
+                           'bias': np.zeros(c)})
+        else:
+            h = int(self.filters)
+            self.load_jax({'kernel': _glorot_uniform((2, h), generator),
+                           'bias': np.zeros(h),
+                           'kernel_out': _glorot_uniform((h, c), generator),
+                           'bias_out': np.zeros(c)})
+        return in_shape
+
+    def tensors_from_jax(self, params):
+        return {k: _tensor(params[k]) for k in
+                ('kernel', 'bias', 'kernel_out', 'bias_out') if k in params}
+
+    def tensors_to_jax(self, tensors):
+        return {k: _numpy(v) for k, v in tensors.items()}
+
+    def forward(self, x, ctx):
+        filled, mask = _obs_and_mask(self._get_exo(x, ctx))
+        obs_in = torch.cat([filled, mask], dim=1).movedim(1, -1)
+        proj = obs_in @ self.kernel.to(x.dtype) + self.bias.to(x.dtype)
+        if hasattr(self, 'kernel_out'):
+            proj = torch.where(proj >= 0, proj, 0.2 * proj)
+            proj = (proj @ self.kernel_out.to(x.dtype)
+                    + self.bias_out.to(x.dtype))
+        return x + proj.movedim(-1, 1)
+
+
 LAYER_REGISTRY = {
     'Activation': Activation,
     'LeakyReLU': LeakyReLU,
+    'Dropout': Dropout,
     'Flatten': Flatten,
     'Dense': Dense,
     'FlexiblePadding': FlexiblePadding,
@@ -644,13 +727,14 @@ LAYER_REGISTRY = {
     'SkipConnection': SkipConnection,
     'Sup3rAdder': Sup3rAdder,
     'Sup3rConcat': Sup3rConcat,
+    'Sup3rConcatObs': Sup3rConcatObs,
+    'Sup3rObsModel': Sup3rObsModel,
 }
-
-#: layer classes of the JAX package that the model-family slice ports
-NOT_PORTED = ('Dropout', 'Sup3rConcatObs', 'Sup3rObsModel')
 
 #: layers that inject exogenous data mid-network
 EXO_LAYERS = (Sup3rAdder, Sup3rConcat)
+#: layers that fuse observations mid-network
+OBS_LAYERS = (Sup3rConcatObs, Sup3rObsModel)
 
 
 def build_layers(hidden_layers):
@@ -666,10 +750,6 @@ def build_layers(hidden_layers):
             continue
         entry = dict(entry)
         cls_name = entry.pop('class')
-        if cls_name in NOT_PORTED:
-            raise NotImplementedError(
-                f'Layer class "{cls_name}" comes with the model-family '
-                'slice of the port (ROADMAP queue 1 item 7)')
         if cls_name not in LAYER_REGISTRY:
             raise KeyError(
                 f'Unknown layer class "{cls_name}". Known: '

@@ -9,8 +9,9 @@ member's ``generate(fetch=False)``) while the arithmetic is the JAX
 chain's: each step denormalizes its output, and the next normalizes it
 with its own stats. The solar composite's two spatial groups, their
 concat, the temporal group and its reflect pad all run on the device; it
-fetches once, at the end. ``MultiStepSurfaceMetGan`` comes with its
-member (ROADMAP queue 1 item 7).
+fetches once, at the end. ``MultiStepSurfaceMetGan`` chains the physics
+``SurfaceSpatialMetModel`` and a temporal GAN; the surface output stays on
+the device for the GAN.
 """
 
 import json
@@ -229,6 +230,40 @@ class MultiStepGan(AbstractInterface):
         """Save each step's model to a numbered subdirectory."""
         for i, model in enumerate(self._models):
             model.save(os.path.join(out_dir, f'model_step_{i}'))
+
+
+class MultiStepSurfaceMetGan(MultiStepGan):
+    """Two-step chain: ``SurfaceSpatialMetModel`` (4D spatial met
+    physics), then a (spatio)temporal GAN (reference: multi_step.py:340).
+    The surface step's output stays on the models' device."""
+
+    def generate(self, low_res, norm_in=True, un_norm_out=True,
+                 exogenous_data=None):
+        assert low_res.ndim == 4, (
+            'MultiStepSurfaceMetGan needs 4D (t, s1, s2, f) input')
+        assert exogenous_data is not None and (
+            'topography' in exogenous_data), (
+            'MultiStepSurfaceMetGan needs topography exogenous_data with '
+            'low- and high-res steps')
+        return super().generate(low_res, norm_in, un_norm_out,
+                                exogenous_data)
+
+    @classmethod
+    def load(cls, surface_model_class='SurfaceSpatialMetModel',
+             temporal_model_class='MultiStepGan', surface_model_kwargs=None,
+             temporal_model_kwargs=None, verbose=True, device='cuda'):
+        """Load the surface model and the temporal model (a chain's
+        members join this chain) from their kwargs onto ``device``
+        (reference: multi_step.py:440)."""
+        from sup3r_tpu_torch import models as models_mod
+
+        SurfaceClass = getattr(models_mod, surface_model_class)
+        TemporalClass = getattr(models_mod, temporal_model_class)
+        surface = SurfaceClass.load(verbose=verbose, device=device,
+                                    **(surface_model_kwargs or {}))
+        temporal = TemporalClass.load(verbose=verbose, device=device,
+                                      **(temporal_model_kwargs or {}))
+        return cls([surface, *getattr(temporal, 'models', [temporal])])
 
 
 class SolarMultiStepGan(MultiStepGan):

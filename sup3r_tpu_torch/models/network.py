@@ -14,6 +14,7 @@ from torch import nn
 
 from sup3r_tpu_torch.models.layers import (
     EXO_LAYERS,
+    OBS_LAYERS,
     FlexiblePadding,
     build_layers,
 )
@@ -74,6 +75,18 @@ class Network(nn.Module):
                 if isinstance(lyr, EXO_LAYERS)]
 
     @property
+    def obs_features(self):
+        """Names of observation-fusion features, in layer order."""
+        return [lyr.name for lyr in self.layers
+                if isinstance(lyr, OBS_LAYERS)]
+
+    @property
+    def has_dropout(self):
+        """Whether a layer is a ``Dropout`` (the train step then draws
+        its masks)."""
+        return any(type(lyr).__name__ == 'Dropout' for lyr in self.layers)
+
+    @property
     def min_input_width(self):
         """Minimum spatial/temporal input width imposed by the first
         padding layer (reflect padding requires input > pad width).
@@ -95,10 +108,13 @@ class Network(nn.Module):
             shape = lyr.init(shape, generator)
         return shape
 
-    def forward(self, x, exo=None):
+    def forward(self, x, exo=None, train=False, dropout_generator=None):
         """Run the layers on a channels-first tensor. ``exo`` maps
-        feature name -> channels-last raster for the injection layers."""
-        ctx = {'exo': exo or {}, 'skips': {}}
+        feature name -> channels-last raster for the injection layers
+        (exo and observations alike); ``train`` with a
+        ``dropout_generator`` turns the ``Dropout`` layers on."""
+        ctx = {'exo': exo or {}, 'skips': {}, 'train': train,
+               'dropout_generator': dropout_generator}
         for lyr in self.layers:
             x = lyr(x, ctx)
         if ctx['skips']:
@@ -108,13 +124,13 @@ class Network(nn.Module):
                 'appear exactly twice')
         return x
 
-    def apply(self, x, exo=None):
+    def apply(self, x, exo=None, train=False, dropout_generator=None):
         """Run the network on a channels-last tensor; returns the
         channels-last output (a view of the channels-first result).
         Shadows ``nn.Module.apply(fn)``, as the JAX package's
         ``Network.apply`` runs the network."""
         x = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1)).contiguous()
-        out = self(x, exo)
+        out = self(x, exo, train, dropout_generator)
         return out.permute(0, *range(2, out.ndim), 1)
 
     def out_shape(self, in_shape):

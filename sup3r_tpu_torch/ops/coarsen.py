@@ -5,12 +5,20 @@ transforms use).
 ``spatial_coarsening`` and ``temporal_coarsening`` take a numpy array
 (the host transform of a batch queue) or a torch tensor (the device
 transform of the train step, ``device_transform=True``) and return the
-same kind. ``smooth_data`` is host-only (scipy).
+same kind. ``smooth_data`` is host-only (scipy). The simple enhancing
+functions come with ``Sup3rCondMom``, their only user.
 """
 
 import numpy as np
 import torch
 from scipy.ndimage import gaussian_filter
+
+from sup3r_tpu_torch.utilities import not_ported
+
+__getattr__ = not_ported(
+    __name__, ('spatial_simple_enhancing', 'temporal_simple_enhancing'),
+    'ROADMAP queue 1 item 7, with Sup3rCondMom and its queues (the next '
+    'slice)')
 
 
 def spatial_coarsening(data, s_enhance=2, obs_axis=True):

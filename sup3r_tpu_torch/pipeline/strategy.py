@@ -4,12 +4,12 @@ Reference parity: sup3r/pipeline/strategy.py:58-700 (ForwardPassStrategy,
 ForwardPassChunk :38, node_chunks :364, incremental restart :667). The
 port's copy of ``sup3r_tpu/pipeline/strategy.py`` for the eager,
 single-device path, with exogenous data (``exo_handler_kwargs``) and
-``Sup3rGan`` / ``MultiStepGan`` / ``LinearInterp`` / ``SolarCC`` /
-``SolarMultiStepGan`` models (the solar composite's ``model_kwargs`` name
-its three groups' directories, ``t_enhance`` and ``device``): ``chunked_io``,
-bias correction, ``use_mesh`` and the other model classes come with
-later slices (ROADMAP queue 1 items 5, 7 and 9) and raise
-``NotImplementedError``.
+every model class the port exports (the solar composite's
+``model_kwargs`` name its three groups' directories, ``t_enhance`` and
+``device``; ``MultiStepSurfaceMetGan``'s its surface and temporal
+models' kwargs and ``device``): ``chunked_io``, bias correction,
+``use_mesh`` and ``Sup3rCondMom`` come with later slices (ROADMAP queue 1
+items 5, 7 and 9) and raise ``NotImplementedError``.
 """
 
 import logging

@@ -1,23 +1,25 @@
 """Data plane of the port: loaders, rasterizers, derivers and the
 ``DataHandler`` that feed the forward pass, the exogenous rasters
-(``ExoData``, ``ExoDataHandler``, topography and sza rasterizers), and
-the training feed
-(samplers, stats, batch queues, the ``BatchHandler``, the paired
-``DualBatchHandler`` and the climate-change ``BatchHandlerCC`` over the
-daily data handlers), on numpy and scipy (h5py only for HDF5 input)."""
+(``ExoData``, ``ExoDataHandler``, topography, sza and observation
+rasterizers), and the training feed (samplers, stats, batch queues, the
+``BatchHandler``, the paired ``DualBatchHandler``, the climate-change
+``BatchHandlerCC`` over the daily data handlers and the data-centric
+``BatchHandlerDC``), on numpy and scipy (h5py only for HDF5 input)."""
 
 from sup3r_tpu_torch.preprocessing.batch_handlers import (  # noqa: F401
     BatchHandler,
     BatchHandlerCC,
+    BatchHandlerDC,
     DualBatchHandler,
 )
 from sup3r_tpu_torch.preprocessing.batch_queues import (  # noqa: F401
     Batch,
+    BatchQueueDC,
     DualBatchQueue,
     RawBatch,
     SingleBatchQueue,
+    ValBatchQueueDC,
 )
-
 from sup3r_tpu_torch.preprocessing.data_handlers import (  # noqa: F401
     DailyDataHandler,
     DataHandler,
@@ -29,6 +31,7 @@ from sup3r_tpu_torch.preprocessing.exo import (  # noqa: F401
     ExoData,
     ExoDataHandler,
     ExoRasterizer,
+    ObsRasterizer,
     SzaRasterizer,
 )
 from sup3r_tpu_torch.preprocessing.grid import (  # noqa: F401
@@ -48,6 +51,7 @@ from sup3r_tpu_torch.preprocessing.samplers import (  # noqa: F401
     DualSampler,
     DualSamplerCC,
     Sampler,
+    SamplerDC,
     nsrdb_reduce_daily_data,
 )
 from sup3r_tpu_torch.preprocessing.stats import StatsCollection  # noqa

@@ -9,8 +9,9 @@ on a side stream; the train step's stream waits on an event recorded
 after the copy. A pageable copy would block the host behind the running
 step. ``DualBatchHandler`` feeds pre-paired LR / HR data (a
 ``DualRasterizer``'s); ``BatchHandlerCC`` feeds daily LR / hourly HR
-pairs from the daily data handlers. The conditional and data-centric
-handlers come with their models (ROADMAP queue 1 item 7).
+pairs from the daily data handlers; ``BatchHandlerDC`` samples from
+loss-adaptive bins with a per-bin validation queue. The conditional
+handlers come with their model (ROADMAP queue 1 item 7).
 """
 
 import logging
@@ -20,13 +21,16 @@ import numpy as np
 import torch
 
 from sup3r_tpu_torch.preprocessing.batch_queues import (
+    BatchQueueDC,
     DualBatchQueue,
     SingleBatchQueue,
+    ValBatchQueueDC,
 )
 from sup3r_tpu_torch.preprocessing.samplers import (
     DualSampler,
     DualSamplerCC,
     Sampler,
+    SamplerDC,
 )
 from sup3r_tpu_torch.preprocessing.stats import (
     StatsCollection,
@@ -248,9 +252,61 @@ class BatchHandlerCC(DualBatchHandler):
                 len(s.lr_features))
 
 
+
+class BatchHandlerDC(BaseBatchHandler):
+    """Data-centric handler: loss-adaptive bin sampling and a per-bin
+    validation queue (reference: batch_handlers/dc.py:24). Validation
+    data is required: the bin weights follow per-bin validation
+    losses."""
+
+    SAMPLER = SamplerDC
+    MAIN_QUEUE = BatchQueueDC
+    VAL_QUEUE = ValBatchQueueDC
+
+    def __init__(self, train_containers, val_containers=None, *args,
+                 n_space_bins=1, n_time_bins=1, **kwargs):
+        if not val_containers:
+            raise ValueError(
+                'BatchHandlerDC requires validation data: the bin weights '
+                'adapt to per-bin validation losses. Use a non-DC batch '
+                'handler without validation data')
+        kwargs.setdefault('queue_kwargs', {})
+        kwargs['queue_kwargs'].update(n_space_bins=n_space_bins,
+                                      n_time_bins=n_time_bins)
+        self.n_space_bins = n_space_bins
+        self.n_time_bins = n_time_bins
+        super().__init__(train_containers, val_containers, *args, **kwargs)
+        # every bin needs a sample start: fail here, not in the producer
+        ss = tuple(self._sampler_args['sample_shape'] or (10, 10, 1))
+        if len(ss) == 2:
+            ss = (*ss, 1)
+        for c in train_containers:
+            shape = c.shape[:3]
+            max_space = (shape[0] - ss[0] + 1) * (shape[1] - ss[1] + 1)
+            max_time = max(shape[2] - ss[2] + 1, 1)
+            if n_space_bins > max_space or n_time_bins > max_time:
+                raise ValueError(
+                    f'sample_shape {tuple(ss)} is too large for '
+                    f'(n_space_bins={n_space_bins}, '
+                    f'n_time_bins={n_time_bins}) on data of shape '
+                    f'{tuple(shape)}: only {max_space} spatial and '
+                    f'{max_time} temporal sample starts exist')
+
+    @property
+    def spatial_weights(self):
+        return self._queue.spatial_weights
+
+    @property
+    def temporal_weights(self):
+        return self._queue.temporal_weights
+
+    def update_weights(self, spatial_weights, temporal_weights):
+        """Push new bin weights (``Sup3rGanDC`` does each epoch)."""
+        self._queue.update_weights(spatial_weights, temporal_weights)
+
 __getattr__ = not_ported(
     __name__, ('BatchHandlerMom1', 'BatchHandlerMom1SF',
                'BatchHandlerMom2', 'BatchHandlerMom2Sep',
-               'BatchHandlerMom2SF', 'BatchHandlerMom2SepSF',
-               'BatchHandlerDC'),
-    'ROADMAP queue 1 item 7, the conditional and data-centric handlers')
+               'BatchHandlerMom2SF', 'BatchHandlerMom2SepSF'),
+    'ROADMAP queue 1 item 7, the conditional handlers (with Sup3rCondMom, '
+    'the next slice)')

@@ -6,9 +6,9 @@ A ``queue.Queue`` of numpy batches is filled by a producer thread (with
 a pool of ``max_workers`` productions in flight); the HR->LR coarsening
 runs there on numpy, or with ``device_transform=True`` the queue yields
 the raw HR samples (``RawBatch``) and the train step coarsens them on
-the device. ``DualBatchQueue`` stacks pre-paired (lr, hr) samples. The
-conditional and data-centric queues come with their models (ROADMAP
-queue 1 item 7).
+the device. ``DualBatchQueue`` stacks pre-paired (lr, hr) samples;
+``BatchQueueDC`` / ``ValBatchQueueDC`` sample from loss-adaptive bins. The
+conditional queues come with their model (ROADMAP queue 1 item 7).
 """
 
 import logging
@@ -361,8 +361,73 @@ class DualBatchQueue(AbstractBatchQueue):
         return Batch(low_res=lr, high_res=hr)
 
 
+
+class BatchQueueDC(SingleBatchQueue):
+    """Data-centric queue: its samplers draw from loss-adaptive bins
+    (reference: batch_queues/dc.py:13)."""
+
+    def __init__(self, samplers, n_space_bins=1, n_time_bins=1, **kwargs):
+        self.n_space_bins = n_space_bins
+        self.n_time_bins = n_time_bins
+        self._spatial_weights = np.ones(n_space_bins) / n_space_bins
+        self._temporal_weights = np.ones(n_time_bins) / n_time_bins
+        super().__init__(samplers, **kwargs)
+        self.update_weights(self._spatial_weights, self._temporal_weights)
+
+    @property
+    def spatial_weights(self):
+        """Current spatial bin weights."""
+        return self._spatial_weights
+
+    @property
+    def temporal_weights(self):
+        """Current temporal bin weights."""
+        return self._temporal_weights
+
+    def update_weights(self, spatial_weights, temporal_weights):
+        """Push new bin weights into every sampler."""
+        self._spatial_weights = np.asarray(spatial_weights)
+        self._temporal_weights = np.asarray(temporal_weights)
+        for s in self.samplers:
+            s.update_weights(self._spatial_weights, self._temporal_weights)
+
+
+class ValBatchQueueDC(BatchQueueDC):
+    """Validation queue of one batch per spatiotemporal bin, so each
+    bin's loss can be measured (reference: batch_queues/dc.py:69). Batch
+    ``i`` is bin (``i % n_space_bins``, ``(i // n_space_bins) %
+    n_time_bins``); production is serial (one worker), since each batch
+    sets every sampler's weights to its own bin. ``stop`` drops the
+    batches made ahead, so it waits for the one in production and starts
+    the count again: the next batch served is bin (0, 0)."""
+
+    def __init__(self, samplers, n_space_bins=1, n_time_bins=1, **kwargs):
+        kwargs['n_batches'] = n_space_bins * n_time_bins
+        kwargs['max_workers'] = 1
+        super().__init__(samplers, n_space_bins=n_space_bins,
+                         n_time_bins=n_time_bins, **kwargs)
+        self._batch_counter = 0
+
+    def sample_batch(self):
+        """All the weight on the current batch's bin."""
+        i = self._batch_counter
+        s_w = np.zeros(self.n_space_bins)
+        s_w[i % self.n_space_bins] = 1
+        t_w = np.zeros(self.n_time_bins)
+        t_w[i // self.n_space_bins % self.n_time_bins] = 1
+        self.update_weights(s_w, t_w)
+        self._batch_counter = i + 1
+        return super().sample_batch()
+
+    def stop(self):
+        pool = self._pool
+        super().stop()
+        if pool is not None:
+            pool.shutdown(wait=True)
+        self._batch_counter = 0
+
 __getattr__ = not_ported(
     __name__, ('ConditionalBatchQueue', 'QueueMom1', 'QueueMom1SF',
-               'QueueMom2', 'QueueMom2Sep', 'QueueMom2SF', 'QueueMom2SepSF',
-               'BatchQueueDC', 'ValBatchQueueDC'),
-    'ROADMAP queue 1 item 7, the conditional and data-centric queues')
+               'QueueMom2', 'QueueMom2Sep', 'QueueMom2SF', 'QueueMom2SepSF'),
+    'ROADMAP queue 1 item 7, the conditional queues (with Sup3rCondMom, '
+    'the next slice)')

@@ -9,8 +9,8 @@ sup3r/preprocessing/rasterizers/exo.py (KDTree mean-agg rasterization
 ``sup3r_tpu/preprocessing/exo.py`` on numpy and scipy's ``cKDTree``: the
 rasters are host arrays; ``generate`` moves them to the model's device.
 H5 sources need h5py (CPU machines); NetCDF sources need nothing more.
-``ObsRasterizer`` comes with ``Sup3rGanWithObs`` (ROADMAP queue 1 item
-7).
+``ObsRasterizer`` rasterizes sparse station observations (NaN away from
+the stations) for ``Sup3rGanWithObs``.
 """
 
 import hashlib
@@ -20,23 +20,17 @@ import os
 import numpy as np
 from scipy.spatial import cKDTree
 
+from sup3r_tpu_torch.names import strip_obs_suffix
 from sup3r_tpu_torch.ops.solar_pos import solar_zenith
 from sup3r_tpu_torch.preprocessing.loaders import (
     Loader,
     LoaderH5,
     get_source_type,
 )
-from sup3r_tpu_torch.utilities import (
-    generate_random_string,
-    nn_fill_array,
-    not_ported,
-)
+from sup3r_tpu_torch.utilities import generate_random_string, nn_fill_array
+from sup3r_tpu_torch.utilities.times import format_timestamps
 
 logger = logging.getLogger(__name__)
-
-__getattr__ = not_ported(
-    __name__, ('ObsRasterizer',),
-    'ROADMAP queue 1 item 7, with Sup3rGanWithObs and its layers')
 
 
 class ExoData(dict):
@@ -199,8 +193,11 @@ class ExoRasterizer:
         corner = self.lr_lat_lon[[0, -1], [0, -1]].tobytes()
         key = corner + bytes(str(self.lr_lat_lon.shape), 'utf8')
         if self.TIME_DEPENDENT and self.lr_time_index is not None:
+            # pandas' str(Timestamp) of the first and last step, as the
+            # JAX package's key has them
             ti = self.lr_time_index
-            key += bytes(f'{ti[0]}_{ti[-1]}_{len(ti)}', 'utf8')
+            first, last = format_timestamps([ti[0], ti[-1]])
+            key += bytes(f'{first}_{last}_{len(ti)}', 'utf8')
         if self.scale_factor != 1.0:
             key += bytes(f'scale{self.scale_factor!r}', 'utf8')
         if self.fill_nans != self.FILL_NANS_DEFAULT:
@@ -323,6 +320,86 @@ class SzaRasterizer(ExoRasterizer):
         return self._data
 
 
+class ObsRasterizer(ExoRasterizer):
+    """Sparse spatiotemporal observations rasterized onto the enhanced
+    grid: (s1, s2, t, 1), NaN where a cell has no observation
+    (reference: exo.py:461). The feature carries an ``_obs`` suffix; the
+    source is read with the base name. Sources: gridded or flattened
+    NetCDF, or H5 (which needs h5py)."""
+
+    TIME_DEPENDENT = True
+    FILL_NANS_DEFAULT = False
+
+    def _obs_source_series(self):
+        """(coords (n, 2), values (n, T_src), source time index)."""
+        base = strip_obs_suffix(self.feature)
+        if get_source_type(self.source_file) == 'h5':
+            loader = LoaderH5(self.source_file, **self.source_handler_kwargs)
+            return (loader.lat_lon_flat, loader.get(base).T,
+                    loader.time_index)
+        loader = Loader(self.source_file, **self.source_handler_kwargs)
+        if hasattr(loader, 'lat_lon_flat'):
+            # a flattened NetCDF source: a list of sites
+            return (loader.lat_lon_flat, np.asarray(loader.get(base)).T,
+                    loader.time_index)
+        dset = loader.data
+        arr = np.asarray(dset[base])
+        if arr.ndim == 2:
+            arr = arr[..., None]
+        return (dset.lat_lon.reshape(-1, 2), arr.reshape(-1, arr.shape[-1]),
+                dset.time_index)
+
+    def _hr_time_columns(self, values, src_ti):
+        """The column of ``values`` that feeds each enhanced step."""
+        n_t = self.hr_shape[2]
+        t_src = values.shape[1]
+        if t_src == n_t:
+            return np.arange(n_t)
+        if t_src == 1:
+            return np.zeros(n_t, dtype=int)
+        if t_src == len(self.lr_time_index):
+            return np.repeat(np.arange(t_src), self.t_enhance)
+        if src_ti is not None and self.lr_time_index is not None:
+            src = np.asarray(src_ti.values)
+            hr_times = np.repeat(np.asarray(self.lr_time_index.values),
+                                 self.t_enhance)
+            pos = np.clip(np.searchsorted(src, hr_times), 0, t_src - 1)
+            left = np.clip(pos - 1, 0, t_src - 1)
+            use_left = (np.abs(hr_times - src[left])
+                        <= np.abs(src[pos] - hr_times))
+            return np.where(use_left, left, pos)
+        raise ValueError(
+            f'Cannot align {t_src} observation timesteps with the '
+            f'{n_t}-step enhanced output (no usable time indexes)')
+
+    def get_data(self):
+        """Mean of the observations that map to each (cell, step); NaN
+        where none does (NN-filled per step only with ``fill_nans``)."""
+        coords, values, src_ti = self._obs_source_series()
+        if self.scale_factor != 1.0:
+            values = np.asarray(values) * self.scale_factor
+        grid = self.hr_lat_lon.reshape(-1, 2)
+        dist, idx = cKDTree(grid).query(
+            coords, distance_upper_bound=self.get_distance_upper_bound())
+        valid = np.isfinite(dist)
+        vals = np.asarray(values, np.float64)[valid]
+        finite = np.isfinite(vals)
+        sums = np.zeros((len(grid), vals.shape[1]))
+        counts = np.zeros((len(grid), vals.shape[1]))
+        np.add.at(sums, idx[valid], np.where(finite, vals, 0.0))
+        np.add.at(counts, idx[valid], finite.astype(np.float64))
+        with np.errstate(invalid='ignore'):
+            agg = sums / counts
+        cols = self._hr_time_columns(values, src_ti)
+        out = agg[:, cols].reshape(*self.hr_shape[:2], len(cols))
+        out = out.astype(np.float32)
+        if self.fill_nans and np.isnan(out).any():
+            for it in range(out.shape[2]):
+                if np.isfinite(out[:, :, it]).any():
+                    out[:, :, it] = nn_fill_array(out[:, :, it])
+        return out[..., None]
+
+
 class ExoDataHandler:
     """Build per-model-step exo rasters for a (multi-step) forward pass
     (reference: exo.py:280-498)."""
@@ -331,15 +408,12 @@ class ExoDataHandler:
 
     @classmethod
     def _rasterizer_class(cls, feature):
-        """Rasterizer for a feature: sza -> analytic, else mean-agg.
-        Observation (``*_obs``) rasters come with their model."""
+        """Rasterizer for a feature: sza -> analytic, ``*_obs`` -> sparse
+        observations, else mean-agg."""
         if feature in cls.RASTERIZERS:
             return cls.RASTERIZERS[feature]
         if feature.endswith('_obs'):
-            raise NotImplementedError(
-                f'exo feature "{feature}": ObsRasterizer (preprocessing/'
-                'exo.py) comes with Sup3rGanWithObs and its layers '
-                '(ROADMAP queue 1 item 7)')
+            return ObsRasterizer
         return ExoRasterizer
 
     def __init__(self, file_paths, feature, model=None, steps=None,

@@ -5,8 +5,8 @@
 Every draw comes from the port's locked ``RANDOM_GENERATOR`` in the JAX
 package's order, so the same seed gives the same samples. ``DualSampler``
 crops aligned LR / HR pairs from a ``PairedDataset``; ``DualSamplerCC``
-samples whole days from a (daily, hourly) one. ``SamplerDC`` comes with
-its model (ROADMAP queue 1 item 7).
+samples whole days from a (daily, hourly) one. ``SamplerDC`` draws its
+crops from loss-adaptive spatial and temporal bin weights.
 """
 
 import logging
@@ -16,11 +16,7 @@ import numpy as np
 from sup3r_tpu_torch.names import parse_feature
 from sup3r_tpu_torch.ops.coarsen import spatial_coarsening
 from sup3r_tpu_torch.preprocessing.grid import GridDataset, PairedDataset
-from sup3r_tpu_torch.utilities import (
-    RANDOM_GENERATOR,
-    nn_fill_array,
-    not_ported,
-)
+from sup3r_tpu_torch.utilities import RANDOM_GENERATOR, nn_fill_array
 
 logger = logging.getLogger(__name__)
 
@@ -203,6 +199,38 @@ def nsrdb_reduce_daily_data(data, shape, csr_ind=0):
     return data[..., start:start + shape, :]
 
 
+class SamplerDC(Sampler):
+    """Data-centric sampler: the crop's start is drawn from
+    loss-adaptive spatial / temporal bin weights (reference:
+    samplers/dc.py:23)."""
+
+    def __init__(self, data, sample_shape=None, batch_size=16,
+                 feature_sets=None, spatial_weights=None,
+                 temporal_weights=None):
+        super().__init__(data, sample_shape=sample_shape,
+                         batch_size=batch_size, feature_sets=feature_sets)
+        self.spatial_weights = spatial_weights
+        self.temporal_weights = temporal_weights
+
+    def update_weights(self, spatial_weights, temporal_weights):
+        """New sampling weights (``Sup3rGanDC`` sets them each epoch)."""
+        self.spatial_weights = spatial_weights
+        self.temporal_weights = temporal_weights
+
+    def get_sample_index(self):
+        if self.spatial_weights is not None:
+            box = weighted_box_sampler(self.data.shape, self.sample_shape[:2],
+                                       self.spatial_weights)
+        else:
+            box = uniform_box_sampler(self.data.shape, self.sample_shape[:2])
+        if self.temporal_weights is not None:
+            t = weighted_time_sampler(self.data.shape, self.sample_shape[2],
+                                      self.temporal_weights)
+        else:
+            t = uniform_time_sampler(self.data.shape, self.sample_shape[2])
+        return (*box, t, self.features)
+
+
 class DualSampler:
     """Paired LR / HR sampler with enhancement-consistent crops
     (reference: samplers/dual.py:17)."""
@@ -368,7 +396,3 @@ class DualSamplerCC(DualSampler):
             hr = hr[:, :, start:start + self.final_t]
         return lr, hr
 
-
-__getattr__ = not_ported(
-    __name__, ('SamplerDC',),
-    'ROADMAP queue 1 item 7, the data-centric sampler')

@@ -16,3 +16,8 @@ from sup3r_tpu_torch.utilities.utilities import (  # noqa: F401
     safe_serialize,
 )
 from sup3r_tpu_torch.utilities.times import TimeIndex  # noqa: F401
+
+#: the phygnn checkpoint import (``sup3r_tpu/utilities/port.py``)
+__getattr__ = not_ported(
+    __name__, ('port',),
+    'ROADMAP queue 1 item 7, after Sup3rCondMom (the next slice)')

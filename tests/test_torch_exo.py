@@ -179,8 +179,10 @@ def test_exo_handler_steps_match_jax(files, tmp_path, feature):
 
 
 def test_observation_rasters_are_not_ported(files):
-    with pytest.raises(NotImplementedError, match='item 7'):
-        exo.ExoDataHandler(files['lr'], 'u_10m_obs', model=_Chain(),
-                           source_file=files['h5'])
-    with pytest.raises(NotImplementedError, match='item 7'):
-        exo.ObsRasterizer  # noqa: B018
+    """Observation rasters are ported now (tests/test_torch_with_obs.py
+    holds them to the JAX package): ``*_obs`` features go to the sparse,
+    time-dependent ``ObsRasterizer``, which keeps its NaNs."""
+    assert exo.ExoDataHandler._rasterizer_class(
+        'u_10m_obs') is exo.ObsRasterizer
+    assert exo.ObsRasterizer.TIME_DEPENDENT
+    assert not exo.ObsRasterizer.FILL_NANS_DEFAULT

@@ -262,13 +262,13 @@ def test_nan_input_and_constant_output_raise(tmp_path, saved):
 
 
 @pytest.mark.parametrize('kwargs,match', [
-    ({'exo_handler_kwargs': {'u_10m_obs': {'source_file': 'x.h5'}}},
-     'exo.py'),
+    ({'input_handler_kwargs': {'cache_kwargs': {
+        'cache_pattern': 'cache_{feature}.h5'}}}, 'cachers.py'),
     ({'chunked_io': True}, 'lazy.py'),
     ({'bias_correct_method': 'linear'}, 'bias'),
     ({'use_mesh': True}, 'item 9'),
     ({'input_handler_name': 'DataHandlerNCforCCwithPowerLaw'}, 'item 5'),
-    ({'model_class': 'MultiStepSurfaceMetGan'}, 'item 7'),
+    ({'model_class': 'Sup3rCondMom'}, 'item 7'),
     ({'input_handler_name': 'DataHandlerNCforCC'}, 'climate-change'),
 ])
 def test_later_slices_raise(tmp_path, saved, kwargs, match):

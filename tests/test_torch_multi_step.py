@@ -233,8 +233,10 @@ def test_enhancements_and_later_chains(tmp_path):
     from sup3r_tpu_torch import models
 
     with pytest.raises(NotImplementedError, match='item 7'):
-        getattr(models, 'MultiStepSurfaceMetGan')
+        getattr(models, 'Sup3rCondMom')
     assert models.SolarMultiStepGan.__name__ == 'SolarMultiStepGan'
+    assert models.MultiStepSurfaceMetGan.__name__ == (
+        'MultiStepSurfaceMetGan')
 
 
 def test_chain_load_defaults_to_the_card(cc, tmp_path, monkeypatch):

@@ -14,7 +14,13 @@ temporal member) through the ForwardPass from a daily NetCDF3 input, and
 trains a SolarCC epoch over a BatchHandlerCC of DataHandlerH5SolarCC data
 from a NetCDF3 file of ghi and clearsky_ghi (preprocessing.samplers,
 batch_handlers, data_handlers; the solar package imports, its H5 I/O
-needing h5py)."""
+needing h5py). A second blocked run (PIL blocked too) serves the
+Sup3rCC trh chain (MultiStepSurfaceMetGan: the physics surface model,
+whose resampling replaces PIL's, then a temporal GAN) through the
+ForwardPass with a NetCDF3 topography source, fuses NetCDF3 station
+observations into a Sup3rGanWithObs forward pass (ObsRasterizer), takes
+a WithObs train step and trains a Sup3rGanDC epoch over a
+BatchHandlerDC."""
 
 import os
 import subprocess
@@ -30,9 +36,9 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'sup3r_tpu', 'pandas', 'h5py',
-           'msgpack')
+           'msgpack', 'PIL')
 
-_SCRIPT = f'''
+_BLOCKER = f'''
 import importlib.abc
 import importlib.util
 import sys
@@ -58,6 +64,9 @@ import numpy as np
 import torch
 
 torch.set_num_threads(1)
+'''
+
+_SCRIPT = _BLOCKER + f'''
 from sup3r_tpu_torch.configs import generator_st
 from sup3r_tpu_torch.models import Sup3rGan
 
@@ -260,14 +269,147 @@ print('SOLARCC TRAINED', len(cc.history))
 '''
 
 
-def test_port_serves_with_jax_and_friends_blocked():
+_SCRIPT_TRH_OBS_DC = _BLOCKER + f'''
+import os
+import tempfile
+
+from sup3r_tpu_torch.configs import generator_cc_temporal
+from sup3r_tpu_torch.models import (
+    Sup3rGan,
+    Sup3rGanDC,
+    Sup3rGanWithObs,
+    SurfaceSpatialMetModel,
+)
+from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
+from sup3r_tpu_torch.preprocessing import BatchHandlerDC, LoaderNC
+from sup3r_tpu_torch.utilities.test_helpers import (
+    make_fake_dset,
+    make_fake_nc_file,
+    make_fake_topo_nc_file,
+)
+
+tmp = tempfile.mkdtemp()
+trh = ['temperature_2m', 'relativehumidity_2m']
+disc = [{{'class': 'Flatten'}}, {{'class': 'Dense', 'units': 1}}]
+rng = np.random.default_rng(0)
+data = {{'temperature_2m': 10 + 5 * rng.standard_normal((4, 8, 8)),
+        'relativehumidity_2m': 50 + 10 * rng.standard_normal((4, 8, 8))}}
+daily = make_fake_nc_file(os.path.join(tmp, 'trh.nc'), (8, 8, 4), trh,
+                          freq='D', data=data)
+topo = make_fake_topo_nc_file(os.path.join(tmp, 'topo.nc'), (30, 30),
+                              lat_range=(40.2, 38.8),
+                              lon_range=(-105.7, -104.1))
+SurfaceSpatialMetModel(trh, 2, device='cpu').save(os.path.join(tmp, 'sfc'))
+temporal = Sup3rGan(generator_cc_temporal(2, 24, 12, filters=8,
+                                          n_resblocks=1, chan_per_step=4),
+                    disc, meta={{'lr_features': trh, 'hr_out_features': trh,
+                                's_enhance': 1, 't_enhance': 24}},
+                    means={{'temperature_2m': 10.0,
+                           'relativehumidity_2m': 50.0}},
+                    stdevs={{'temperature_2m': 5.0,
+                            'relativehumidity_2m': 10.0}}, device='cpu')
+temporal.init_weights((1, 4, 4, 2, 2), (1, 4, 4, 48, 2))
+temporal.save(os.path.join(tmp, 'trh_gan'))
+strategy = ForwardPassStrategy(
+    file_paths=daily, model_class='MultiStepSurfaceMetGan',
+    model_kwargs={{'surface_model_kwargs': {{'model_dir': os.path.join(
+        tmp, 'sfc')}}, 'temporal_model_kwargs': {{'model_dirs': [
+            os.path.join(tmp, 'trh_gan')]}}, 'device': 'cpu'}},
+    fwp_chunk_shape=(4, 4, 2), spatial_pad=1, temporal_pad=1,
+    exo_handler_kwargs={{'topography': {{'source_file': topo}}}},
+    out_pattern=os.path.join(tmp, 'trh_out', 'chunk_{{file_id}}.nc'))
+ForwardPass.run(strategy, 0)
+files = sorted(f for f in os.listdir(os.path.join(tmp, 'trh_out'))
+               if f.endswith('.nc'))
+assert len(files) == 8, files
+data = LoaderNC(os.path.join(tmp, 'trh_out', files[0])).data
+assert data['temperature_2m'].shape == (8, 8, 48)
+assert np.isfinite(data['temperature_2m']).all()
+print('TRH CHAIN', len(files))
+
+uv = ['u_100m', 'v_100m']
+gen = [{{'class': 'Conv2D', 'filters': 8, 'kernel_size': 3, 'strides': 1,
+        'padding': 'same'}},
+       {{'class': 'SpatialExpansion', 'spatial_mult': 2}},
+       {{'class': 'LeakyReLU', 'alpha': 0.2}},
+       {{'class': 'Sup3rConcatObs', 'name': 'u_100m_obs'}},
+       {{'class': 'Sup3rObsModel', 'name': 'v_100m_obs', 'filters': 4}},
+       {{'class': 'Dropout', 'rate': 0.1}},
+       {{'class': 'Conv2D', 'filters': 2, 'kernel_size': 3, 'strides': 1,
+        'padding': 'same'}}]
+obs_gan = Sup3rGanWithObs(gen, disc, onshore_obs_frac={{'spatial_frac': 0.3}},
+                          meta={{'lr_features': uv, 'hr_out_features': uv,
+                                'input_resolution': {{'spatial': '12km',
+                                                     'temporal': '60min'}},
+                                's_enhance': 2, 't_enhance': 1}},
+                          means={{f: 0.5 for f in uv}},
+                          stdevs={{f: 0.3 for f in uv}}, device='cpu')
+obs_gan.init_weights((1, 4, 4, 2), (1, 8, 8, 2))
+details = obs_gan.run_gradient_descent(
+    rng.random((2, 4, 4, 2)), rng.random((2, 8, 8, 2)), train_gen=True,
+    train_disc=True)
+assert 0 < details['obs_frac'] < 1 and np.isfinite(details['loss_obs'])
+obs_gan.save(os.path.join(tmp, 'obs_gan'))
+inp = make_fake_nc_file(os.path.join(tmp, 'uv.nc'), (8, 8, 3), uv)
+obs = {{f: rng.random((3, 10, 10)) for f in uv}}
+for f in uv:
+    obs[f][rng.random((3, 10, 10)) > 0.2] = np.nan
+stations = make_fake_nc_file(os.path.join(tmp, 'stations.nc'), (10, 10, 3),
+                             uv, data=obs)
+strategy = ForwardPassStrategy(
+    file_paths=inp, model_class='Sup3rGanWithObs',
+    model_kwargs={{'model_dir': os.path.join(tmp, 'obs_gan'),
+                  'device': 'cpu'}},
+    fwp_chunk_shape=(4, 4, 3), spatial_pad=1, temporal_pad=0,
+    exo_handler_kwargs={{f'{{f}}_obs': {{'source_file': stations}}
+                        for f in uv}}, out_pattern=None)
+raster = strategy.exo_data['u_100m_obs']['steps'][0]['data']
+assert np.isnan(raster).any() and np.isfinite(raster).any()
+outs = ForwardPass.run(strategy, 0)
+assert len(outs) == 4 and all(np.isfinite(o).all() for o in outs.values())
+print('OBS FORWARD PASS', len(outs))
+
+handler = BatchHandlerDC([make_fake_dset((16, 16, 24), uv)],
+                         [make_fake_dset((16, 16, 24), uv)], batch_size=2,
+                         n_batches=2, s_enhance=2, t_enhance=1,
+                         sample_shape=(8, 8, 1), n_space_bins=2,
+                         n_time_bins=2)
+dc = Sup3rGanDC([{{'class': 'Conv2D', 'filters': 8, 'kernel_size': 3,
+                  'strides': 1, 'padding': 'same'}},
+                 {{'class': 'SpatialExpansion', 'spatial_mult': 2}},
+                 {{'class': 'Conv2D', 'filters': 2, 'kernel_size': 3,
+                  'strides': 1, 'padding': 'same'}}], disc, device='cpu')
+dc.train(handler, input_resolution={{'spatial': '30km',
+                                     'temporal': '60min'}},
+         n_epoch=1, out_dir=None)
+handler.stop()
+assert abs(float(np.sum(handler.spatial_weights)) - 1) < 1e-5
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not loaded, loaded
+print('DC TRAINED', len(dc.history))
+'''
+
+
+def _run_blocked(script):
     env = dict(os.environ)
     env['PYTHONPATH'] = os.pathsep.join(
         [ROOT] + [p for p in env.get('PYTHONPATH', '').split(os.pathsep)
                   if p])
-    proc = subprocess.run([sys.executable, '-c', _SCRIPT], cwd=ROOT,
+    return subprocess.run([sys.executable, '-c', script], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
+
+
+def test_trh_chain_obs_and_dc_run_with_jax_and_friends_blocked():
+    proc = _run_blocked(_SCRIPT_TRH_OBS_DC)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'TRH CHAIN 8' in proc.stdout
+    assert 'OBS FORWARD PASS 4' in proc.stdout
+    assert 'DC TRAINED 1' in proc.stdout
+
+
+def test_port_serves_with_jax_and_friends_blocked():
+    proc = _run_blocked(_SCRIPT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'SERVED (1, 12, 12, 12, 2)' in proc.stdout
     assert 'FORWARD PASS 8' in proc.stdout

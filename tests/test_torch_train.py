@@ -209,15 +209,20 @@ def test_not_ported_options_raise():
                     n_epoch=1, tensorboard_log=True)
     with pytest.raises(NotImplementedError, match='chunked_io'):
         _handler(2, 1, (10, 10, 1), mode='lazy')
-    with pytest.raises(NotImplementedError, match='model-family'):
-        Sup3rGan(_small_gen_s(), {'hidden_layers': [
-            {'class': 'Dropout', 'rate': 0.1}]}, device='cpu')
+    model.train_remat = True
+    with pytest.raises(NotImplementedError, match='train_remat'):
+        model._maybe_remat(lambda x, exo: x)(
+            torch.zeros(1), {}, train=True, dropout_generator=None)
+    model.train_remat = False
     for module, name, item in (
-            ('preprocessing.batch_handlers', 'BatchHandlerDC', 'item 7'),
+            ('preprocessing.batch_handlers', 'BatchHandlerMom1SF', 'item 7'),
             ('preprocessing.batch_handlers', 'BatchHandlerMom1', 'item 7'),
             ('preprocessing.batch_queues', 'QueueMom1', 'item 7'),
-            ('preprocessing.samplers', 'SamplerDC', 'item 7'),
-            ('models', 'Sup3rGanDC', 'item 7')):
+            ('preprocessing.batch_queues', 'ConditionalBatchQueue',
+             'item 7'),
+            ('models', 'Sup3rCondMom', 'item 7'),
+            ('ops.coarsen', 'temporal_simple_enhancing', 'item 7'),
+            ('utilities', 'port', 'item 7')):
         mod = importlib.import_module(f'sup3r_tpu_torch.{module}')
         with pytest.raises(NotImplementedError, match=item):
             getattr(mod, name)

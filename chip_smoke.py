@@ -17,7 +17,8 @@ exits non-zero:
    accumulation order; ``reflect_conv`` runs 3xTF32 on the tensor cores,
    whose split drops ~2^-22 relative per product). ``small_reflect_conv``
    also at the shipped 8 -> 1 and 8 -> 3 tails and at the edges of its
-   tiling and at the WithObs tail's ci 12 (``SMALL_CHECKS``);
+   tiling, at the WithObs tail's ci 12 and at the batch-1 tail of a
+   CondMom forward-pass chunk (``SMALL_CHECKS``);
    ``reflect_conv``'s 2D path at the eight
    block shapes of the Sup3rCC chain's step 0 (``CHAIN_2D_SHAPES``: ci 7
    / 64 / 65, co 64 / 1600 / 6, 14 x 14 and 70 x 70, batch = time 6)
@@ -188,10 +189,47 @@ exits non-zero:
    tail are held to their plain versions and timed for the ``kernels``
    line (``trh_chain_shapes``, ``obs_shape``).
 
+13. the conditional-moment family, training sessions and the reference
+   import (printed before the ``kernels`` line): the flagship generator
+   as a ``Sup3rCondMom`` (64 filters, 16 residual blocks, seed 0). One
+   Mom1 step at batch 2 on the card against the port's CPU step (Adam
+   epsilon 1; the loss within 1e-4, weights, mu and nu as phase 7 holds
+   them, against the fp32 conditioning a float64 step shows); the Mom1
+   training cell (phase 7's batch from ``default_rng(1)`` with a mask of
+   s_padding 1 and t_padding 1): median step ms of 12 after 3 warm-ups,
+   launches per step (``small_reflect_conv`` 1), the step's peak, one
+   profiled step (idle share); ``Sup3rCondMom.train`` over a
+   ``BatchHandlerMom1`` of fake (72, 72, 240) u/v data through a
+   ``TrainingSession`` with ``tensorboard_log=True`` (2 epochs of 4
+   batches of 16, validation; without the tensorboard package it warns
+   and finishes): s per batch, starvation; a ``BatchHandlerMom2`` whose
+   producer thread runs that model on the card for the targets: its
+   loop's s per batch and starvation, and 4 batches' targets against
+   ``(hr - mom1.generate(lr))^2`` on the card (1e-5 of max: TF32 stayed
+   off in the producer thread), then 3 times one step of that model
+   queued behind a sleep and followed at once by its ``batch_output`` on
+   its side stream, held to its ``generate`` (the side stream waited for
+   the new weights); the Mom1
+   checkpoint through the chunked ``ForwardPass(model_class=
+   'Sup3rCondMom')`` on phase 6's cell chunk by chunk (3 timed passes, HR
+   voxels/s, ``small_reflect_conv`` once a chunk, every file read back;
+   the last pass hooks the tail's calls by shape, all at
+   ``COND_FWP_TAIL_SHAPE``, and holds its first full-size chunk to the
+   port's CPU ``generate`` at 1e-4 of max) and a small domain against the
+   port's CPU pass (1e-4); phase 7's flagship exported with
+   ``export_reference_gan`` and read back with
+   ``load_reference_gan(device='cuda')`` (one request within 1e-6); and
+   ``Sup3rGan.train(tensorboard_profile=True)`` over phase 7's loop (the
+   trace file's size, the profiled epoch's seconds against an
+   unprofiled one's). After the phase, ``small_reflect_conv`` is held to
+   its plain version and timed at ``COND_FWP_TAIL_SHAPE`` for the
+   ``kernels`` line (``cond_mom_fwp_shape``).
+
 Before the ``kernels`` line, ``phase_seconds`` gives the seconds each
 phase took. The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import glob
 import json
 import os
 import shutil
@@ -199,6 +237,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from collections import Counter
 
 import numpy as np
@@ -209,6 +248,7 @@ from sup3r_tpu_torch.configs import generator_cc_spatial, get_config
 from sup3r_tpu_torch.models import (
     MultiStepGan,
     SolarCC,
+    Sup3rCondMom,
     Sup3rGan,
     Sup3rGanDC,
     Sup3rGanWithObs,
@@ -229,10 +269,14 @@ from sup3r_tpu_torch.preprocessing import LoaderNC
 from sup3r_tpu_torch.models.gan import relativistic_disc_loss
 from sup3r_tpu_torch.models.weights import params_from_jax, params_to_jax
 from sup3r_tpu_torch.ops.conv_ad import _fold_reflect_halos, reflect_conv_ad
+from sup3r_tpu_torch.models.utilities import TrainingSession
 from sup3r_tpu_torch.preprocessing import (
     BatchHandler,
     BatchHandlerCC,
     BatchHandlerDC,
+    BatchHandlerMom1,
+    BatchHandlerMom2,
+    ConditionalBatch,
     DataHandler,
     DataHandlerH5SolarCC,
     DualBatchHandler,
@@ -255,6 +299,10 @@ from sup3r_tpu_torch.ops.kernels import (
     small_reflect_conv_packed,
 )
 from sup3r_tpu_torch.utilities import Timer, exact_fp32
+from sup3r_tpu_torch.utilities.port import (
+    export_reference_gan,
+    load_reference_gan,
+)
 
 #: (memory bytes/s, fp32 CUDA-core FLOP/s, dense TF32 tensor-core
 #: FLOP/s) from NVIDIA's data sheets, by a substring of the card's name;
@@ -292,6 +340,10 @@ BODY_SHAPES = (((16, 2, 20, 20, 24), 64, 0.2, 1),
 #: the HR tail's input; the flagship's tail goes to 2 channels, the
 #: shipped gen_3x_4x_1f's to 1, gen_4x_24x_3f's to 3
 TAIL_SHAPE = (16, 8, 60, 60, 96)
+#: the tail's input in phase 13's chunk-by-chunk forward pass: one
+#: chunk of phase 6's cell, (16, 16, 20) padded by 2 on each side, at
+#: 3x / 4x
+COND_FWP_TAIL_SHAPE = (1, 8, 60, 60, 96)
 #: ``small_reflect_conv`` checks beyond the three tails without
 #: LeakyReLU: (x shape, co, alpha). The kernel tiles (h, w, t) by (6, 10,
 #: 32) at co <= 2 (4 and 2 rows at co = 3, 4), 4 t per thread, tensor
@@ -306,6 +358,7 @@ SMALL_CHECKS = (
     ((2, 8, 13, 17, 64), 2, None),   # (H, W) the tile does not divide
     ((2, 4, 7, 5, 9), 5, 0.2),       # ragged everywhere, ci * co = 20
     ((16, 12, 36, 36, 48), 2, None),  # the WithObs training tail, ci 12
+    (COND_FWP_TAIL_SHAPE, 2, None),  # a CondMom forward-pass chunk's tail
 )
 
 
@@ -1107,10 +1160,11 @@ def tail_backward_ms():
     return {'dgrad_ms': dgrad, 'wgrad_ms': wgrad}
 
 
-def train_profile(model, lr, hr):
-    """One step under ``torch.profiler``: device-busy ms against the wall
-    time (idle share), the small kernel's device time and the kernels
-    that take the most."""
+def train_profile(model, lr, hr, step=None):
+    """One step (``step()``, else a GAN step on (lr, hr)) under
+    ``torch.profiler``: device-busy ms against the wall time (idle
+    share), the small kernel's device time and the kernels that take the
+    most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1118,7 +1172,10 @@ def train_profile(model, lr, hr):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.run_gradient_descent(lr, hr, W_ADV, True, True)
+        if step is None:
+            model.run_gradient_descent(lr, hr, W_ADV, True, True)
+        else:
+            step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = sorted((e for e in prof.key_averages()
@@ -2866,6 +2923,473 @@ def dc_phase(name):
     return {k: (v - 2 * n_val * (k == 'small_reflect_conv')) / 8
             for k, v in launches.items()}
 
+#: phase 13: the conditional-moment family. The Mom1 cell is phase 7's
+#: batch with a mask of s_padding 1, t_padding 1 (the target is the HR
+#: batch); the loops run over fake (72, 72, 240) u/v data
+COND_PADDING = {'s_padding': 1, 't_padding': 1}
+COND_DATA = (72, 72, 240)
+
+
+def cond_mom_model(device, optimizer=None):
+    """The full-width flagship generator as a ``Sup3rCondMom``,
+    initialized for the training cell from seed 0."""
+    model = Sup3rCondMom(get_config('spatiotemporal/gen_3x_4x_2f'),
+                         optimizer=optimizer, learning_rate=TRAIN_LR_RATE,
+                         device=device)
+    model.init_weights((1,) + TRAIN_LR, seed=0)
+    return model
+
+
+def cond_batch(n, seed=1):
+    """Phase 7's batch as a Mom1 ``ConditionalBatch``: the target is the
+    HR batch, the mask zero on the padding."""
+    lr, hr = train_batch(n, seed)
+    mask = np.zeros_like(hr)
+    mask[:, 1:-1, 1:-1, 1:-1] = 1.0
+    return ConditionalBatch(lr, hr, hr, mask)
+
+
+def cond_handler(cls, **kwargs):
+    """A conditional handler over fake u/v train and validation data: 4
+    batches of 16 per epoch, phase 7's shapes."""
+    return cls([make_fake_dset(COND_DATA, FWP_FEATURES)],
+               [make_fake_dset((72, 72, 96), FWP_FEATURES)],
+               batch_size=TRAIN_BATCH, n_batches=4, s_enhance=3,
+               t_enhance=4, sample_shape=TRAIN_HR[:3],
+               queue_kwargs={**COND_PADDING, **kwargs})
+
+
+def cond_grads(model, batch):
+    """The masked loss's gradients at one batch, computed as
+    ``Sup3rCondMom._train_step`` computes them, in the model's dtype."""
+    dtype = model.gen_params[0].dtype
+    lr, _, target, mask = (torch.as_tensor(a, dtype=dtype,
+                                           device=model.device)
+                           for a in batch)
+    with exact_fp32():
+        out = model._train_gen_net().apply(lr, {})
+        loss = model.loss_fun(out * mask, target * mask)
+        return torch.autograd.grad(loss, model.gen_params)
+
+
+def cond_step_check():
+    """Phase 13a: one Mom1 step at batch 2 on the card against the port's
+    CPU step from the same weights and batch (Adam epsilon 1): the loss
+    within 1e-4; the weights and mu within 1e-4 of each tensor's largest
+    magnitude, or within the step's fp32 conditioning where that is
+    wider, nu within twice that (quadratic in the gradient). The
+    conditioning is measured as ``step_check`` measures it: both
+    devices' gradients (mu / 0.1 after one step) against a float64 step
+    on the card, the card's within 2x the CPU's (or 1e-4)."""
+    batch = cond_batch(CHECK_BATCH, seed=2)
+    ref = cond_mom_model('cuda')
+    ref._gen.double()
+    exact = cond_grads(ref, batch)
+    del ref
+    card, cpu = (cond_mom_model(d, CHECK_OPT) for d in ('cuda', 'cpu'))
+    got, want = (m.run_gradient_descent(batch) for m in (card, cpu))
+    e_cpu, e_card = (rel_err([mu / 0.1 for mu in m._gen_opt_state['mu']],
+                             exact) for m in (cpu, card))
+    tol = max(PARITY_RTOL, 2 * (e_cpu + e_card))
+    errs = {'loss_gen': abs(got['loss_gen'] - want['loss_gen'])
+            / abs(want['loss_gen'])}
+    errs['param'] = rel_err(list(card._gen.parameters()),
+                            list(cpu._gen.parameters()))
+    for key in ('mu', 'nu'):
+        errs[key] = rel_err(card._gen_opt_state[key],
+                            cpu._gen_opt_state[key])
+    ok = bool(errs['loss_gen'] <= PARITY_RTOL
+              and e_card <= max(PARITY_RTOL, 2 * e_cpu)
+              and errs['param'] <= tol and errs['mu'] <= tol
+              and errs['nu'] <= 2 * tol)
+    emit(phase='cond_mom_train_check', batch=CHECK_BATCH, losses_card=got,
+         rel_err=errs, loss_tol=PARITY_RTOL, tol=tol,
+         fp32_conditioning={'cpu_vs_float64': e_cpu,
+                            'card_vs_float64': e_card}, ok=ok)
+    if not ok:
+        raise AssertionError(f'cond mom step: card vs CPU {errs}')
+    return max(errs.values())
+
+
+def cond_step_cell(name):
+    """Phase 13b: the Mom1 training cell, timed (median of 12 steps after
+    3 warm-ups, host clock, loss fetch included), its launches, the
+    step's peak memory and one profiled step."""
+    model = cond_mom_model('cuda')
+    batch = ConditionalBatch(*[torch.as_tensor(a, device='cuda')
+                               for a in cond_batch(TRAIN_BATCH)])
+    for _ in range(N_WARM_STEPS):
+        model.run_gradient_descent(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    times = []
+    for _ in range(N_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses = model.run_gradient_descent(batch)
+        times.append(1e3 * (time.perf_counter() - t0))
+    per_step = {k: v / N_TRAIN_STEPS for k, v in launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(times))
+    prof = train_profile(model, None, None,
+                         step=lambda: model.run_gradient_descent(batch))
+    ok = bool(per_step == {'small_reflect_conv': 1, 'reflect_conv': 0}
+              and np.isfinite(losses['loss_gen']))
+    emit(phase='cond_mom_train_step', model='spatiotemporal/gen_3x_4x_2f',
+         queue='QueueMom1', padding=COND_PADDING, batch=TRAIN_BATCH,
+         lr_shape=list(TRAIN_LR), hr_shape=list(TRAIN_HR),
+         steps=N_TRAIN_STEPS, step_ms=times, median_step_ms=median,
+         spread_ms=[float(np.min(times)), float(np.max(times))],
+         hr_voxels_per_s=TRAIN_BATCH * int(np.prod(TRAIN_HR[:3]))
+         / (median / 1e3), launches_per_step=per_step, losses=losses,
+         peak_device_gb=peak / 1e9, step_peak_gb=(peak - before) / 1e9,
+         nvidia_smi=name, ok=ok, **prof)
+    if not ok:
+        raise AssertionError(f'cond mom cell: launches {per_step}, '
+                             f'losses {losses}')
+    return per_step
+
+
+def epoch_split(history, val_s, n_batches=4):
+    """(epoch seconds, s per batch without validation) of a history."""
+    epoch_s = np.diff([0.0] + list(history['elapsed_time']))
+    return list(epoch_s), float(np.mean(epoch_s - val_s)) / n_batches
+
+
+def cond_mom1_loop(name, tmp):
+    """Phase 13c: ``Sup3rCondMom.train`` of the flagship over a
+    ``BatchHandlerMom1`` through a ``TrainingSession`` with
+    ``tensorboard_log=True`` (2 epochs of 4 batches of 16, validation,
+    checkpoints): without the tensorboard package it warns and goes on.
+    Returns the trained model and its last checkpoint."""
+    handler = cond_handler(BatchHandlerMom1)
+    model = Sup3rCondMom(get_config('spatiotemporal/gen_3x_4x_2f'),
+                         learning_rate=TRAIN_LR_RATE)
+    out_dir = os.path.join(tmp, 'runs', 'mom1_{epoch}')
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        TrainingSession(handler, model, input_resolution={
+            'spatial': '3km', 'temporal': '60min'}, n_epoch=2,
+            out_dir=out_dir, tensorboard_log=True).run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    model.calc_val_loss(handler)
+    val_s = time.perf_counter() - t0
+    handler.stop()
+    tb_warned = any('tensorboard' in str(w.message) for w in caught)
+    events = glob.glob(os.path.join(tmp, 'runs', 'logs', 'events.*'))
+    history = model.history
+    epoch_s, per_batch = epoch_split(history, val_s)
+    loaded = Sup3rCondMom.load(out_dir.format(epoch=1))
+    ok = bool(len(history) == 2 and all(
+        np.isfinite(history[c]).all()
+        for c in ('train_loss_gen', 'val_loss_gen'))
+        and launches == {'small_reflect_conv': 16, 'reflect_conv': 0}
+        and (tb_warned or len(events) == 1)
+        and loaded._gen_opt_state['count'] == 8)
+    emit(phase='cond_mom1_loop', epochs=2, batches_per_epoch=4,
+         batch=TRAIN_BATCH, wall_s=wall_s, epoch_s=epoch_s,
+         validation_s_per_epoch=val_s, s_per_batch=per_batch,
+         starvation_rate=handler._queue.starvation_rate,
+         tensorboard=('warned: not importable' if tb_warned
+                      else f'{len(events)} event files'),
+         history={c: list(history[c]) for c in history.columns},
+         launches=launches, nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError('cond mom1 loop: history, launches, '
+                             'tensorboard or checkpoint failed')
+    return model, out_dir.format(epoch=1)
+
+
+def cond_mom2_loop(name, mom1):
+    """Phase 13d: ``Sup3rCondMom.train`` over a ``BatchHandlerMom2``
+    whose producer thread runs ``mom1`` (the full-width flagship) on the
+    card for each batch's target (2 epochs of 4 batches); then 4 more
+    batches stepped by hand while each target is held to ``(hr -
+    mom1.generate(lr))^2`` on the card (1e-5 of its largest magnitude;
+    TF32 would miss by ~1e-3): the producer's model and the step ran in
+    exact fp32 side by side."""
+    handler = cond_handler(BatchHandlerMom2, lower_models={1: mom1})
+    model = Sup3rCondMom(get_config('spatiotemporal/gen_3x_4x_2f'),
+                         learning_rate=TRAIN_LR_RATE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.train(handler, input_resolution={'spatial': '3km',
+                                           'temporal': '60min'},
+                n_epoch=2, out_dir=None)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.calc_val_loss(handler)
+    val_s = time.perf_counter() - t0
+    starvation = handler._queue.starvation_rate
+    epoch_s, per_batch = epoch_split(model.history, val_s)
+    errs = []
+    try:
+        for batch in handler:
+            model.run_gradient_descent(batch)
+            want = (batch.high_res - torch.as_tensor(mom1.generate(
+                batch.low_res, norm_in=False, un_norm_out=False),
+                device='cuda')) ** 2
+            errs.append(float((batch.output - want).abs().max())
+                        / float(want.abs().max()))
+    finally:
+        handler.stop()
+    rewrite_err = batch_output_after_step(mom1)
+    ok = bool(len(errs) == 4 and max(errs) <= KERNEL_RTOL
+              and rewrite_err <= KERNEL_RTOL
+              and np.isfinite(model.history['val_loss_gen']).all())
+    emit(phase='cond_mom2_loop', epochs=2, batches_per_epoch=4,
+         batch=TRAIN_BATCH, wall_s=wall_s, epoch_s=epoch_s,
+         validation_s_per_epoch=val_s, s_per_batch=per_batch,
+         starvation_rate=starvation,
+         target_rel_err_vs_generate=errs, tol=KERNEL_RTOL,
+         batch_output_after_step_rel_err=rewrite_err,
+         history={c: list(model.history[c])
+                  for c in model.history.columns}, nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'cond mom2 targets {errs}, batch_output '
+                             f'after a step {rewrite_err} or history '
+                             f'failed')
+    return max(errs)
+
+
+def batch_output_after_step(mom1, n=3):
+    """``n`` times: one train step of ``mom1`` queued behind ~0.3 s of
+    sleep on the current stream, then at once its ``batch_output`` (on
+    its side stream) on phase 7's batch, against its ``generate`` (on
+    the step's stream) after the step: the side stream must wait for the
+    step's weight updates, or it reads the old weights (errors of
+    0.7-3.7 on the card without the wait). Returns the largest error
+    relative to the output's largest magnitude."""
+    batch = cond_batch(TRAIN_BATCH)
+    errs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(500_000_000)
+        mom1._train_step(*(mom1._place_batch(a) for a in batch))
+        got = mom1.batch_output(batch.low_res, batch.high_res)
+        want = mom1.generate(batch.low_res, norm_in=False,
+                             un_norm_out=False)
+        errs.append(float(np.abs(got - want).max())
+                    / float(np.abs(want).max()))
+    return max(errs)
+
+
+def small_tail_calls(net):
+    """Forward pre-hooks on the fused blocks of ``net`` that
+    ``small_reflect_conv`` takes on the card; returns (calls, remove):
+    ``calls`` counts each call by (input shape, co, alpha)."""
+    calls = Counter()
+
+    def hook(m, args):
+        if m.small_channel_kernel and m._small_ok(args[0], m.weight):
+            calls[(tuple(args[0].shape), m.conv.bias.shape[0],
+                   m.alpha)] += 1
+
+    hooks = [lyr.register_forward_pre_hook(hook) for lyr in net.layers
+             if isinstance(lyr, FusedReflectConv)]
+
+    def remove():
+        for h in hooks:
+            h.remove()
+
+    return calls, remove
+
+
+def capture_first_generate(model):
+    """Wrap ``model.generate`` to keep its first call's arguments and
+    output; returns (captured, restore)."""
+    captured = []
+
+    def generate(low_res, *args, **kwargs):
+        out = type(model).generate(model, low_res, *args, **kwargs)
+        if not captured:
+            lr = (low_res.cpu().numpy() if torch.is_tensor(low_res)
+                  else np.array(low_res))
+            captured.append((lr, args, kwargs, out.copy()))
+        return out
+
+    model.generate = generate
+    return captured, lambda: delattr(model, 'generate')
+
+
+def cond_fwp(name, tmp, model_dir):
+    """Phase 13e: the Mom1 checkpoint through the chunked ForwardPass on
+    phase 6's cell, chunk by chunk: a warm-up, 3 timed passes to NetCDF
+    (wall s, HR voxels/s, ``small_reflect_conv`` once per chunk), every
+    file read back. The last pass hooks the tail's calls by shape (each
+    at ``COND_FWP_TAIL_SHAPE``, as many as the launches) and holds its
+    first full-size chunk to the port's CPU ``generate`` of the same
+    checkpoint (1e-4 of max); on a small domain every chunk against the
+    port's CPU pass (1e-4 of max). Returns the launches per pass and the
+    tail's calls by shape."""
+    rng = np.random.default_rng(0)
+    s1, s2, t = FWP_DOMAIN
+    input_file = make_fake_nc_file(
+        os.path.join(tmp, 'cond_input.nc'), FWP_DOMAIN, FWP_FEATURES,
+        data={f: rng.standard_normal((t, s1, s2)) * 0.3 + 0.5
+              for f in FWP_FEATURES})
+
+    def strategy(path, out_pattern, device='cuda', **kwargs):
+        kw = dict(file_paths=path, model_class='Sup3rCondMom',
+                  model_kwargs={'model_dir': model_dir, 'device': device},
+                  fwp_chunk_shape=FWP_CHUNK, spatial_pad=FWP_PAD,
+                  temporal_pad=FWP_PAD, out_pattern=out_pattern)
+        return ForwardPassStrategy(**{**kw, **kwargs})
+
+    ForwardPass.run(strategy(input_file, os.path.join(
+        tmp, 'cond_warm', 'chunk_{file_id}.nc')), 0)
+    walls, launches = [], None
+    for i in range(N_FWP_PASSES):
+        out_dir = os.path.join(tmp, f'cond_fwp_{i}')
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = strategy(input_file, os.path.join(out_dir, 'chunk_{file_id}.nc'))
+        last = i == N_FWP_PASSES - 1
+        if last:
+            model = st.get_model()
+            calls, remove = small_tail_calls(model._train_gen_net())
+            captured, restore = capture_first_generate(model)
+        try:
+            RecordedForwardPass.run(st, 0)
+            torch.cuda.synchronize()
+        finally:
+            if last:
+                remove()
+                restore()
+        walls.append(time.perf_counter() - t0)
+        launches = launch_counts()
+        n_chunks = st.fwp_slicer.n_chunks
+        hr_shape = check_fwp_files(st, out_dir)
+        if launches != {'small_reflect_conv': n_chunks, 'reflect_conv': 0}:
+            raise AssertionError(f'cond mom forward pass: launches '
+                                 f'{launches} for {n_chunks} chunks')
+        emit(phase='cond_mom_forward_pass', pass_index=i, chunks=n_chunks,
+             hr_shape=hr_shape, wall_s=walls[-1],
+             hr_voxels_per_s=int(np.prod(hr_shape)) / walls[-1],
+             timer_s=RecordedForwardPass.last.timer.log, launches=launches)
+    want_calls = {(COND_FWP_TAIL_SHAPE, 2, None): n_chunks}
+    lr, args, kwargs, got = captured[0]
+    want = Sup3rCondMom.load(model_dir, device='cpu').generate(
+        lr, *args, **kwargs)
+    chunk_err = float(np.abs(got - want).max())
+    chunk_tol = PARITY_RTOL * float(np.abs(want).max())
+    ok = bool(dict(calls) == want_calls and got.shape == want.shape
+              and np.isfinite(got).all() and chunk_err <= chunk_tol)
+    emit(phase='cond_mom_forward_pass_chunk', lr_shape=list(lr.shape),
+         hr_shape=list(got.shape), max_abs_err=chunk_err, tol=chunk_tol,
+         calls_by_shape=[[list(x), co, a, n]
+                         for (x, co, a), n in calls.items()], ok=ok)
+    if not ok:
+        raise AssertionError(f'cond mom forward pass: tail calls '
+                             f'{dict(calls)} (want {want_calls}), chunk '
+                             f'vs CPU {chunk_err} > {chunk_tol}')
+    small = make_fake_nc_file(
+        os.path.join(tmp, 'cond_small.nc'), (8, 8, 12), FWP_FEATURES,
+        data={f: np.random.default_rng(i + 5).standard_normal(
+            (12, 8, 8)) * 0.3 + 0.5 for i, f in enumerate(FWP_FEATURES)})
+    kw = dict(fwp_chunk_shape=(4, 4, 6), spatial_pad=1, temporal_pad=1)
+    card = ForwardPass.run(strategy(small, None, **kw), 0)
+    cpu = ForwardPass.run(strategy(small, None, device='cpu', **kw), 0)
+    scale = max(float(np.abs(v).max()) for v in cpu.values())
+    err = max(float(np.abs(card[i] - cpu[i]).max()) for i in cpu)
+    ok = bool(sorted(card) == sorted(cpu) and err <= PARITY_RTOL * scale)
+    emit(phase='cond_mom_forward_pass_route', wall_s=walls,
+         hr_voxels_per_s=int(np.prod(FWP_DOMAIN)) * 9 * 4 / float(
+             np.median(walls)), launches_per_pass=launches,
+         cpu_check={'chunks': len(cpu), 'max_abs_err': err,
+                    'tol': PARITY_RTOL * scale}, nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'cond mom forward pass: card vs CPU {err}')
+    return launches, dict(calls)
+
+
+def reference_import_check(name, tmp):
+    """Phase 13f: phase 7's flagship ``Sup3rGan`` exported with
+    ``export_reference_gan`` and read back with ``load_reference_gan(...,
+    device='cuda')``: one request (phase 3's input) equal to the
+    original's within 1e-6 of max."""
+    model = train_model('cuda')
+    ref_dir = os.path.join(tmp, 'reference')
+    export_reference_gan(model, ref_dir)
+    loaded = load_reference_gan(ref_dir, lr_shape=(1,) + TRAIN_LR,
+                                hr_shape=(1,) + TRAIN_HR, device='cuda')
+    lr = np.random.default_rng(0).standard_normal(LR_SHAPE).astype(
+        np.float32) * 0.3 + 0.5
+    want = model.generate(lr)
+    got = loaded.generate(lr)
+    err = float(np.abs(got - want).max())
+    tol = 1e-6 * float(np.abs(want).max())
+    ok = bool(got.shape == HR_SHAPE and err <= tol)
+    emit(phase='reference_import', files=sorted(os.listdir(ref_dir)),
+         shape=list(got.shape), max_abs_err=err, tol=tol, ok=ok)
+    if not ok:
+        raise AssertionError(f'reference import: {err} > {tol}')
+
+
+def profiled_epoch(name, tmp):
+    """Phase 13g: ``Sup3rGan.train(tensorboard_profile=True)`` over phase
+    7's loop: one warm epoch, then a call of 2 epochs whose first is
+    recorded by ``torch.profiler``; the trace file's size and the
+    profiled epoch's seconds against the unprofiled one's."""
+    handler = BatchHandler(
+        [make_fake_dset(COND_DATA, FWP_FEATURES)],
+        [make_fake_dset((72, 72, 96), FWP_FEATURES)],
+        batch_size=TRAIN_BATCH, n_batches=4, s_enhance=3, t_enhance=4,
+        sample_shape=TRAIN_HR[:3])
+    model = Sup3rGan(get_config('spatiotemporal/gen_3x_4x_2f'),
+                     get_config('spatiotemporal/disc_test'),
+                     learning_rate=TRAIN_LR_RATE)
+    res = {'spatial': '3km', 'temporal': '60min'}
+    out_dir = os.path.join(tmp, 'profiled', 'gan_{epoch}')
+    model.train(handler, input_resolution=res, n_epoch=1,
+                weight_gen_advers=W_ADV, out_dir=None)
+    model.train(handler, input_resolution=res, n_epoch=2,
+                weight_gen_advers=W_ADV, out_dir=out_dir,
+                tensorboard_profile=True)
+    traces = glob.glob(os.path.join(tmp, 'profiled', 'profile',
+                                    '*.pt.trace.json'))
+    epoch_s = np.diff(list(model.history['elapsed_time']))
+    # elapsed_time restarts with each call: epochs 1 and 2 are the
+    # second call's first (profiled) and second
+    profiled_s = float(model.history['elapsed_time'][1])
+    plain_s = float(epoch_s[-1])
+    ok = len(traces) == 1 and len(model.history) == 3
+    emit(phase='profiled_epoch', trace_files=len(traces),
+         trace_mb=(os.path.getsize(traces[0]) / 2 ** 20 if traces else None),
+         profiled_epoch_s=profiled_s, unprofiled_epoch_s=plain_s,
+         overhead=profiled_s / plain_s - 1, nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'tensorboard_profile wrote {traces}')
+
+
+def cond_mom_phase(name):
+    """Phase 13: the conditional-moment family on the card; returns the
+    launches per Mom1 train step and per forward pass."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_cond_')
+    try:
+        check_err = cond_step_check()
+        per_step = cond_step_cell(name)
+        mom1, mom1_dir = cond_mom1_loop(name, tmp)
+        target_err = cond_mom2_loop(name, mom1)
+        per_pass, fwp_calls = cond_fwp(name, tmp, mom1_dir)
+        reference_import_check(name, tmp)
+        profiled_epoch(name, tmp)
+        return {'per_step': per_step, 'per_pass': per_pass,
+                'fwp_calls': fwp_calls,
+                'train_check_rel_err': check_err,
+                'mom2_target_rel_err': target_err}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3120,6 +3644,19 @@ def main():
         grad_max_abs_err=obs['grad_max_abs_err'],
         launches_per_obs_train_step=obs['per_step']['small_reflect_conv'])
     mark('12_kernel_checks_and_timings')
+    # 13. the conditional-moment family, TrainingSession, profiling and
+    # the reference import
+    cond = cond_mom_phase(smi)
+    mark('13_cond_mom')
+    cond_inputs = conv_inputs(gen, COND_FWP_TAIL_SHAPE, 2)
+    cond_tail = dict(
+        timing('small_reflect_conv', small_reflect_conv_cf, *cond_inputs,
+               None),
+        max_abs_err=check_kernel('small_reflect_conv', small_reflect_conv_cf,
+                                 *cond_inputs, None),
+        launches_per_cond_mom_fwp_pass=cond['fwp_calls'][
+            (COND_FWP_TAIL_SHAPE, 2, None)])
+    mark('13_kernel_checks_and_timings')
     emit(phase='phase_seconds', seconds=seconds,
          total_s=sum(seconds.values()))
 
@@ -3157,6 +3694,14 @@ def main():
                           'small_reflect_conv'],
                       launches_per_dc_train_step=per_dc_step[
                           'small_reflect_conv'],
+                      launches_per_cond_mom_train_step=cond['per_step'][
+                          'small_reflect_conv'],
+                      launches_per_cond_mom_fwp_pass=cond['per_pass'][
+                          'small_reflect_conv'],
+                      cond_mom_train_check_rel_err=cond[
+                          'train_check_rel_err'],
+                      cond_mom2_target_rel_err=cond['mom2_target_rel_err'],
+                      cond_mom_fwp_shape=cond_tail,
                       obs_shape=obs_tail,
                       obs_train_check_rel_err=obs['train_check_rel_err'],
                       train_shape=dict(
@@ -3182,6 +3727,10 @@ def main():
                       launches_per_obs_train_step=obs['per_step'][
                           'reflect_conv'],
                       launches_per_dc_train_step=per_dc_step[
+                          'reflect_conv'],
+                      launches_per_cond_mom_train_step=cond['per_step'][
+                          'reflect_conv'],
+                      launches_per_cond_mom_fwp_pass=cond['per_pass'][
                           'reflect_conv'],
                       launches_per_train_step=0,
                       **per_mode('reflect_conv'))]

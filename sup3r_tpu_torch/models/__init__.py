@@ -1,9 +1,10 @@
 """Models of the port: Sup3rGan (serving and training) and its network,
 the LinearInterp baseline, MultiStepGan chains, the Sup3rCC solar models
 (SolarCC, SolarMultiStepGan), the physics SurfaceSpatialMetModel and its
-MultiStepSurfaceMetGan chain, the observation-fused Sup3rGanWithObs and
-the data-centric Sup3rGanDC."""
+MultiStepSurfaceMetGan chain, the observation-fused Sup3rGanWithObs, the
+data-centric Sup3rGanDC and the conditional-moment Sup3rCondMom."""
 
+from sup3r_tpu_torch.models.conditional import Sup3rCondMom  # noqa: F401
 from sup3r_tpu_torch.models.dc import Sup3rGanDC  # noqa: F401
 from sup3r_tpu_torch.models.gan import Sup3rGan  # noqa: F401
 from sup3r_tpu_torch.models.linear import LinearInterp  # noqa: F401
@@ -21,9 +22,3 @@ from sup3r_tpu_torch.models.weights import (  # noqa: F401
     params_from_jax,
 )
 from sup3r_tpu_torch.models.with_obs import Sup3rGanWithObs  # noqa: F401
-from sup3r_tpu_torch.utilities import not_ported
-
-__getattr__ = not_ported(
-    __name__, ('Sup3rCondMom',),
-    'ROADMAP queue 1 item 7, the conditional-moment model and its train '
-    'step (the next slice)')

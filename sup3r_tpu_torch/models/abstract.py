@@ -1,11 +1,14 @@
 """Model base classes (the port of ``sup3r_tpu/models/abstract.py``):
-the inference contract, meta and feature properties, normalization
-stats, the forward-pass exo combine (input- and output-resolution
-channels of structured ``ExoData``), the save
-directory's ``model_params.json``, and the training surface: the content
-loss, training-session params, the rolling loss record, the per-epoch
-history (a pandas-free ``Record``, written as ``history.csv``), early
-stopping, and the train step's options (``train_dtype``,
+the inference contract, meta and feature properties, the single
+generator's params, fused train network, batch placement and exo
+parsing, normalization stats, the forward-pass exo combine (input- and
+output-resolution channels of structured ``ExoData``), the save
+directory's ``model_params.json`` and the checkpoints in the JAX
+package's layout, and the training surface: the content loss,
+training-session params, the rolling loss record, the epoch loop with
+its per-epoch history (a pandas-free ``Record``, written as
+``history.csv``), tensorboard logging and profiling, early stopping and
+checkpoint cadence, and the train step's options (``train_dtype``,
 ``train_remat``).
 """
 
@@ -16,14 +19,31 @@ import logging
 import os
 import platform
 import sys
+import time
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 import sup3r_tpu_torch
+from sup3r_tpu_torch.models.fuse import fuse_network
 from sup3r_tpu_torch.models.network import Network
 from sup3r_tpu_torch.models.record import Record
+from sup3r_tpu_torch.models.utilities import (
+    make_tb_writer,
+    profile_to_dir,
+    tb_log_dict,
+)
+from sup3r_tpu_torch.models.weights import (
+    load_jax_checkpoint,
+    opt_state_from_jax,
+    opt_state_to_jax,
+    packb,
+    params_from_jax,
+    params_to_jax,
+    save_jax_checkpoint,
+    unpackb,
+)
 from sup3r_tpu_torch.names import strip_obs_suffix
 from sup3r_tpu_torch.ops.losses import get_loss_fun
 from sup3r_tpu_torch.utilities import safe_serialize
@@ -267,6 +287,71 @@ class AbstractSingleModel(AbstractInterface):
         self._history = None
         self.loss_name = 'MeanSquaredError'
         self.loss_fun = get_loss_fun(self.loss_name)
+        self._train_net = None
+
+    # ------------------------------------------------------------------
+    # the generator (``self._gen``; ``self.device``, ``self._gen_in_shape``)
+    @property
+    def generator(self):
+        """Generator Network module."""
+        return self._gen
+
+    @property
+    def gen_params(self):
+        """The generator's parameter tensors, in layer order (None
+        before the weights exist)."""
+        if self._gen_in_shape is None:
+            return None
+        return tuple(self._gen.parameters())
+
+    def _train_gen_net(self):
+        """The generator network the train step runs: fused (see
+        ``train_fuse``), its blocks reading the generator's own
+        params."""
+        if not self.train_fuse:
+            return self._gen
+        if self._train_net is None:
+            self._train_net = Network(fuse_network(list(self._gen.layers)))
+        return self._train_net
+
+    def _split_exo(self, hr):
+        """The exo channels of a training HR batch, by feature."""
+        n_exo = len(self.hr_exo_features)
+        n_out = hr.shape[-1] - n_exo
+        return {f: hr[..., n_out + i:n_out + i + 1]
+                for i, f in enumerate(self.hr_exo_features)}
+
+    def _place_batch(self, arr):
+        """A float32 tensor on the model's device (no copy for one that
+        is there already)."""
+        return torch.as_tensor(arr, dtype=torch.float32, device=self.device)
+
+    @staticmethod
+    def _fetch_details(details):
+        """Loss scalars to the host in ONE copy (a stacked tensor), not
+        one per scalar."""
+        keys = list(details)
+        vals = torch.stack([details[k].detach() for k in keys]).cpu()
+        return {k: float(v) for k, v in zip(keys, vals.tolist())}
+
+    def _parse_exo_for_generate(self, exogenous_data):
+        """{feature: float32 tensor on the device} of the mid-network
+        ('layer') rasters, from a plain ``{feature: array}`` dict or the
+        structured ``ExoData`` format ({feature: {'steps': [...]}})."""
+        if not exogenous_data:
+            return {}
+        out = {}
+        for feat, val in exogenous_data.items():
+            if isinstance(val, dict) and 'steps' in val:
+                for step in val['steps']:
+                    if step.get('combine_type') == 'layer':
+                        out[feat] = step['data']
+            else:
+                out[feat] = val
+        return {k: torch.as_tensor(v, dtype=torch.float32,
+                                   device=self.device)
+                for k, v in out.items()}
+
 
     # ------------------------------------------------------------------
     # train-step options
@@ -467,6 +552,138 @@ class AbstractSingleModel(AbstractInterface):
         """Write history.csv if there is any history."""
         if isinstance(self._history, Record):
             self._history.to_csv(os.path.join(out_dir, 'history.csv'))
+
+    def _saved_networks(self):
+        """The networks a checkpoint holds, by the key of their weights
+        file ``model_<key>.msgpack``."""
+        return {'gen': self._gen}
+
+    def _opt_state_tree(self):
+        """The optimizer state as the JAX package saves it."""
+        return opt_state_to_jax(self._gen_tx, self._gen_opt_state,
+                                self._gen)
+
+    def _set_opt_state_tree(self, tree):
+        """Restore the optimizer state from the JAX package's tree."""
+        self._gen_opt_state = opt_state_from_jax(self._gen_tx, tree,
+                                                 self._gen)
+
+    def _init_saved_shapes(self, params):
+        """Initialize the weights for the input shapes a save records."""
+        self.init_weights(tuple(params['gen_in_shape']))
+
+    def save(self, out_dir):
+        """Save to a directory in the JAX package's layout:
+        ``model_params.json``, each network's ``model_<key>.msgpack``
+        weights and ``opt_state.msgpack`` in flax's format, and
+        ``history.csv``, so either package's ``load`` reads it and
+        resumes."""
+        os.makedirs(out_dir, exist_ok=True)
+        if self.gen_params is not None:
+            for key, network in self._saved_networks().items():
+                save_jax_checkpoint(params_to_jax(network), os.path.join(
+                    out_dir, f'model_{key}.msgpack'))
+            with open(os.path.join(out_dir, 'opt_state.msgpack'),
+                      'wb') as f:
+                f.write(packb(self._opt_state_tree()))
+        self.save_params(out_dir)
+        self.save_history(out_dir)
+        logger.info('Saved %s to %s', type(self).__name__, out_dir)
+
+    def _load_saved(self, model_dir, params):
+        """Read a save directory's weights (at the input shapes its
+        ``params`` record), optimizer state and history into this model,
+        as the JAX package's ``save`` or this one wrote them; returns the
+        model."""
+        if params.get('gen_in_shape') is not None:
+            self._init_saved_shapes(params)
+            for key, network in self._saved_networks().items():
+                params_from_jax(network, load_jax_checkpoint(os.path.join(
+                    model_dir, f'model_{key}.msgpack')))
+            fp_opt = os.path.join(model_dir, 'opt_state.msgpack')
+            if os.path.exists(fp_opt):
+                with open(fp_opt, 'rb') as f:
+                    self._set_opt_state_tree(unpackb(f.read()))
+        fp_history = os.path.join(model_dir, 'history.csv')
+        if os.path.exists(fp_history):
+            self._history = Record.read_csv(fp_history)
+        return self
+
+    # ------------------------------------------------------------------
+    # the training loop
+    @staticmethod
+    def check_batch_handler_attrs(batch_handler):
+        """Pull optional metadata attrs off a batch handler."""
+        return {
+            k: getattr(batch_handler, k, None)
+            for k in ['smoothing', 'lr_features', 'hr_exo_features',
+                      'hr_out_features', 'smoothed_features']
+            if hasattr(batch_handler, k)
+        }
+
+    def _prepare_training(self, batch_handler, input_resolution):
+        """Take the norm stats and the training-session params from a
+        batch handler, and have it stage its batches on this model's
+        device (its ``device``, set here when it has none)."""
+        self.set_norm_stats(batch_handler.means, batch_handler.stds)
+        self.set_model_params(
+            input_resolution=input_resolution,
+            s_enhance=batch_handler.s_enhance,
+            t_enhance=batch_handler.t_enhance,
+            **self.check_batch_handler_attrs(batch_handler))
+        if getattr(batch_handler, 'device', None) is None:
+            batch_handler.device = self.device
+
+    def _train_epochs(self, batch_handler, n_epoch, run_epoch, out_dir,
+                      checkpoint_int=None, early_stop_on=None,
+                      early_stop_threshold=0.005, early_stop_n_epoch=5,
+                      tensorboard_log=False, tensorboard_profile=False):
+        """The epoch loop of ``train``. ``run_epoch(epoch, profile)``
+        trains one epoch, its training steps inside the context
+        ``profile``, validates, and returns the epoch's history row. The
+        loop puts the elapsed seconds first in the row, writes the row
+        as tensorboard scalars to ``<out_dir>/../logs``
+        (``tensorboard_log``; a warning and no logs without the
+        ``tensorboard`` package), appends it to the history (epochs
+        numbered on from a loaded history), stops early, saves to
+        ``out_dir.format(epoch=...)`` at the cadence and at the end, and
+        stops the batch handler at the end or on an error.
+        ``tensorboard_profile`` records the first epoch's training with
+        ``torch.profiler`` into ``<dirname(out_dir)>/profile``."""
+        epochs = list(range(n_epoch))
+        if self._history is None:
+            self._history = Record()
+        else:
+            epochs = [e + len(self._history) for e in epochs]
+        tb_writer = make_tb_writer(out_dir) if tensorboard_log else None
+        log_dir = os.path.join(os.path.dirname(out_dir or './'), 'profile')
+        t0 = time.time()
+        try:
+            for epoch in epochs:
+                profile = profile_to_dir(
+                    log_dir, enabled=tensorboard_profile
+                    and epoch == epochs[0])
+                row = run_epoch(epoch, profile)
+                row = {'elapsed_time': time.time() - t0, **row}
+                tb_log_dict(tb_writer, row, epoch)
+                self._history.append(row, index=epoch)
+                stop = early_stop_on is not None and (
+                    early_stop_on in self._history) and self.early_stop(
+                        self._history, early_stop_on,
+                        threshold=early_stop_threshold,
+                        n_epoch=early_stop_n_epoch)
+                if out_dir is not None and (
+                        stop or epoch == epochs[-1]
+                        or (checkpoint_int is not None
+                            and epoch % checkpoint_int == 0)):
+                    self.save(out_dir.format(epoch=epoch))
+                if stop:
+                    break
+        finally:
+            if tb_writer is not None:
+                tb_writer.close()
+            if hasattr(batch_handler, 'stop'):
+                batch_handler.stop()
 
     @staticmethod
     def update_loss_details(record, new_details, prefix='',

@@ -31,8 +31,10 @@ Serving has two named modes (``inference_mode``): 'exact' (float32, TF32
 off, the HR tail on ``small_reflect_conv``) and 'fast' (the subpixel tail
 and a bf16 body on cuDNN's bf16 convs, the output cast back to float32).
 
-Meshes and tensorboard logging come with later items of the training
-queue (ROADMAP).
+``train(tensorboard_log=True)`` writes each epoch's history row as
+tensorboard scalars and ``tensorboard_profile=True`` records the first
+epoch with ``torch.profiler`` (``models/utilities.py``). Meshes come with
+the multi-device slice (ROADMAP queue 1 item 9).
 """
 
 import logging
@@ -53,16 +55,9 @@ from sup3r_tpu_torch.models.fuse import (
 )
 from sup3r_tpu_torch.models.network import Network
 from sup3r_tpu_torch.models.optimizers import make_optimizer
-from sup3r_tpu_torch.models.record import Record
 from sup3r_tpu_torch.models.weights import (
-    load_jax_checkpoint,
     opt_state_from_jax,
     opt_state_to_jax,
-    packb,
-    params_from_jax,
-    params_to_jax,
-    save_jax_checkpoint,
-    unpackb,
 )
 from sup3r_tpu_torch.names import strip_obs_suffix
 from sup3r_tpu_torch.ops.coarsen import (
@@ -143,7 +138,6 @@ class Sup3rGan(AbstractSingleModel):
         self._disc_in_shape = None
         self._init_seed = 42
         self._fused_cache_entries = []
-        self._train_net = None
         self._train_record = None
         self._sample_transform = None
         self._step_counter = 0
@@ -184,22 +178,9 @@ class Sup3rGan(AbstractSingleModel):
             p.requires_grad_(True)
 
     @property
-    def generator(self):
-        """Generator Network module."""
-        return self._gen
-
-    @property
     def discriminator(self):
         """Discriminator Network module."""
         return self._disc
-
-    @property
-    def gen_params(self):
-        """The generator's parameter tensors, in layer order (None
-        before the weights exist)."""
-        if self._gen_in_shape is None:
-            return None
-        return tuple(self._gen.parameters())
 
     @property
     def disc_params(self):
@@ -216,23 +197,6 @@ class Sup3rGan(AbstractSingleModel):
             raise NotImplementedError(
                 'train_shard_aligned comes with the multi-device slice '
                 '(ROADMAP queue 1 item 9)')
-
-    def _train_gen_net(self):
-        """The generator network the train step runs: fused (see
-        ``train_fuse``), its blocks reading the generator's own
-        params."""
-        if not self.train_fuse:
-            return self._gen
-        if self._train_net is None:
-            self._train_net = Network(fuse_network(list(self._gen.layers)))
-        return self._train_net
-
-    def _split_exo(self, hr):
-        """The exo channels of a training HR batch, by feature."""
-        n_exo = len(self.hr_exo_features)
-        n_out = hr.shape[-1] - n_exo
-        return {f: hr[..., n_out + i:n_out + i + 1]
-                for i, f in enumerate(self.hr_exo_features)}
 
     def _loss_generator(self):
         """A ``torch.Generator`` for losses that draw random numbers,
@@ -326,11 +290,6 @@ class Sup3rGan(AbstractSingleModel):
                 'loss_gen_advers': advers, 'loss_disc': disc_loss,
                 **details}
 
-    def _place_batch(self, arr):
-        """A float32 tensor on the model's device (no copy for one that
-        is there already)."""
-        return torch.as_tensor(arr, dtype=torch.float32, device=self.device)
-
     def run_gradient_descent(self, low_res, hi_res_true,
                              weight_gen_advers=0.001, train_gen=True,
                              train_disc=False):
@@ -365,14 +324,6 @@ class Sup3rGan(AbstractSingleModel):
         details = self._train_step(lr, hr, float(weight_gen_advers),
                                    bool(train_gen), bool(train_disc))
         return self._fetch_details(details)
-
-    @staticmethod
-    def _fetch_details(details):
-        """Loss scalars to the host in ONE copy (a stacked tensor), not
-        one per scalar."""
-        keys = list(details)
-        vals = torch.stack([details[k].detach() for k in keys]).cpu()
-        return {k: float(v) for k, v in zip(keys, vals.tolist())}
 
     def update_optimizer(self, option='generator', **kwargs):
         """Update an optimizer's config (e.g. learning_rate) mid-training;
@@ -469,24 +420,6 @@ class Sup3rGan(AbstractSingleModel):
             cached = (params, flags, Network(layers))
             entries.append(cached)
         return cached[2]
-
-    def _parse_exo_for_generate(self, exogenous_data):
-        """{feature: float32 tensor on the device} of the mid-network
-        ('layer') rasters, from a plain ``{feature: array}`` dict or the
-        structured ``ExoData`` format ({feature: {'steps': [...]}})."""
-        if not exogenous_data:
-            return {}
-        out = {}
-        for feat, val in exogenous_data.items():
-            if isinstance(val, dict) and 'steps' in val:
-                for step in val['steps']:
-                    if step.get('combine_type') == 'layer':
-                        out[feat] = step['data']
-            else:
-                out[feat] = val
-        return {k: torch.as_tensor(v, dtype=torch.float32,
-                                   device=self.device)
-                for k, v in out.items()}
 
     @staticmethod
     def _has_output_exo(exogenous_data):
@@ -591,30 +524,24 @@ class Sup3rGan(AbstractSingleModel):
         })
         return params
 
-    def save(self, out_dir):
-        """Save to a directory in the JAX package's layout:
-        ``model_params.json``, the ``model_gen.msgpack`` /
-        ``model_disc.msgpack`` weights and ``opt_state.msgpack`` in
-        flax's format, and ``history.csv``, so the JAX package's
-        ``Sup3rGan.load`` reads it and resumes."""
-        os.makedirs(out_dir, exist_ok=True)
-        if self.gen_params is not None:
-            save_jax_checkpoint(params_to_jax(self._gen),
-                                os.path.join(out_dir, 'model_gen.msgpack'))
-            save_jax_checkpoint(params_to_jax(self._disc),
-                                os.path.join(out_dir,
-                                             'model_disc.msgpack'))
-            state = {'0': opt_state_to_jax(self._gen_tx,
-                                           self._gen_opt_state, self._gen),
-                     '1': opt_state_to_jax(self._disc_tx,
-                                           self._disc_opt_state,
-                                           self._disc)}
-            with open(os.path.join(out_dir, 'opt_state.msgpack'),
-                      'wb') as f:
-                f.write(packb(state))
-        self.save_params(out_dir)
-        self.save_history(out_dir)
-        logger.info('Saved GAN to %s', out_dir)
+    def _saved_networks(self):
+        return {'gen': self._gen, 'disc': self._disc}
+
+    def _opt_state_tree(self):
+        return {'0': opt_state_to_jax(self._gen_tx, self._gen_opt_state,
+                                      self._gen),
+                '1': opt_state_to_jax(self._disc_tx, self._disc_opt_state,
+                                      self._disc)}
+
+    def _set_opt_state_tree(self, tree):
+        self._gen_opt_state = opt_state_from_jax(self._gen_tx, tree['0'],
+                                                 self._gen)
+        self._disc_opt_state = opt_state_from_jax(self._disc_tx, tree['1'],
+                                                  self._disc)
+
+    def _init_saved_shapes(self, params):
+        self.init_weights(tuple(params['gen_in_shape']),
+                          tuple(params['disc_in_shape']))
 
     @classmethod
     def _extra_load_kwargs(cls, params):
@@ -636,26 +563,7 @@ class Sup3rGan(AbstractSingleModel):
             meta=params.get('meta', {}),
             means=params.get('means'), stdevs=params.get('stdevs'),
             device=device, **cls._extra_load_kwargs(params))
-        gen_in = params.get('gen_in_shape')
-        disc_in = params.get('disc_in_shape')
-        if gen_in is not None:
-            model.init_weights(tuple(gen_in), tuple(disc_in))
-            params_from_jax(model._gen, load_jax_checkpoint(
-                os.path.join(model_dir, 'model_gen.msgpack')))
-            params_from_jax(model._disc, load_jax_checkpoint(
-                os.path.join(model_dir, 'model_disc.msgpack')))
-            fp_opt = os.path.join(model_dir, 'opt_state.msgpack')
-            if os.path.exists(fp_opt):
-                with open(fp_opt, 'rb') as f:
-                    tree = unpackb(f.read())
-                model._gen_opt_state = opt_state_from_jax(
-                    model._gen_tx, tree['0'], model._gen)
-                model._disc_opt_state = opt_state_from_jax(
-                    model._disc_tx, tree['1'], model._disc)
-        fp_history = os.path.join(model_dir, 'history.csv')
-        if os.path.exists(fp_history):
-            model._history = Record.read_csv(fp_history)
-        return model
+        return model._load_saved(model_dir, params)
 
     # ------------------------------------------------------------------
     # training loop
@@ -688,16 +596,6 @@ class Sup3rGan(AbstractSingleModel):
                 logger.debug('New adversarial weight: %.4e',
                              weight_gen_advers)
         return weight_gen_advers
-
-    @staticmethod
-    def check_batch_handler_attrs(batch_handler):
-        """Pull optional metadata attrs off a batch handler."""
-        return {
-            k: getattr(batch_handler, k, None)
-            for k in ['smoothing', 'lr_features', 'hr_exo_features',
-                      'hr_out_features', 'smoothed_features']
-            if hasattr(batch_handler, k)
-        }
 
     def _train_batch(self, batch, train_gen, only_gen, gen_too_good,
                      train_disc, only_disc, disc_too_good,
@@ -840,82 +738,53 @@ class Sup3rGan(AbstractSingleModel):
         """Train the GAN over a batch handler's epochs of batches, with
         validation, history, early stopping and checkpoints.
 
-        ``multi_gpu`` is accepted for API parity, as in the JAX package.
-        The batch handler stages its batches on this model's device
-        (its ``device``, set here when it has none)."""
-        if tensorboard_log or tensorboard_profile:
-            raise NotImplementedError(
-                'tensorboard logging and profiling are not ported yet: '
-                'ROADMAP queue 1 item 6.3 (tensorboard and TrainingSession)')
-        self.set_norm_stats(batch_handler.means, batch_handler.stds)
-        params = self.check_batch_handler_attrs(batch_handler)
-        self.set_model_params(
-            input_resolution=input_resolution,
-            s_enhance=batch_handler.s_enhance,
-            t_enhance=batch_handler.t_enhance, **params)
+        ``tensorboard_log=True`` writes each epoch's history row as
+        scalars to ``<out_dir>/../logs`` (a warning and no logs without
+        the ``tensorboard`` package); ``tensorboard_profile=True``
+        records the first epoch with ``torch.profiler`` into
+        ``<dirname(out_dir)>/profile``. ``multi_gpu`` is accepted for API
+        parity, as in the JAX package. The batch handler stages its
+        batches on this model's device (its ``device``, set here when it
+        has none)."""
+        self._prepare_training(batch_handler, input_resolution)
         transform_config = getattr(batch_handler, 'transform_config',
                                    None)
         if transform_config is not None:
             self._sample_transform = transform_config
-        if getattr(batch_handler, 'device', None) is None:
-            batch_handler.device = self.device
+        self.init_weights((1, *batch_handler.lr_shape),
+                          (1, *batch_handler.hr_shape))
 
-        lr_shape = (1, *batch_handler.lr_shape)
-        hr_shape = (1, *batch_handler.hr_shape)
-        self.init_weights(lr_shape, hr_shape)
-
-        epochs = list(range(n_epoch))
-        if self._history is None:
-            self._history = Record()
-        else:
-            epochs = [e + len(self._history) for e in epochs]
-
-        t0 = time.time()
-        stop = False
-        try:
-            for epoch in epochs:
+        def run_epoch(epoch, profile):
+            nonlocal weight_gen_advers
+            with profile:
                 loss_details = self._train_epoch(
                     batch_handler, weight_gen_advers, train_gen,
                     train_disc, disc_loss_bounds)
-                loss_details.update(self.calc_val_loss(batch_handler,
-                                                       weight_gen_advers))
-                logger.info(
-                    'Epoch %d gen loss %.3e disc loss %.3e', epoch,
-                    loss_details.get('train_loss_gen', np.nan),
-                    loss_details.get('train_loss_disc', np.nan))
+            loss_details.update(self.calc_val_loss(batch_handler,
+                                                   weight_gen_advers))
+            logger.info(
+                'Epoch %d gen loss %.3e disc loss %.3e', epoch,
+                loss_details.get('train_loss_gen', np.nan),
+                loss_details.get('train_loss_disc', np.nan))
+            extras = {
+                'weight_gen_advers': weight_gen_advers,
+                'disc_loss_bound_0': disc_loss_bounds[0],
+                'disc_loss_bound_1': disc_loss_bounds[1],
+                'learning_rate_gen': self._optimizer_config['learning_rate'],
+                'learning_rate_disc':
+                    self._optimizer_disc_config['learning_rate'],
+                'train_gen': int(train_gen),
+                'train_disc': int(train_disc),
+            }
+            weight_gen_advers = self.update_adversarial_weights(
+                loss_details, adaptive_update_fraction,
+                adaptive_update_bounds, weight_gen_advers, train_disc)
+            return {**loss_details, **extras}
 
-                extras = {
-                    'weight_gen_advers': weight_gen_advers,
-                    'disc_loss_bound_0': disc_loss_bounds[0],
-                    'disc_loss_bound_1': disc_loss_bounds[1],
-                    'learning_rate_gen':
-                        self._optimizer_config['learning_rate'],
-                    'learning_rate_disc':
-                        self._optimizer_disc_config['learning_rate'],
-                    'train_gen': int(train_gen),
-                    'train_disc': int(train_disc),
-                }
-                weight_gen_advers = self.update_adversarial_weights(
-                    loss_details, adaptive_update_fraction,
-                    adaptive_update_bounds, weight_gen_advers, train_disc)
-                self._history.append({'elapsed_time': time.time() - t0,
-                                      **loss_details, **extras},
-                                     index=epoch)
-
-                if early_stop_on is not None and (
-                        early_stop_on in self._history):
-                    stop = self.early_stop(
-                        self._history, early_stop_on,
-                        threshold=early_stop_threshold,
-                        n_epoch=early_stop_n_epoch)
-                save_now = (
-                    stop or epoch == epochs[-1]
-                    or (checkpoint_int is not None
-                        and (epoch % checkpoint_int) == 0))
-                if save_now and out_dir is not None:
-                    self.save(out_dir.format(epoch=epoch))
-                if stop:
-                    break
-        finally:
-            if hasattr(batch_handler, 'stop'):
-                batch_handler.stop()
+        self._train_epochs(
+            batch_handler, n_epoch, run_epoch, out_dir,
+            checkpoint_int=checkpoint_int, early_stop_on=early_stop_on,
+            early_stop_threshold=early_stop_threshold,
+            early_stop_n_epoch=early_stop_n_epoch,
+            tensorboard_log=tensorboard_log,
+            tensorboard_profile=tensorboard_profile)

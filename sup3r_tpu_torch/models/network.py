@@ -10,6 +10,7 @@ exit, and the layers run channels-first in between.
 import json
 
 import numpy as np
+import torch
 from torch import nn
 
 from sup3r_tpu_torch.models.layers import (
@@ -99,6 +100,20 @@ class Network(nn.Module):
         return None
 
     # ------------------------------------------------------------------
+    #: a CUDA event recorded after the last weight writes that
+    #: ``mark_weights_written`` saw (None on the CPU and before any)
+    weights_event = None
+
+    def mark_weights_written(self):
+        """Record a CUDA event on the current stream behind the weight
+        writes queued there so far: a reader on another stream waits on
+        ``weights_event`` before it reads the weights."""
+        p = next(self.parameters(), None)
+        if p is not None and p.is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(p.device))
+            self.weights_event = event
+
     def init(self, in_shape, generator):
         """Create every layer's parameters (on the CPU, from the seeded
         ``torch.Generator``) for a channels-last input shape; returns the

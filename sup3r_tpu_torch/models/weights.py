@@ -51,6 +51,7 @@ def params_from_jax(network, params):
                 f'{new} do not match the initialized network {old}')
     if device is not None:
         network.to(device)
+    network.mark_weights_written()
     return network
 
 

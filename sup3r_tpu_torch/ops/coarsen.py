@@ -5,20 +5,14 @@ transforms use).
 ``spatial_coarsening`` and ``temporal_coarsening`` take a numpy array
 (the host transform of a batch queue) or a torch tensor (the device
 transform of the train step, ``device_transform=True``) and return the
-same kind. ``smooth_data`` is host-only (scipy). The simple enhancing
-functions come with ``Sup3rCondMom``, their only user.
+same kind, as do ``spatial_simple_enhancing`` and
+``temporal_simple_enhancing`` (the conditional-moment queues' LR
+upsampling). ``smooth_data`` is host-only (scipy).
 """
 
 import numpy as np
 import torch
 from scipy.ndimage import gaussian_filter
-
-from sup3r_tpu_torch.utilities import not_ported
-
-__getattr__ = not_ported(
-    __name__, ('spatial_simple_enhancing', 'temporal_simple_enhancing'),
-    'ROADMAP queue 1 item 7, with Sup3rCondMom and its queues (the next '
-    'slice)')
 
 
 def spatial_coarsening(data, s_enhance=2, obs_axis=True):
@@ -94,6 +88,92 @@ def temporal_coarsening(data, t_enhance=4, method='subsample'):
             '[subsample, average, total, min, max]'
         )
     return ops[method](grouped)
+
+
+def _repeat(data, repeats, axis):
+    if isinstance(data, torch.Tensor):
+        return torch.repeat_interleave(data, repeats, dim=axis)
+    return np.repeat(data, repeats, axis=axis)
+
+
+def spatial_simple_enhancing(data, s_enhance=2, obs_axis=True):
+    """Nearest-neighbor upsample of the spatial dims (repeat each pixel
+    ``s_enhance`` times along both spatial axes) of a numpy array or a
+    torch tensor.
+
+    Rank validation matches the reference
+    (preprocessing/batch_queues/utilities.py:131-141,169-175): <3D always
+    rejected; with ``obs_axis=True`` only 4D/5D enhance, with
+    ``obs_axis=False`` only 3D/4D.
+    """
+    if not isinstance(data, torch.Tensor):
+        data = np.asarray(data)
+    if data.ndim < 3:
+        raise ValueError(
+            'Data must be 3D, 4D, or 5D to do spatial enhancing, but '
+            f'received: {tuple(data.shape)}'
+        )
+    if s_enhance is None or s_enhance <= 1:
+        return data
+    ok = data.ndim in ((4, 5) if obs_axis else (3, 4))
+    if not ok:
+        raise ValueError(
+            'Data must be 3D, 4D, or 5D to do spatial enhancing, but '
+            f'received: {tuple(data.shape)} (obs_axis={obs_axis})'
+        )
+    ax = 1 if obs_axis else 0
+    return _repeat(_repeat(data, s_enhance, ax), s_enhance, ax + 1)
+
+
+def temporal_simple_enhancing(data, t_enhance=4, mode='constant'):
+    """Upsample the temporal axis of a 5D batch (numpy array or torch
+    tensor).
+
+    mode='constant' repeats each step ``t_enhance`` times; mode='linear'
+    linearly interpolates onto the enhanced time grid: LR step i anchors
+    at HR index i * t_enhance, and the steps past the last anchor
+    continue the last segment's slope (the reference's
+    batch_queues/utilities.py:40-45 registration). A numpy array takes
+    float64 weights, as numpy promotes them; a tensor its own dtype's.
+
+    Non-5D input with an active ``t_enhance`` raises ValueError, matching
+    the reference (preprocessing/batch_queues/utilities.py:46-52).
+    """
+    if not isinstance(data, torch.Tensor):
+        data = np.asarray(data)
+    if t_enhance is None or t_enhance == 1:
+        return data
+    if data.ndim != 5:
+        raise ValueError(
+            'Data must be 5D to do temporal enhancing, but '
+            f'received: {tuple(data.shape)}'
+        )
+    if mode == 'constant':
+        return _repeat(data, t_enhance, 3)
+    if mode != 'linear':
+        raise KeyError(f'Unknown temporal enhancing mode "{mode}"')
+    t = data.shape[3]
+    pos = np.arange(t * t_enhance) / float(t_enhance)
+    lo = np.clip(np.floor(pos).astype(int), 0, t - 1)
+    hi = np.clip(lo + 1, 0, t - 1)
+    w = (pos - lo)[None, None, None, :, None]
+    excess = (pos - (t - 1))[None, None, None, :, None]
+    tail = (pos > t - 1)[None, None, None, :, None]
+    where = np.where
+    if isinstance(data, torch.Tensor):
+        w, excess = (torch.as_tensor(v, dtype=data.dtype, device=data.device)
+                     for v in (w, excess))
+        lo, hi, tail = (torch.as_tensor(v, device=data.device)
+                        for v in (lo, hi, tail))
+        where = torch.where
+    out = data[:, :, :, lo, :] * (1 - w) + data[:, :, :, hi, :] * w
+    if t > 1 and bool(tail.any()):
+        # past the last anchor hi == lo == t - 1: continue the last
+        # segment's slope instead of clamping
+        last = data[:, :, :, t - 1:t, :]
+        slope = last - data[:, :, :, t - 2:t - 1, :]
+        out = where(tail, last + slope * excess, out)
+    return out
 
 
 def smooth_data(low_res, training_features, smoothing_ignore,

@@ -7,9 +7,10 @@ single-device path, with exogenous data (``exo_handler_kwargs``) and
 every model class the port exports (the solar composite's
 ``model_kwargs`` name its three groups' directories, ``t_enhance`` and
 ``device``; ``MultiStepSurfaceMetGan``'s its surface and temporal
-models' kwargs and ``device``): ``chunked_io``, bias correction,
-``use_mesh`` and ``Sup3rCondMom`` come with later slices (ROADMAP queue 1
-items 5, 7 and 9) and raise ``NotImplementedError``.
+models' kwargs and ``device``; ``Sup3rCondMom`` runs chunk by chunk, as
+its ``generate`` has no ``fetch=``): ``chunked_io``, bias correction and
+``use_mesh`` come with later slices (ROADMAP queue 1 items 5, 8 and 9)
+and raise ``NotImplementedError``.
 """
 
 import logging
@@ -318,8 +319,6 @@ class ForwardPassStrategy:
         default is the card)."""
         from sup3r_tpu_torch import models as models_mod
 
-        # a class of a later slice raises NotImplementedError naming its
-        # ROADMAP item here
         ModelClass = getattr(models_mod, self.model_class, None)
         if ModelClass is None:
             raise KeyError(f'Could not find model class '

@@ -3,19 +3,34 @@
 (``ExoData``, ``ExoDataHandler``, topography, sza and observation
 rasterizers), and the training feed (samplers, stats, batch queues, the
 ``BatchHandler``, the paired ``DualBatchHandler``, the climate-change
-``BatchHandlerCC`` over the daily data handlers and the data-centric
-``BatchHandlerDC``), on numpy and scipy (h5py only for HDF5 input)."""
+``BatchHandlerCC`` over the daily data handlers, the data-centric
+``BatchHandlerDC`` and the conditional-moment ``BatchHandlerMom*``), on
+numpy and scipy (h5py only for HDF5 input)."""
 
 from sup3r_tpu_torch.preprocessing.batch_handlers import (  # noqa: F401
     BatchHandler,
     BatchHandlerCC,
     BatchHandlerDC,
+    BatchHandlerMom1,
+    BatchHandlerMom1SF,
+    BatchHandlerMom2,
+    BatchHandlerMom2Sep,
+    BatchHandlerMom2SepSF,
+    BatchHandlerMom2SF,
     DualBatchHandler,
 )
 from sup3r_tpu_torch.preprocessing.batch_queues import (  # noqa: F401
     Batch,
     BatchQueueDC,
+    ConditionalBatch,
+    ConditionalBatchQueue,
     DualBatchQueue,
+    QueueMom1,
+    QueueMom1SF,
+    QueueMom2,
+    QueueMom2Sep,
+    QueueMom2SepSF,
+    QueueMom2SF,
     RawBatch,
     SingleBatchQueue,
     ValBatchQueueDC,

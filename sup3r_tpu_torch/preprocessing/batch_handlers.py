@@ -3,15 +3,17 @@ of ``BaseBatchHandler`` and ``BatchHandler`` of
 ``sup3r_tpu/preprocessing/batch_handlers.py``).
 
 Iterating a handler stages each batch on the model's device one batch
-ahead of use, as ``jax.device_put`` did in the JAX package: the arrays
-are copied into pinned host memory and sent with a ``non_blocking`` copy
-on a side stream; the train step's stream waits on an event recorded
-after the copy. A pageable copy would block the host behind the running
+ahead of use, as ``jax.device_put`` did in the JAX package: every array
+of the batch (a conditional batch's target and mask too) is copied into
+pinned host memory and sent with a ``non_blocking`` copy on a side
+stream; the train step's stream waits on an event recorded after the
+copies. A pageable copy would block the host behind the running
 step. ``DualBatchHandler`` feeds pre-paired LR / HR data (a
 ``DualRasterizer``'s); ``BatchHandlerCC`` feeds daily LR / hourly HR
 pairs from the daily data handlers; ``BatchHandlerDC`` samples from
-loss-adaptive bins with a per-bin validation queue. The conditional
-handlers come with their model (ROADMAP queue 1 item 7).
+loss-adaptive bins with a per-bin validation queue; the
+``BatchHandlerMom*`` handlers feed ``Sup3rCondMom`` its conditional
+batches (``lower_models`` and the paddings go through ``queue_kwargs``).
 """
 
 import logging
@@ -23,6 +25,12 @@ import torch
 from sup3r_tpu_torch.preprocessing.batch_queues import (
     BatchQueueDC,
     DualBatchQueue,
+    QueueMom1,
+    QueueMom1SF,
+    QueueMom2,
+    QueueMom2Sep,
+    QueueMom2SepSF,
+    QueueMom2SF,
     SingleBatchQueue,
     ValBatchQueueDC,
 )
@@ -36,7 +44,6 @@ from sup3r_tpu_torch.preprocessing.stats import (
     StatsCollection,
     unwrap_container,
 )
-from sup3r_tpu_torch.utilities import not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -159,7 +166,8 @@ class BaseBatchHandler:
         return self.n_batches
 
     def _stage(self, batch, stream):
-        """Start ``batch``'s copy to the device on ``stream``."""
+        """Start the copy of every array of ``batch`` to the device on
+        ``stream``, behind one event."""
         host = [torch.from_numpy(np.ascontiguousarray(m)).pin_memory()
                 for m in batch]
         with torch.cuda.stream(stream):
@@ -253,6 +261,49 @@ class BatchHandlerCC(DualBatchHandler):
 
 
 
+class BatchHandlerMom1(BaseBatchHandler):
+    """Conditional first-moment batches."""
+
+    MAIN_QUEUE = QueueMom1
+    VAL_QUEUE = QueueMom1
+
+
+class BatchHandlerMom1SF(BaseBatchHandler):
+    """First moment of the subfilter field."""
+
+    MAIN_QUEUE = QueueMom1SF
+    VAL_QUEUE = QueueMom1SF
+
+
+class BatchHandlerMom2(BaseBatchHandler):
+    """Second moment (needs ``lower_models={1: mom1_model}`` in
+    ``queue_kwargs``)."""
+
+    MAIN_QUEUE = QueueMom2
+    VAL_QUEUE = QueueMom2
+
+
+class BatchHandlerMom2Sep(BaseBatchHandler):
+    """Second moment, separate."""
+
+    MAIN_QUEUE = QueueMom2Sep
+    VAL_QUEUE = QueueMom2Sep
+
+
+class BatchHandlerMom2SF(BaseBatchHandler):
+    """Second moment of the subfilter field (needs ``lower_models``)."""
+
+    MAIN_QUEUE = QueueMom2SF
+    VAL_QUEUE = QueueMom2SF
+
+
+class BatchHandlerMom2SepSF(BaseBatchHandler):
+    """Second moment of the subfilter field, separate."""
+
+    MAIN_QUEUE = QueueMom2SepSF
+    VAL_QUEUE = QueueMom2SepSF
+
+
 class BatchHandlerDC(BaseBatchHandler):
     """Data-centric handler: loss-adaptive bin sampling and a per-bin
     validation queue (reference: batch_handlers/dc.py:24). Validation
@@ -303,10 +354,3 @@ class BatchHandlerDC(BaseBatchHandler):
     def update_weights(self, spatial_weights, temporal_weights):
         """Push new bin weights (``Sup3rGanDC`` does each epoch)."""
         self._queue.update_weights(spatial_weights, temporal_weights)
-
-__getattr__ = not_ported(
-    __name__, ('BatchHandlerMom1', 'BatchHandlerMom1SF',
-               'BatchHandlerMom2', 'BatchHandlerMom2Sep',
-               'BatchHandlerMom2SF', 'BatchHandlerMom2SepSF'),
-    'ROADMAP queue 1 item 7, the conditional handlers (with Sup3rCondMom, '
-    'the next slice)')

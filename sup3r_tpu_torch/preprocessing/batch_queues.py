@@ -7,8 +7,11 @@ a pool of ``max_workers`` productions in flight); the HR->LR coarsening
 runs there on numpy, or with ``device_transform=True`` the queue yields
 the raw HR samples (``RawBatch``) and the train step coarsens them on
 the device. ``DualBatchQueue`` stacks pre-paired (lr, hr) samples;
-``BatchQueueDC`` / ``ValBatchQueueDC`` sample from loss-adaptive bins. The
-conditional queues come with their model (ROADMAP queue 1 item 7).
+``BatchQueueDC`` / ``ValBatchQueueDC`` sample from loss-adaptive bins.
+``ConditionalBatchQueue`` and its ``QueueMom*`` subclasses add a
+padding mask and a moment target to each batch (``ConditionalBatch``);
+the second-moment queues run the first-moment model (``lower_models``)
+in the producer thread.
 """
 
 import logging
@@ -22,10 +25,12 @@ import numpy as np
 from sup3r_tpu_torch.ops.coarsen import (
     smooth_data,
     spatial_coarsening,
+    spatial_simple_enhancing,
     temporal_coarsening,
+    temporal_simple_enhancing,
 )
 from sup3r_tpu_torch.preprocessing.samplers import _safe_probs
-from sup3r_tpu_torch.utilities import RANDOM_GENERATOR, not_ported
+from sup3r_tpu_torch.utilities import RANDOM_GENERATOR
 
 logger = logging.getLogger(__name__)
 
@@ -34,6 +39,10 @@ BatchWithObs = namedtuple('BatchWithObs', ['low_res', 'high_res', 'obs'])
 #: raw HR sample batch for device-side transforms (one host-to-device
 #: copy; the train step derives the LR input on the device)
 RawBatch = namedtuple('RawBatch', ['sample'])
+#: a conditional-moment batch: the moment target and the padding mask
+#: beside the (lr, hr) pair, all staged to the device together
+ConditionalBatch = namedtuple(
+    'ConditionalBatch', ['low_res', 'high_res', 'output', 'mask'])
 
 
 class AbstractBatchQueue:
@@ -362,6 +371,115 @@ class DualBatchQueue(AbstractBatchQueue):
 
 
 
+class ConditionalBatchQueue(SingleBatchQueue):
+    """Queue for conditional-moment training: adds a padding-aware mask
+    and a moment-specific output target (reference:
+    batch_queues/conditional.py:22-170)."""
+
+    def __init__(self, samplers, time_enhance_mode='constant',
+                 lower_models=None, s_padding=0, t_padding=0,
+                 end_t_padding=False, **kwargs):
+        if kwargs.get('device_transform'):
+            # post_proc always builds the mask and the moment target on
+            # the host: the flag would be a silent no-op
+            raise NotImplementedError(
+                'Conditional-moment queues build the mask/output '
+                'target on the host; device_transform=True is not '
+                'supported here')
+        self.time_enhance_mode = time_enhance_mode
+        self.lower_models = lower_models or {}
+        self.s_padding = s_padding
+        self.t_padding = t_padding
+        self.end_t_padding = end_t_padding
+        super().__init__(samplers, **kwargs)
+
+    def make_mask(self, high_res):
+        """1 inside the (s_padding, t_padding)-trimmed interior, else 0;
+        with ``end_t_padding`` the last ``t_enhance - 1`` HR steps are
+        0 too."""
+        mask = np.zeros(high_res.shape, dtype=high_res.dtype)
+        s_min = self.s_padding
+        t_min = self.t_padding
+        s_max = None if self.s_padding == 0 else -self.s_padding
+        t_max = None if self.t_padding == 0 else -self.t_padding
+        if self.end_t_padding and self.t_enhance > 1:
+            t_max = (1 - self.t_enhance if t_max is None
+                     else 1 - self.t_enhance - self.t_padding)
+        if high_res.ndim == 4:
+            mask[:, s_min:s_max, s_min:s_max, :] = 1.0
+        else:
+            mask[:, s_min:s_max, s_min:s_max, t_min:t_max, :] = 1.0
+        return mask
+
+    def _enhanced_lr(self, lr):
+        """The LR batch simple-enhanced back to the HR grid, HR features
+        only (the subfilter targets' baseline)."""
+        out = spatial_simple_enhancing(lr, s_enhance=self.s_enhance)
+        out = temporal_simple_enhancing(out, t_enhance=self.t_enhance,
+                                        mode=self.time_enhance_mode)
+        return out[..., self.hr_features_ind]
+
+    def _lower_model_output(self, lr, hr):
+        """The first-moment model's prediction on this batch (normalized,
+        with hr's exo channels), as host numpy."""
+        return self.lower_models[1].batch_output(lr, hr)
+
+    def make_output(self, samples):
+        """Moment target; overridden per moment type."""
+        _, hr = samples
+        return hr
+
+    def post_proc(self, samples):
+        lr, hr = self.transform(samples, **self.transform_kwargs)
+        mask = self.make_mask(hr)
+        output = self.make_output((lr, hr))
+        return ConditionalBatch(low_res=lr, high_res=hr, output=output,
+                                mask=mask)
+
+
+class QueueMom1(ConditionalBatchQueue):
+    """First moment: target = HR."""
+
+
+class QueueMom1SF(ConditionalBatchQueue):
+    """First moment of subfilter: target = HR - enhanced(LR)."""
+
+    def make_output(self, samples):
+        lr, hr = samples
+        return hr - self._enhanced_lr(lr)
+
+
+class QueueMom2(ConditionalBatchQueue):
+    """Second moment: target = (HR - <HR|LR>)^2."""
+
+    def make_output(self, samples):
+        lr, hr = samples
+        return (hr - self._lower_model_output(lr, hr)) ** 2
+
+
+class QueueMom2Sep(QueueMom1):
+    """Second moment, separate: target = HR^2."""
+
+    def make_output(self, samples):
+        return super().make_output(samples) ** 2
+
+
+class QueueMom2SF(ConditionalBatchQueue):
+    """Second moment of subfilter: (HR - LR_enh - <SF|LR>)^2."""
+
+    def make_output(self, samples):
+        lr, hr = samples
+        out = self._lower_model_output(lr, hr)
+        return (hr - self._enhanced_lr(lr) - out) ** 2
+
+
+class QueueMom2SepSF(QueueMom1SF):
+    """Second moment of subfilter, separate: (HR - LR_enh)^2."""
+
+    def make_output(self, samples):
+        return super().make_output(samples) ** 2
+
+
 class BatchQueueDC(SingleBatchQueue):
     """Data-centric queue: its samplers draw from loss-adaptive bins
     (reference: batch_queues/dc.py:13)."""
@@ -425,9 +543,3 @@ class ValBatchQueueDC(BatchQueueDC):
         if pool is not None:
             pool.shutdown(wait=True)
         self._batch_counter = 0
-
-__getattr__ = not_ported(
-    __name__, ('ConditionalBatchQueue', 'QueueMom1', 'QueueMom1SF',
-               'QueueMom2', 'QueueMom2Sep', 'QueueMom2SF', 'QueueMom2SepSF'),
-    'ROADMAP queue 1 item 7, the conditional queues (with Sup3rCondMom, '
-    'the next slice)')

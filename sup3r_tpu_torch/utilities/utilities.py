@@ -21,18 +21,6 @@ from sup3r_tpu_torch.names import get_feature_basename
 logger = logging.getLogger(__name__)
 
 
-def not_ported(module, names, where):
-    """A module ``__getattr__`` that raises ``NotImplementedError``
-    naming ``where`` (the ROADMAP item that ports them) for the JAX
-    package's ``names`` this module does not have yet."""
-    def __getattr__(name):
-        if name in names:
-            raise NotImplementedError(f'{name} is not ported yet: {where}')
-        raise AttributeError(f'module {module!r} has no attribute {name!r}')
-
-    return __getattr__
-
-
 def resolve_device(device):
     """``torch.device`` for an entry point's ``device`` argument.
 
@@ -46,21 +34,50 @@ def resolve_device(device):
     return device
 
 
+class _Tf32Off:
+    """Reference count of the ``exact_fp32`` blocks open in the process.
+    The TF32 flags are process-wide while a block is per thread (a batch
+    queue's producer thread runs a model while the train step runs on
+    the main thread), so the first entry saves and clears the flags and
+    the last exit restores them, under one lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = None
+
+    def enter(self):
+        with self._lock:
+            if self._depth == 0:
+                self._saved = (torch.backends.cudnn.allow_tf32,
+                               torch.backends.cuda.matmul.allow_tf32)
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+            self._depth += 1
+
+    def exit(self):
+        with self._lock:
+            self._depth -= 1
+            if self._depth == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = self._saved
+
+
+_TF32_OFF = _Tf32Off()
+
+
 @contextlib.contextmanager
 def exact_fp32():
     """Turn TF32 off for cuDNN convolutions and CUDA matmuls inside the
-    block, restoring the previous settings after. cuDNN runs fp32
-    convolutions in TF32 by default, which keeps about three decimal
-    digits; exact mode serves true fp32. The flags are process-wide."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    block. cuDNN runs fp32 convolutions in TF32 by default, which keeps
+    about three decimal digits; exact mode serves true fp32. The flags
+    are process-wide: they stay off until the last block open in any
+    thread exits, which restores the settings from before the first."""
+    _TF32_OFF.enter()
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+        _TF32_OFF.exit()
 
 
 def _safe_cast(obj):

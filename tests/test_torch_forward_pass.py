@@ -268,7 +268,6 @@ def test_nan_input_and_constant_output_raise(tmp_path, saved):
     ({'bias_correct_method': 'linear'}, 'bias'),
     ({'use_mesh': True}, 'item 9'),
     ({'input_handler_name': 'DataHandlerNCforCCwithPowerLaw'}, 'item 5'),
-    ({'model_class': 'Sup3rCondMom'}, 'item 7'),
     ({'input_handler_name': 'DataHandlerNCforCC'}, 'climate-change'),
 ])
 def test_later_slices_raise(tmp_path, saved, kwargs, match):

@@ -20,7 +20,13 @@ whose resampling replaces PIL's, then a temporal GAN) through the
 ForwardPass with a NetCDF3 topography source, fuses NetCDF3 station
 observations into a Sup3rGanWithObs forward pass (ObsRasterizer), takes
 a WithObs train step and trains a Sup3rGanDC epoch over a
-BatchHandlerDC."""
+BatchHandlerDC. A third blocked run (tensorboard blocked too, as on the
+card's machine) trains a Sup3rCondMom over a BatchHandlerMom1 through a
+TrainingSession with tensorboard_log (a warning, no logs), a second
+moment over a BatchHandlerMom2 whose producer thread runs the first,
+serves it through the ForwardPass (model_class='Sup3rCondMom'), profiles
+a Sup3rGan epoch with tensorboard_profile, and exports and imports a
+reference-format checkpoint (utilities.port)."""
 
 import os
 import subprocess
@@ -390,6 +396,98 @@ print('DC TRAINED', len(dc.history))
 '''
 
 
+_SCRIPT_COND_MOM = _BLOCKER.replace(
+    f'BLOCKED = {BLOCKED!r}', f'BLOCKED = {BLOCKED + ("tensorboard",)!r}'
+) + f'''
+import glob
+import os
+import tempfile
+import warnings
+
+from sup3r_tpu_torch.models import Sup3rCondMom, Sup3rGan
+from sup3r_tpu_torch.models.utilities import TrainingSession, profile_to_dir
+from sup3r_tpu_torch.ops.coarsen import (
+    spatial_simple_enhancing,
+    temporal_simple_enhancing,
+)
+from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
+from sup3r_tpu_torch.preprocessing import (
+    BatchHandler,
+    BatchHandlerMom1,
+    BatchHandlerMom2,
+)
+from sup3r_tpu_torch.utilities.port import (
+    export_reference_gan,
+    load_reference_gan,
+)
+from sup3r_tpu_torch.utilities.test_helpers import (
+    make_fake_dset,
+    make_fake_nc_file,
+)
+
+tmp = tempfile.mkdtemp()
+uv = ['u_100m', 'v_100m']
+res = {{'spatial': '30km', 'temporal': '60min'}}
+gen = [{{'class': 'Conv3D', 'filters': 8, 'kernel_size': 3, 'strides': 1,
+        'padding': 'same'}},
+       {{'class': 'SpatioTemporalExpansion', 'spatial_mult': 2,
+        'temporal_mult': 2, 'temporal_method': 'nearest'}},
+       {{'class': 'Conv3D', 'filters': 2, 'kernel_size': 3, 'strides': 1,
+        'padding': 'same'}}]
+x = np.random.default_rng(0).random((1, 4, 4, 3, 2))
+assert temporal_simple_enhancing(spatial_simple_enhancing(x, 2), 2,
+                                 'linear').shape == (1, 8, 8, 6, 2)
+
+def handler(cls, **kwargs):
+    return cls([make_fake_dset((16, 16, 24), uv)],
+               [make_fake_dset((16, 16, 24), uv)], batch_size=2, n_batches=2,
+               s_enhance=2, t_enhance=2, sample_shape=(8, 8, 4), **kwargs)
+
+mom1 = Sup3rCondMom(gen, device='cpu')
+with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter('always')
+    TrainingSession(handler(BatchHandlerMom1, s_padding=1), mom1,
+                    input_resolution=res, n_epoch=1,
+                    out_dir=os.path.join(tmp, 'mom1_{{epoch}}'),
+                    tensorboard_log=True).run()
+assert any('tensorboard' in str(w.message) for w in caught)
+assert not os.path.exists(os.path.join(tmp, 'logs'))
+print('MOM1 TRAINED', len(mom1.history))
+mom2 = Sup3rCondMom(gen, device='cpu')
+mom2.train(handler(BatchHandlerMom2, lower_models={{1: mom1}}),
+           input_resolution=res, n_epoch=1, out_dir=None)
+assert np.isfinite(mom2.history['val_loss_gen']).all()
+print('MOM2 TRAINED', len(mom2.history))
+
+inp = make_fake_nc_file(os.path.join(tmp, 'in.nc'), (8, 8, 6), uv)
+strategy = ForwardPassStrategy(
+    file_paths=inp, model_class='Sup3rCondMom',
+    model_kwargs={{'model_dir': os.path.join(tmp, 'mom1_0'),
+                  'device': 'cpu'}},
+    fwp_chunk_shape=(4, 4, 3), spatial_pad=1, temporal_pad=1,
+    out_pattern=None)
+outs = ForwardPass.run(strategy, 0)
+assert len(outs) == 8 and all(np.isfinite(o).all() for o in outs.values())
+print('COND MOM FORWARD PASS', len(outs))
+
+gan = Sup3rGan(gen, [{{'class': 'Flatten'}}, {{'class': 'Dense', 'units': 1}}],
+               device='cpu')
+gan.train(handler(BatchHandler), input_resolution=res, n_epoch=1,
+          out_dir=os.path.join(tmp, 'gan', 'gan_{{epoch}}'),
+          tensorboard_profile=True)
+traces = glob.glob(os.path.join(tmp, 'gan', 'profile', '*.pt.trace.json'))
+assert len(traces) == 1, traces
+print('PROFILED', len(traces))
+export_reference_gan(gan, os.path.join(tmp, 'ref'))
+again = load_reference_gan(os.path.join(tmp, 'ref'),
+                           lr_shape=(1, 4, 4, 2, 2), device='cpu')
+lr = np.random.default_rng(1).random((1, 4, 4, 3, 2)).astype(np.float32)
+np.testing.assert_allclose(again.generate(lr), gan.generate(lr), rtol=1e-6)
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not loaded, loaded
+print('REFERENCE IMPORT')
+'''
+
 def _run_blocked(script):
     env = dict(os.environ)
     env['PYTHONPATH'] = os.pathsep.join(
@@ -406,6 +504,16 @@ def test_trh_chain_obs_and_dc_run_with_jax_and_friends_blocked():
     assert 'TRH CHAIN 8' in proc.stdout
     assert 'OBS FORWARD PASS 4' in proc.stdout
     assert 'DC TRAINED 1' in proc.stdout
+
+
+def test_cond_mom_training_and_import_with_jax_and_friends_blocked():
+    proc = _run_blocked(_SCRIPT_COND_MOM)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'MOM1 TRAINED 1' in proc.stdout
+    assert 'MOM2 TRAINED 1' in proc.stdout
+    assert 'COND MOM FORWARD PASS 8' in proc.stdout
+    assert 'PROFILED 1' in proc.stdout
+    assert 'REFERENCE IMPORT' in proc.stdout
 
 
 def test_port_serves_with_jax_and_friends_blocked():

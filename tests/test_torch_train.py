@@ -5,7 +5,6 @@ ported yet; and save directories (weights, ``opt_state.msgpack``,
 ``history.csv``) that resume in either package with the same next step
 (rtol 1e-4, as tests/test_torch_train_step.py holds the step)."""
 
-import importlib
 import os
 
 import numpy as np
@@ -204,9 +203,6 @@ def test_not_ported_options_raise():
     del model.train_shard_aligned
     with pytest.raises(NotImplementedError, match='item 9'):
         model.attach_mesh(None)
-    with pytest.raises(NotImplementedError, match='item 6.3'):
-        model.train(_handler(2, 1, (10, 10, 1)), input_resolution=RES,
-                    n_epoch=1, tensorboard_log=True)
     with pytest.raises(NotImplementedError, match='chunked_io'):
         _handler(2, 1, (10, 10, 1), mode='lazy')
     model.train_remat = True
@@ -214,18 +210,6 @@ def test_not_ported_options_raise():
         model._maybe_remat(lambda x, exo: x)(
             torch.zeros(1), {}, train=True, dropout_generator=None)
     model.train_remat = False
-    for module, name, item in (
-            ('preprocessing.batch_handlers', 'BatchHandlerMom1SF', 'item 7'),
-            ('preprocessing.batch_handlers', 'BatchHandlerMom1', 'item 7'),
-            ('preprocessing.batch_queues', 'QueueMom1', 'item 7'),
-            ('preprocessing.batch_queues', 'ConditionalBatchQueue',
-             'item 7'),
-            ('models', 'Sup3rCondMom', 'item 7'),
-            ('ops.coarsen', 'temporal_simple_enhancing', 'item 7'),
-            ('utilities', 'port', 'item 7')):
-        mod = importlib.import_module(f'sup3r_tpu_torch.{module}')
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(mod, name)
 
 
 # ----------------------------------------------------------------------

@@ -225,6 +225,31 @@ exits non-zero:
    its plain version and timed at ``COND_FWP_TAIL_SHAPE`` for the
    ``kernels`` line (``cond_mom_fwp_shape``).
 
+14. streaming input and the GCM handler (printed before the ``kernels``
+   line), on the flagship at full width from seed 0: bench.py's
+   end-to-end cell (bench.py:104-128) in the card's I/O form (``io``:
+   NetCDF3 in, NetCDF out), a (40, 40, 40) u / v domain, chunks (16, 16,
+   20), pads 2, device batch 8 (18 chunks; batches group chunks of one
+   padded shape, so 4 dispatches). On each
+   route the eager pass and the ``chunked_io`` pass of the same strategy,
+   3 timed each after a warm-up (wall s, HR voxels/s, the strategy
+   timer's prep s per chunk, launches as phase 6 counts them), the
+   ``chunked_io`` output equal to the eager one within 1e-6 of max, one
+   profiled ``chunked_io`` pass (idle share); a chunk of the card's pass
+   against the port's CPU pass (1e-4 of max). The same geometry through
+   ``DataHandlerNCforCCwithPowerLaw`` (hourly NetCDF3 uas / vas, u_100m /
+   v_100m by the power law) with ``chunked_io`` on the default route: 3
+   timed passes and a chunk against the CPU. Phase 7's training cell fed
+   by a ``BatchHandler`` over ``DataHandler(mode='lazy')`` on a NetCDF3
+   (72, 72, 240) u / v file, 2 epochs of 4 batches, then over eager
+   handlers (s per batch, starvation), after the first lazy batch is held
+   to the eager one (single-threaded, same seed: HR bit-equal, LR within
+   an ulp). After the phase, every kernel shape the last timed
+   ``chunked_io`` pass of each route gave (read by hooks, their count
+   equal to the wrappers' launches) is held to its plain version (1e-5
+   of max), and the most-called one of each kernel is timed for the
+   ``kernels`` line (``chunked_io_shape``).
+
 Before the ``kernels`` line, ``phase_seconds`` gives the seconds each
 phase took. The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -281,6 +306,8 @@ from sup3r_tpu_torch.preprocessing import (
     DataHandlerH5SolarCC,
     DualBatchHandler,
     DualRasterizer,
+    Sampler,
+    SingleBatchQueue,
 )
 from sup3r_tpu_torch.utilities import RANDOM_GENERATOR, get_dset_attrs
 from sup3r_tpu_torch.utilities.test_helpers import (
@@ -323,6 +350,11 @@ SOURCES = {
 KERNEL_NAMES = {
     'small_reflect_conv': 'small_reflect_conv_kernel',
     'reflect_conv': 'reflect_conv_tc_kernel',
+}
+#: each kernel's wrapper
+KERNEL_FNS = {
+    'small_reflect_conv': small_reflect_conv_cf,
+    'reflect_conv': reflect_conv_cf,
 }
 KERNEL_RTOL = 1e-5
 PARITY_RTOL = 1e-4
@@ -3391,6 +3423,342 @@ def cond_mom_phase(name):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: phase 14: bench.py's end-to-end cell (bench.py:104-128) in the card's
+#: I/O form (NetCDF3 in, NetCDF out; bench.py writes NetCDF4 in and H5
+#: out): a (40, 40, 40) LR domain, chunks (16, 16, 20), pads 2, device
+#: batch 8, so 18 chunks; batches group chunks of one padded shape (the
+#: domain's edge chunks are narrower), so 4 dispatches
+STREAM_DOMAIN = (40, 40, 40)
+STREAM_CHUNK = (16, 16, 20)
+STREAM_PAD = 2
+STREAM_BATCH = 8
+STREAM_IO = 'netcdf3_in_netcdf_out'
+#: the lazy-fed training cell's NetCDF3 u / v files (train, validation)
+LAZY_TRAIN_DOMAIN = (72, 72, 240)
+LAZY_VAL_DOMAIN = (72, 72, 96)
+
+
+def stream_strategy(input_file, model_dir, out_pattern, device='cuda',
+                    **kwargs):
+    kw = dict(file_paths=input_file,
+              model_kwargs={'model_dir': model_dir, 'device': device},
+              fwp_chunk_shape=STREAM_CHUNK, spatial_pad=STREAM_PAD,
+              temporal_pad=STREAM_PAD, device_batch_size=STREAM_BATCH,
+              out_pattern=out_pattern)
+    kw.update(kwargs)
+    return ForwardPassStrategy(**kw)
+
+
+def fused_calls(model):
+    """Forward pre-hooks on the fused blocks of ``model``'s serving
+    network (for the route its flags select); returns (calls, remove):
+    ``calls`` counts each block call by (kernel, input shape, co, alpha),
+    the kernel being the one the block launches on the card
+    ('small_reflect_conv', 'reflect_conv' or 'cudnn')."""
+    calls = Counter()
+
+    def hook(m, args):
+        x = args[0]
+        if m.small_channel_kernel and m._small_ok(x, m.weight):
+            kname = 'small_reflect_conv'
+        elif m.use_pallas and not torch.is_grad_enabled():
+            kname = 'reflect_conv'
+        else:
+            kname = 'cudnn'
+        calls[(kname, tuple(x.shape), m.conv.bias.shape[0], m.alpha)] += 1
+
+    hooks = [lyr.register_forward_pre_hook(hook)
+             for lyr in model._get_fused_apply().layers
+             if isinstance(lyr, FusedReflectConv)]
+
+    def remove():
+        for h in hooks:
+            h.remove()
+
+    return calls, remove
+
+
+def stream_dispatches(strategy):
+    """The device batches of a pass over ``strategy``: chunks group by
+    their padded shape, ``STREAM_BATCH`` to a batch."""
+    fwp = ForwardPass(strategy, 0)
+    shapes = Counter(fwp.get_input_chunk(i).input_data.shape
+                     for i in range(strategy.fwp_slicer.n_chunks))
+    return sum(-(-n // STREAM_BATCH) for n in shapes.values())
+
+
+def stream_pass(make_strategy, out_dir, route, mode, index, n_dispatch,
+                hook=False):
+    """One timed ``ForwardPass.run`` of phase 14's cell to NetCDF (the
+    wall time includes planning); returns (wall_s, launches, stitched
+    HR domain, prep s per chunk, fused calls or None)."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strategy = make_strategy(os.path.join(out_dir, 'chunk_{file_id}.nc'))
+    calls = remove = None
+    if hook:
+        calls, remove = fused_calls(strategy.get_model())
+    try:
+        RecordedForwardPass.run(strategy, 0)
+        torch.cuda.synchronize()
+    finally:
+        if remove is not None:
+            remove()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    n_chunks = strategy.fwp_slicer.n_chunks
+    check_fwp_launches(route, launches, n_dispatch)
+    hr_shape, full = check_fwp_files(strategy, out_dir, keep=True,
+                                     domain=STREAM_DOMAIN)
+    prep_s = strategy.timer.log.get('prep_chunk_data', 0.0) / n_chunks
+    emit(phase='streaming_pass', io=STREAM_IO, route=route, mode=mode,
+         pass_index=index, chunks=n_chunks, dispatches=n_dispatch,
+         hr_shape=hr_shape, wall_s=wall_s,
+         hr_voxels_per_s=int(np.prod(hr_shape)) / wall_s,
+         prep_s_per_chunk=prep_s, timer_s=RecordedForwardPass.last.timer.log,
+         launches=launches)
+    return wall_s, launches, full, prep_s, calls
+
+
+def stream_cpu_chunk_check(make_strategy, what, index=0):
+    """One chunk of the card's pass (serial ``run_chunk``) against the
+    port's CPU pass of the same strategy (1e-4 of max)."""
+    outs = []
+    for device in ('cuda', 'cpu'):
+        fwp = ForwardPass(make_strategy(device), 0)
+        _, out = fwp.run_chunk(fwp.get_input_chunk(index))
+        outs.append(out)
+    got, want = outs
+    err = float(np.abs(got - want).max())
+    tol = PARITY_RTOL * float(np.abs(want).max())
+    ok = bool(got.shape == want.shape and np.isfinite(got).all()
+              and err <= tol)
+    emit(phase='streaming_cpu_check', io=STREAM_IO, what=what,
+         chunk=index, hr_shape=list(got.shape), max_abs_err=err, tol=tol,
+         ok=ok)
+    if not ok:
+        raise AssertionError(f'{what}: chunk {index} on the card vs the '
+                             f'CPU {err} > {tol}')
+
+
+def stream_passes(name, tmp, model_dir):
+    """Phase 14a: the cell's eager and chunked_io passes on both routes
+    (3 timed each after a warm-up), chunked_io equal to eager (1e-6 of
+    max), one profiled chunked_io pass per route, a chunk against the
+    CPU. Returns per route the launches per pass and the fused calls of
+    the last chunked_io pass."""
+    rng = np.random.default_rng(0)
+    s1, s2, t = STREAM_DOMAIN
+    input_file = make_fake_nc_file(
+        os.path.join(tmp, 'stream.nc'), STREAM_DOMAIN, FWP_FEATURES,
+        data={f: rng.standard_normal((t, s1, s2)) * 0.3 + 0.5
+              for f in FWP_FEATURES})
+
+    def make(mode, **kwargs):
+        return lambda out: stream_strategy(
+            input_file, model_dir, out, chunked_io=mode == 'chunked_io',
+            **kwargs)
+
+    eager = make('eager')(None)
+    served = eager.get_model()
+    n_dispatch = stream_dispatches(eager)
+    out = {}
+    for route, pallas in (('default', False), ('opt_in', True)):
+        served.inference_pallas = pallas
+        for mode in ('eager', 'chunked_io'):
+            ForwardPass.run(make(mode)(os.path.join(
+                tmp, f'stream_warm_{route}_{mode}', 'chunk_{file_id}.nc')),
+                0)
+        rec = {}
+        for mode in ('eager', 'chunked_io'):
+            walls, preps = [], []
+            for i in range(N_FWP_PASSES):
+                wall, launches, full, prep, calls = stream_pass(
+                    make(mode), os.path.join(tmp, f'{route}_{mode}_{i}'),
+                    route, mode, i, n_dispatch,
+                    hook=mode == 'chunked_io' and i == N_FWP_PASSES - 1)
+                walls.append(wall)
+                preps.append(prep)
+            rec[mode] = dict(wall_s=walls, prep_s_per_chunk=preps,
+                             launches=launches, full=full, calls=calls)
+        err = float(np.abs(rec['chunked_io']['full']
+                           - rec['eager']['full']).max())
+        tol = 1e-6 * float(np.abs(rec['eager']['full']).max())
+        hr_voxels = int(np.prod(rec['eager']['full'].shape[:-1]))
+        emit(phase='streaming_route', io=STREAM_IO, route=route,
+             **{f'{m}_wall_s': rec[m]['wall_s'] for m in rec},
+             **{f'{m}_hr_voxels_per_s': hr_voxels / float(
+                 np.median(rec[m]['wall_s'])) for m in rec},
+             **{f'{m}_prep_s_per_chunk': rec[m]['prep_s_per_chunk']
+                for m in rec},
+             launches_per_pass={m: rec[m]['launches'] for m in rec},
+             chunked_io_vs_eager_max_abs_err=err, tol=tol,
+             nvidia_smi=name, ok=err <= tol)
+        if not err <= tol:
+            raise AssertionError(f'streaming ({route}): chunked_io differs '
+                                 f'from the eager pass by {err} > {tol}')
+        fwp_profiled_pass(make('chunked_io'),
+                          os.path.join(tmp, f'{route}_stream_profiled'),
+                          route, phase='streaming_profile')
+        out[route] = {'launches': rec['chunked_io']['launches'],
+                      'calls': rec['chunked_io']['calls']}
+    served.inference_pallas = False
+    stream_cpu_chunk_check(
+        lambda device: stream_strategy(input_file, model_dir, None,
+                                       device=device, chunked_io=True),
+        'chunked_io pass')
+    return out
+
+
+def gcm_pass(name, tmp, model_dir):
+    """Phase 14b: the cell's geometry through
+    ``DataHandlerNCforCCwithPowerLaw`` with chunked_io on the default
+    route: hourly NetCDF3 uas / vas, u_100m / v_100m by the power law; 3
+    timed passes after a warm-up and a chunk against the CPU."""
+    rng = np.random.default_rng(1)
+    s1, s2, t = STREAM_DOMAIN
+    # the power law scales by (100 / 10) ** 0.2: keep the derived winds
+    # on the model's normalization scale
+    gcm_file = make_fake_nc_file(
+        os.path.join(tmp, 'gcm.nc'), STREAM_DOMAIN, ['uas', 'vas'],
+        data={f: (rng.standard_normal((t, s1, s2)) * 0.3 + 0.5) / 10 ** 0.2
+              for f in ('uas', 'vas')})
+
+    def make(out, device='cuda'):
+        return stream_strategy(
+            gcm_file, model_dir, out, device=device, chunked_io=True,
+            input_handler_name='DataHandlerNCforCCwithPowerLaw')
+
+    ForwardPass.run(make(os.path.join(tmp, 'gcm_warm',
+                                      'chunk_{file_id}.nc')), 0)
+    n_dispatch = stream_dispatches(make(None))
+    walls = []
+    for i in range(N_FWP_PASSES):
+        wall, launches, _, prep, _ = stream_pass(
+            make, os.path.join(tmp, f'gcm_{i}'), 'default', 'gcm_chunked_io',
+            i, n_dispatch)
+        walls.append(wall)
+    emit(phase='streaming_gcm', io=STREAM_IO,
+         handler='DataHandlerNCforCCwithPowerLaw', wall_s=walls,
+         hr_voxels_per_s=int(np.prod(STREAM_DOMAIN)) * 9 * 4 / float(
+             np.median(walls)), launches_per_pass=launches,
+         nvidia_smi=name)
+    stream_cpu_chunk_check(lambda device: make(None, device=device),
+                           'GCM chunked_io pass')
+    return launches
+
+
+def lazy_feed_check(train_file):
+    """The first batch of a queue over the lazy handler against one over
+    the eager handler on the same file and seed (single-threaded): the
+    HR batch bit-equal, the coarsened LR within an ulp (the stacked
+    samples' layout sets the average's summation order)."""
+    batches = []
+    for mode in ('lazy', 'eager'):
+        handler = DataHandler(train_file, features=FWP_FEATURES, mode=mode)
+        queue = SingleBatchQueue(
+            [Sampler(handler.data, TRAIN_HR[:3])], batch_size=TRAIN_BATCH,
+            s_enhance=3, t_enhance=4, mode=mode)
+        RANDOM_GENERATOR.bit_generator.state = np.random.default_rng(
+            11).bit_generator.state
+        batches.append(queue.post_proc(queue.sample_batch()))
+    (lr, hr), (lr_e, hr_e) = batches
+    hr_equal = bool(np.array_equal(hr, hr_e))
+    lr_err = float(np.abs(lr - lr_e).max())
+    lr_tol = 1e-6 * float(np.abs(lr_e).max())
+    ok = hr_equal and lr_err <= lr_tol and hr.shape == (
+        (TRAIN_BATCH,) + TRAIN_HR)
+    emit(phase='lazy_feed_check', hr_bit_equal=hr_equal,
+         lr_max_abs_err=lr_err, lr_tol=lr_tol, ok=ok)
+    if not ok:
+        raise AssertionError(f'lazy feed: first batch differs from the '
+                             f'eager feed (hr equal {hr_equal}, lr '
+                             f'{lr_err} > {lr_tol})')
+
+
+def lazy_train_loops(name, tmp):
+    """Phase 14c: phase 7's training cell fed by a ``BatchHandler`` over
+    ``DataHandler(mode='lazy')`` on a NetCDF3 (72, 72, 240) u / v file,
+    2 epochs of 4 batches with validation, then the same over eager
+    handlers: s per batch and starvation for each feed."""
+    rng = np.random.default_rng(2)
+    files = {}
+    for split, domain in (('train', LAZY_TRAIN_DOMAIN),
+                          ('val', LAZY_VAL_DOMAIN)):
+        s1, s2, t = domain
+        files[split] = make_fake_nc_file(
+            os.path.join(tmp, f'lazy_{split}.nc'), domain, FWP_FEATURES,
+            data={f: rng.standard_normal((t, s1, s2)) * 0.3 + 0.5
+                  for f in FWP_FEATURES})
+    lazy_feed_check(files['train'])
+    out = {}
+    for mode in ('lazy', 'eager'):
+        handlers = {k: DataHandler(v, features=FWP_FEATURES, mode=mode)
+                    for k, v in files.items()}
+        handler = BatchHandler(
+            [handlers['train']], [handlers['val']], batch_size=TRAIN_BATCH,
+            n_batches=4, s_enhance=3, t_enhance=4,
+            sample_shape=TRAIN_HR[:3], mode=mode)
+        model = Sup3rGan(get_config('spatiotemporal/gen_3x_4x_2f'),
+                         get_config('spatiotemporal/disc_test'),
+                         learning_rate=TRAIN_LR_RATE)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.train(handler, input_resolution={'spatial': '3km',
+                                               'temporal': '60min'},
+                    n_epoch=2, weight_gen_advers=W_ADV,
+                    out_dir=os.path.join(tmp, f'lazy_{mode}_{{epoch}}'))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        t0 = time.perf_counter()
+        model.calc_val_loss(handler, W_ADV)
+        val_s = time.perf_counter() - t0
+        handler.stop()
+        history = model.history
+        epoch_s = np.diff([0.0] + list(history['elapsed_time']))
+        ok = (len(history) == 2 and all(
+            np.isfinite(history[c]).all()
+            for c in ('train_loss_gen', 'val_loss_gen'))
+            and launches == {'small_reflect_conv': 16, 'reflect_conv': 0})
+        out[mode] = float(np.mean(epoch_s - val_s)) / 4
+        emit(phase='lazy_train_loop', feed=mode, io='netcdf3',
+             domain=list(LAZY_TRAIN_DOMAIN), epochs=2, batches_per_epoch=4,
+             batch=TRAIN_BATCH, wall_s=wall_s, epoch_s=list(epoch_s),
+             validation_s_per_epoch=val_s, s_per_batch=out[mode],
+             starvation_rate=handler._queue.starvation_rate,
+             means=handler.means, launches=launches, nvidia_smi=name,
+             ok=ok)
+        if not ok:
+            raise AssertionError(f'{mode}-fed train loop: history or '
+                                 f'launches {launches} failed')
+        del model
+    return out
+
+
+def streaming_phase(name):
+    """Phase 14: streaming input (chunked_io, mode='lazy') and the GCM
+    handler on the flagship at full width. Returns the launches and
+    fused calls per route of the chunked_io pass and the GCM pass's
+    launches."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_stream_')
+    try:
+        model = flagship('cuda')
+        model.meta.update(
+            input_resolution={'spatial': '12km', 'temporal': '60min'})
+        model_dir = os.path.join(tmp, 'model')
+        model.save(model_dir)
+        del model
+        per_route = stream_passes(name, tmp, model_dir)
+        gcm = gcm_pass(name, tmp, model_dir)
+        lazy_train_loops(name, tmp)
+        return per_route, gcm
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device: '
@@ -3657,6 +4025,42 @@ def main():
         launches_per_cond_mom_fwp_pass=cond['fwp_calls'][
             (COND_FWP_TAIL_SHAPE, 2, None)])
     mark('13_kernel_checks_and_timings')
+    # 14. streaming input (chunked_io, mode='lazy') and the GCM handler
+    stream_routes, gcm_launches = streaming_phase(smi)
+    mark('14_streaming')
+    # the kernels at the shapes the chunked_io pass gave them (read from
+    # the hooks of its last timed pass on each route): each distinct
+    # shape held to its plain version, the most-called one timed
+    stream_shapes = {}
+    for route, rec in stream_routes.items():
+        hooked = Counter()
+        for (kname, x_shape, co, alpha), n in rec['calls'].items():
+            if kname == 'cudnn':
+                continue
+            hooked[kname] += n
+            key = (x_shape, co, alpha)
+            if key not in stream_shapes.setdefault(kname, {}):
+                err = check_kernel(kname, KERNEL_FNS[kname],
+                                   *conv_inputs(gen, x_shape, co), alpha)
+                stream_shapes[kname][key] = {'max_abs_err': err,
+                                             'calls': {}}
+            stream_shapes[kname][key]['calls'][route] = n
+        want = {k: v for k, v in rec['launches'].items() if v}
+        if dict(hooked) != want:
+            raise AssertionError(f'streaming ({route}): hooked kernel calls '
+                                 f'{dict(hooked)} vs launches {want}')
+    stream_times = {}
+    for kname, by_shape in stream_shapes.items():
+        (x_shape, co, alpha), rec = max(
+            by_shape.items(), key=lambda kv: sum(kv[1]['calls'].values()))
+        stream_times[kname] = dict(
+            timing(kname, KERNEL_FNS[kname],
+                   *conv_inputs(gen, x_shape, co), alpha),
+            max_abs_err=rec['max_abs_err'],
+            calls_per_chunked_io_pass=rec['calls'],
+            shapes_checked=[[list(x), c, a, r['max_abs_err'], r['calls']]
+                            for (x, c, a), r in by_shape.items()])
+    mark('14_kernel_checks_and_timings')
     emit(phase='phase_seconds', seconds=seconds,
          total_s=sum(seconds.values()))
 
@@ -3702,6 +4106,12 @@ def main():
                           'train_check_rel_err'],
                       cond_mom2_target_rel_err=cond['mom2_target_rel_err'],
                       cond_mom_fwp_shape=cond_tail,
+                      launches_per_chunked_io_pass={
+                          r: v['launches']['small_reflect_conv']
+                          for r, v in stream_routes.items()},
+                      launches_per_gcm_chunked_io_pass=gcm_launches[
+                          'small_reflect_conv'],
+                      chunked_io_shape=stream_times['small_reflect_conv'],
                       obs_shape=obs_tail,
                       obs_train_check_rel_err=obs['train_check_rel_err'],
                       train_shape=dict(
@@ -3732,6 +4142,12 @@ def main():
                           'reflect_conv'],
                       launches_per_cond_mom_fwp_pass=cond['per_pass'][
                           'reflect_conv'],
+                      launches_per_chunked_io_pass={
+                          r: v['launches']['reflect_conv']
+                          for r, v in stream_routes.items()},
+                      launches_per_gcm_chunked_io_pass=gcm_launches[
+                          'reflect_conv'],
+                      chunked_io_shape=stream_times['reflect_conv'],
                       launches_per_train_step=0,
                       **per_mode('reflect_conv'))]
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -16,3 +16,5 @@ Entry points run on ``device='cuda'`` unless the caller passes
 """
 
 __version__ = '0.1.0'
+
+from sup3r_tpu_torch.utilities.utilities import RANDOM_GENERATOR  # noqa: F401,E402

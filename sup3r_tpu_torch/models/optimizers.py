@@ -10,11 +10,18 @@ The updates are plain functions on tensors that follow optax 0.2.6, not
 - ``adam``: optax ``scale_by_adam`` then ``-learning_rate``: moments
   ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``, bias
   corrections by ``1 - b**count``, ``mu_hat / (sqrt(nu_hat + eps_root) +
-  eps)``;
+  eps)``. With ``mu_dtype`` (e.g. ``'bfloat16'``) the first moment is
+  stored in that dtype: ``b1 mu`` is computed in it (``b1`` rounded to
+  it, as JAX's weak typing does), the new moment and
+  this step's update in the gradient's dtype, and the moment is cast
+  back after;
 - ``adamw``: adam's update plus ``weight_decay * param`` (1e-4 by
-  default, on every leaf) before the learning rate;
+  default) before the learning rate, on every leaf or on those ``mask``
+  selects (a list of bools aligned with the parameters, or a callable
+  that returns one from them);
 - ``sgd``: ``trace`` (``t = g + momentum t``, nesterov ``g + momentum
-  t``) when ``momentum`` is set, then ``-learning_rate``;
+  t``) when ``momentum`` is set, then ``-learning_rate``; the trace is
+  stored in ``accumulator_dtype`` as ``mu`` is in ``mu_dtype``;
 - ``rmsprop``: ``nu = (1 - decay) g^2 + decay nu`` from
   ``initial_scale``, then ``g / sqrt(nu + eps)`` (``eps_in_sqrt=True``,
   optax's default; ``g / (sqrt(nu) + eps)`` otherwise), ``centered``
@@ -47,8 +54,18 @@ ACCEPTED = {
 }
 #: TF/Keras spellings in reference configs -> optax names
 TF_MAP = {'beta_1': 'b1', 'beta_2': 'b2', 'epsilon': 'eps', 'rho': 'decay'}
-#: arguments the port takes only at optax's default
-_DEFAULT_ONLY = {'mu_dtype': None, 'mask': None, 'accumulator_dtype': None}
+
+
+def _torch_dtype(dtype):
+    """A torch dtype from a name ('bfloat16'), a torch dtype or anything
+    whose ``str`` names one (a numpy or JAX dtype); None stays None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(getattr(dtype, 'name', dtype)).replace('torch.', '')
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f'Unknown dtype {dtype!r}')
+    return out
 
 
 class Optimizer:
@@ -56,36 +73,36 @@ class Optimizer:
 
     DEFAULTS = {
         'adam': dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
-                     nesterov=False),
+                     mu_dtype=None, nesterov=False),
         'adamw': dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
-                      weight_decay=1e-4, nesterov=False),
-        'sgd': dict(momentum=None, nesterov=False),
+                      mu_dtype=None, weight_decay=1e-4, mask=None,
+                      nesterov=False),
+        'sgd': dict(momentum=None, nesterov=False, accumulator_dtype=None),
         'rmsprop': dict(decay=0.9, eps=1e-8, initial_scale=0.0,
                         eps_in_sqrt=True, centered=False, momentum=None,
                         nesterov=False, bias_correction=False),
     }
 
     def __init__(self, name, learning_rate, **kwargs):
-        for key, default in _DEFAULT_ONLY.items():
-            if kwargs.pop(key, default) is not default:
-                raise NotImplementedError(
-                    f'optimizer option {key!r} is taken at its optax '
-                    f'default ({default}) only')
         self.name = name
         self.learning_rate = float(learning_rate)
         self.hp = {**self.DEFAULTS[name], **kwargs}
+        for key in ('mu_dtype', 'accumulator_dtype'):
+            if key in self.hp:
+                self.hp[key] = _torch_dtype(self.hp[key])
 
     # ------------------------------------------------------------------
     def init(self, params):
         """Zero state for ``params`` (a list of tensors)."""
         hp = self.hp
 
-        def zeros():
-            return [torch.zeros_like(p) for p in params]
+        def zeros(dtype=None):
+            return [torch.zeros_like(p, dtype=dtype) for p in params]
 
         state = {}
         if self.name in ('adam', 'adamw'):
-            state = {'count': 0, 'mu': zeros(), 'nu': zeros()}
+            state = {'count': 0, 'mu': zeros(hp['mu_dtype']),
+                     'nu': zeros()}
         elif self.name == 'rmsprop':
             state['nu'] = [torch.full_like(p, hp['initial_scale'])
                            for p in params]
@@ -94,7 +111,7 @@ class Optimizer:
             if hp['bias_correction']:
                 state['count'] = 0
         if hp.get('momentum') is not None:
-            state['trace'] = zeros()
+            state['trace'] = zeros(hp.get('accumulator_dtype'))
         return state
 
     def stages(self, state):
@@ -142,9 +159,17 @@ class Optimizer:
         hp = self.hp
         if hp['momentum'] is None:
             return updates
-        trace = state['trace']
-        torch._foreach_mul_(trace, hp['momentum'])
-        torch._foreach_add_(trace, updates)
+        dtype = hp.get('accumulator_dtype')
+        if dtype is not None:
+            # optax: ``momentum t`` in the stored dtype, the new trace in
+            # the update's, cast back for storage
+            trace = [g + (t * _in_dtype(hp['momentum'], t)).to(g.dtype)
+                     for g, t in zip(updates, state['trace'])]
+            state['trace'] = [t.to(dtype) for t in trace]
+        else:
+            trace = state['trace']
+            torch._foreach_mul_(trace, hp['momentum'])
+            torch._foreach_add_(trace, updates)
         if hp['nesterov']:
             return torch._foreach_add(
                 updates, torch._foreach_mul(trace, hp['momentum']))
@@ -160,25 +185,41 @@ class Optimizer:
     def _adam(self, grads, state, params):
         hp = self.hp
         b1, b2 = hp['b1'], hp['b2']
-        self._ema_(state['mu'], grads, b1)
+        if hp['mu_dtype'] is None:
+            self._ema_(state['mu'], grads, b1)
+            mu = state['mu']
+        else:
+            # optax: ``b1 mu`` in mu_dtype, the new moment (and this
+            # step's update) in the gradient's dtype, stored cast back
+            mu = [(m * _in_dtype(b1, m)).to(g.dtype) + g * (1 - b1)
+                  for m, g in zip(state['mu'], grads)]
+            state['mu'] = [m.to(hp['mu_dtype']) for m in mu]
         self._ema_(state['nu'], torch._foreach_mul(grads, grads), b2)
         count = state['count'] = _safe_increment(state['count'])
         if hp['nesterov']:
             c1 = _bias(b1, _safe_increment(count))
             mu_hat = torch._foreach_add(
-                torch._foreach_mul(torch._foreach_div(state['mu'], c1), b1),
+                torch._foreach_mul(torch._foreach_div(mu, c1), b1),
                 torch._foreach_mul(
                     torch._foreach_div(grads, _bias(b1, count)), 1 - b1))
         else:
-            mu_hat = torch._foreach_div(state['mu'], _bias(b1, count))
+            mu_hat = torch._foreach_div(mu, _bias(b1, count))
         nu_hat = torch._foreach_div(state['nu'], _bias(b2, count))
         denom = torch._foreach_sqrt(torch._foreach_add(nu_hat,
                                                        hp['eps_root']))
         torch._foreach_add_(denom, hp['eps'])
         u = torch._foreach_div(mu_hat, denom)
         if self.name == 'adamw':
-            torch._foreach_add_(u, torch._foreach_mul(params,
-                                                      hp['weight_decay']))
+            mask = hp['mask']
+            if callable(mask):
+                mask = mask(params)
+            if mask is None:
+                torch._foreach_add_(u, torch._foreach_mul(
+                    params, hp['weight_decay']))
+            else:
+                for ui, p, keep in zip(u, params, mask):
+                    if keep:
+                        ui.add_(p * hp['weight_decay'])
         return u
 
     def _rms(self, grads, state):
@@ -203,6 +244,13 @@ class Optimizer:
             scale = torch._foreach_reciprocal(torch._foreach_add(
                 torch._foreach_sqrt(nu), hp['eps']))
         return torch._foreach_mul(scale, grads)
+
+
+def _in_dtype(value, like):
+    """A Python scalar rounded to ``like``'s dtype, as JAX's weak typing
+    rounds ``decay * t`` for a bf16 ``t`` (torch would keep the scalar in
+    higher precision)."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
 def _bias(decay, count):

@@ -25,6 +25,7 @@ str, bin, ext, ints, floats, nil, bool), so neither flax nor the
 import struct
 
 import numpy as np
+import torch
 
 #: flax.serialization's msgpack extension code for an ndarray
 _EXT_NDARRAY = 1
@@ -119,6 +120,35 @@ def moments_from_jax(network, tree):
     return [t.to(p.device) for t, p in zip(out, params)]
 
 
+class BF16Array:
+    """A bfloat16 array for the checkpoint codec (numpy has no bfloat16):
+    its float32 values, which must be bfloat16-exact, written as flax
+    writes a ``jnp.bfloat16`` leaf."""
+
+    def __init__(self, values):
+        self.values = np.ascontiguousarray(values, np.float32)
+
+    def encode(self):
+        bits = (self.values.view(np.uint32) >> 16).astype('<u2')
+        return [list(self.values.shape), 'bfloat16', bits.tobytes('C')]
+
+
+def _bf16_to_float32(buf, shape):
+    """float32 values of bfloat16 bytes."""
+    bits = np.frombuffer(buf, '<u2').astype(np.uint32) << 16
+    return bits.view(np.float32).reshape(shape).copy()
+
+
+def _moments_to_jax(network, tensors):
+    """``moments_to_jax`` that keeps a bfloat16 moment list bfloat16
+    (``mu_dtype`` / ``accumulator_dtype``)."""
+    if not tensors or tensors[0].dtype != torch.bfloat16:
+        return moments_to_jax(network, tensors)
+    tree = moments_to_jax(network, [t.float() for t in tensors])
+    return {k: {n: BF16Array(a) for n, a in v.items()}
+            for k, v in tree.items()}
+
+
 def opt_state_to_jax(optimizer, state, network):
     """One network's optimizer state as flax's state dict of optax's
     chain state (``{'0': stage, '1': stage, ...}``)."""
@@ -126,20 +156,26 @@ def opt_state_to_jax(optimizer, state, network):
     for stage in optimizer.stages(state):
         stages.append({
             k: (np.asarray(v, np.int32) if k == 'count'
-                else moments_to_jax(network, v))
+                else _moments_to_jax(network, v))
             for k, v in stage.items()})
     return {str(i): st for i, st in enumerate(stages)}
 
 
 def opt_state_from_jax(optimizer, tree, network):
     """Inverse of ``opt_state_to_jax``: the port's state for
-    ``optimizer`` on ``network``'s parameters."""
+    ``optimizer`` on ``network``'s parameters, each moment list in the
+    dtype ``optimizer.init`` gives it."""
     stages = []
     for i in range(len(tree)):
         stages.append({
             k: (int(v) if k == 'count' else moments_from_jax(network, v))
             for k, v in tree[str(i)].items()})
-    return optimizer.from_stages(stages)
+    state = optimizer.from_stages(stages)
+    like = optimizer.init(list(network.parameters()))
+    for k, v in like.items():
+        if isinstance(v, list) and k in state:
+            state[k] = [t.to(ref.dtype) for t, ref in zip(state[k], v)]
+    return state
 
 
 # ----------------------------------------------------------------------
@@ -173,6 +209,10 @@ def _pack(obj, out):
         for key, value in obj.items():
             _pack(key, out)
             _pack(value, out)
+    elif isinstance(obj, BF16Array):
+        inner = bytearray()
+        _pack(obj.encode(), inner)
+        _pack_ext(_EXT_NDARRAY, bytes(inner), out)
     elif isinstance(obj, np.ndarray):
         # np.ascontiguousarray would make a 0-d array (a count) 1-d
         arr = obj if obj.flags.c_contiguous else np.ascontiguousarray(obj)
@@ -318,6 +358,8 @@ class _Reader:
             raise ValueError(f'unsupported msgpack extension type {code} '
                              'in a JAX checkpoint')
         shape, dtype, buf = unpackb(data)
+        if dtype == 'bfloat16':
+            return _bf16_to_float32(buf, shape)
         return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(
             shape).copy()
 

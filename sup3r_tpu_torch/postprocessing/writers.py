@@ -25,6 +25,7 @@ from sup3r_tpu_torch.utilities import (
 )
 from sup3r_tpu_torch.utilities.times import (
     date_range,
+    floor_step,
     format_timestamps,
     seconds_since,
 )
@@ -180,9 +181,11 @@ class OutputHandler:
         else:
             offset = np.timedelta64(1, 'D').astype('timedelta64[ns]')
         t_enhance = int(shape / len(low_res_times))
-        freq = offset // t_enhance
+        # the step floors at the input's resolution, as pandas' Timedelta
+        # division does (microseconds for a decoded or parsed index)
+        freq = floor_step(offset // t_enhance, low_res_times.unit)
         times = date_range(low_res_times[0], low_res_times[-1] + offset,
-                           freq=freq)[:-1]
+                           freq=freq, unit=low_res_times.unit)[:-1]
         has_leap = bool(((low_res_times.month == 2)
                          & (low_res_times.day == 29)).any())
         if not has_leap:
@@ -248,6 +251,18 @@ class OutputHandler:
                                               max_workers)
         data = enforce_limits(features, data, nn_fill=nn_fill)
         return data, features
+
+    @classmethod
+    def write_output(cls, data, features, low_res_lat_lon,
+                     low_res_times, out_file, meta_data=None,
+                     max_workers=None, gids=None):
+        """Synthesize HR coords + transform + write (reference:
+        writers/base.py:303-346)."""
+        lat_lon = cls.get_lat_lon(low_res_lat_lon, data.shape[:2])
+        times = cls.get_times(low_res_times, data.shape[2])
+        cls._write_output(data, features, lat_lon, times, out_file,
+                          meta_data=meta_data, max_workers=max_workers,
+                          gids=gids)
 
     @classmethod
     def _write_output(cls, data, features, lat_lon, times, out_file,

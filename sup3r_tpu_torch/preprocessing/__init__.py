@@ -40,6 +40,8 @@ from sup3r_tpu_torch.preprocessing.data_handlers import (  # noqa: F401
     DataHandler,
     DataHandlerH5SolarCC,
     DataHandlerH5WindCC,
+    DataHandlerNCforCC,
+    DataHandlerNCforCCwithPowerLaw,
     get_input_handler_class,
 )
 from sup3r_tpu_torch.preprocessing.exo import (  # noqa: F401
@@ -52,6 +54,10 @@ from sup3r_tpu_torch.preprocessing.exo import (  # noqa: F401
 from sup3r_tpu_torch.preprocessing.grid import (  # noqa: F401
     GridDataset,
     PairedDataset,
+)
+from sup3r_tpu_torch.preprocessing.lazy import (  # noqa: F401
+    LazyDailyDataset,
+    LazyGridDataset,
 )
 from sup3r_tpu_torch.preprocessing.loaders import (  # noqa: F401
     Loader,

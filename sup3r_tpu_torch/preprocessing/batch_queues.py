@@ -53,12 +53,12 @@ class AbstractBatchQueue:
     def __init__(self, samplers, batch_size=16, n_batches=64,
                  s_enhance=1, t_enhance=1, queue_cap=4, max_workers=1,
                  transform_kwargs=None, mode='eager', thread_name='training'):
-        """``mode='lazy'`` (window reads streamed from disk) comes with
-        the ``chunked_io`` item."""
-        if mode != 'eager':
-            raise NotImplementedError(
-                f"mode={mode!r}: lazy containers come with chunked_io "
-                '(ROADMAP queue 1 item 5)')
+        """``mode`` is a no-op at the queue level: laziness lives in the
+        dataset. Build the containers with ``DataHandler(mode='lazy')``
+        and the samplers' window reads stream from disk inside these
+        producer threads."""
+        if mode not in ('eager', 'lazy'):
+            raise ValueError(f"mode must be 'eager' or 'lazy', got {mode!r}")
         self.samplers = samplers
         self.batch_size = batch_size
         self.n_batches = n_batches

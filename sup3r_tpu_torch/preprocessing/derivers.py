@@ -61,6 +61,12 @@ def _clearsky_ratio(ctx):
     return csr.astype(np.float32)
 
 
+def _clearsky_ratio_cc(ctx):
+    """Daily-average clearsky ratio for GCM data, clipped to [0, 1]."""
+    csr = ctx['rsds'] / ctx['clearsky_ghi']
+    return np.clip(csr, 0, 1).astype(np.float32)
+
+
 def _cloud_mask(ctx):
     """1 where cloudy, 0 clear, NaN nighttime."""
     night = np.asarray((ctx['clearsky_ghi'] <= 1).any(axis=(0, 1)))
@@ -188,6 +194,39 @@ RegistryBase = {
     'soy_encoding': _Method(_soy_encoding),
 }
 
+_POWER_LAW_ALPHA = 0.2
+_NEAR_SFC_HEIGHT = 10
+
+
+def _u_power_law(ctx, height):
+    """Power-law extrapolation of near-surface u (uas)."""
+    return ctx['uas'] * (float(height) / _NEAR_SFC_HEIGHT
+                         ) ** _POWER_LAW_ALPHA
+
+
+def _v_power_law(ctx, height):
+    """Power-law extrapolation of near-surface v (vas)."""
+    return ctx['vas'] * (float(height) / _NEAR_SFC_HEIGHT
+                         ) ** _POWER_LAW_ALPHA
+
+
+def _temp_ncforcc(ctx, height):
+    """ta_*m Kelvin -> Celsius."""
+    return ctx[f'ta_{height}m'] - 273.15
+
+
+def _tas(ctx):
+    return ctx['tas'] - 273.15
+
+
+def _tasmin(ctx):
+    return ctx['tasmin'] - 273.15
+
+
+def _tasmax(ctx):
+    return ctx['tasmax'] - 273.15
+
+
 #: the daily climate-change handlers' registries: daily extremes come from
 #: the hourly field they name (the daily coarsening takes their max / min)
 RegistryH5WindCC = {
@@ -205,6 +244,30 @@ RegistryH5SolarCC = {
     'u': _Method(_usolar, ('wind_speed', 'wind_direction')),
     'v': _Method(_vsolar, ('wind_speed', 'wind_direction')),
 }
+
+#: the GCM handlers' registries (reference: derivers/methods.py:530-555)
+RegistryNCforCC = {
+    **RegistryBase,
+    'u_(.*)': 'ua_(.*)',
+    'v_(.*)': 'va_(.*)',
+    'relativehumidity_2m': 'hurs',
+    'relativehumidity_min_2m': 'hursmin',
+    'relativehumidity_max_2m': 'hursmax',
+    'clearsky_ratio': _Method(_clearsky_ratio_cc,
+                              ('rsds', 'clearsky_ghi')),
+    'temperature_(.*)': _Method(_temp_ncforcc, ('ta_(.*)',)),
+    'temperature_2m': _Method(_tas, ('tas',)),
+    'temperature_max_2m': _Method(_tasmax, ('tasmax',)),
+    'temperature_min_2m': _Method(_tasmin, ('tasmin',)),
+    'pressure_(.*)': 'level_(.*)',
+}
+
+RegistryNCforCCwithPowerLaw = {
+    **RegistryNCforCC,
+    'u_(.*)': _Method(_u_power_law, ('uas',)),
+    'v_(.*)': _Method(_v_power_law, ('vas',)),
+}
+
 
 class Deriver:
     """Derive requested features from rasterized data, producing a

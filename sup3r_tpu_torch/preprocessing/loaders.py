@@ -43,7 +43,8 @@ _IGNORE_VARS = {
 
 def check_host_ram_budget(nbytes, what):
     """Enforce the optional ``SUP3R_TPU_HOST_RAM_GB`` host-memory
-    budget: raise before an eager load that would exceed it."""
+    budget: raise before an eager load that would exceed it, pointing
+    the user at the streaming data plane (``DataHandler(mode='lazy')``)."""
     budget = os.environ.get('SUP3R_TPU_HOST_RAM_GB')
     if not budget:
         return
@@ -51,9 +52,9 @@ def check_host_ram_budget(nbytes, what):
     if nbytes > limit:
         raise MemoryError(
             f'{what} would load {nbytes / 1024 ** 3:.4g} GB eagerly, '
-            f'exceeding the SUP3R_TPU_HOST_RAM_GB={budget} budget '
-            '(streaming windows from disk comes with '
-            'preprocessing/lazy.py, a later slice of the port)')
+            f'exceeding the SUP3R_TPU_HOST_RAM_GB={budget} budget. '
+            "Use DataHandler(mode='lazy') to stream sample windows "
+            'from disk instead of loading the full extent.')
 
 
 def expand_paths(file_paths):
@@ -165,14 +166,222 @@ def decode_cf_time(values, units, calendar='standard'):
             out.append(np.datetime64(
                 f'{int(yr):04d}-{mi + 1:02d}-{day:02d}', 'ns')
                 + np.timedelta64(round(frac * 86400), 's'))
-        return TimeIndex(np.asarray(out, dtype='datetime64[ns]'))
+        return TimeIndex(np.asarray(out, dtype='datetime64[ns]'),
+                         unit='us')
 
     origin = _origin_ns((y, m, d), time_part)
     seconds = values * seconds_per
     whole = np.floor(seconds)
     ns = (whole.astype(np.int64) * 10 ** 9
           + np.round((seconds - whole) * 1e9).astype(np.int64))
-    return TimeIndex(origin + ns.astype('timedelta64[ns]'))
+    return TimeIndex(origin + ns.astype('timedelta64[ns]'), unit='us')
+
+
+class _LazyNCVar:
+    """Deferred view of an on-disk NetCDF4 variable: slicing reads only
+    the requested window from the h5py dataset, applying the dim
+    reorder / scale / fill on the fly. This is what lets chunked
+    inference stream continental inputs instead of loading them."""
+
+    def __init__(self, dset, src_dims, canon_dims, scale=1.0, offset=0.0,
+                 fill=None, flips=()):
+        self._dset = dset
+        self._src_dims = src_dims
+        self.dims = canon_dims
+        self._scale = scale
+        self._offset = offset
+        self._fill = fill
+        #: canonical dims whose order is reversed vs on-disk (e.g.
+        #: ascending-latitude files exposed with descending lats)
+        self.flips = set(flips)
+        # canonical shape
+        size = dict(zip(canon_dims, [
+            dset.shape[src_dims.index(d)] for d in canon_dims]))
+        self.shape = tuple(size[d] for d in canon_dims)
+        self.ndim = len(self.shape)
+        self.dtype = np.float32
+
+    def _decode(self, values):
+        raw = np.asarray(values)
+        values = raw.astype(np.float32)
+        # fill comparison happens in PACKED space (before scale/offset)
+        if self._fill is not None and not np.isnan(self._fill):
+            values = np.where(raw == np.asarray(self._fill).astype(
+                raw.dtype), np.nan, values)
+        if self._scale != 1.0 or self._offset != 0.0:
+            values = values * self._scale + self._offset
+        return values
+
+    def isel(self, sel):
+        """Read a window; ``sel`` maps canonical dim name -> slice (in
+        canonical orientation, flips applied transparently)."""
+        size = dict(zip(self.dims, self.shape))
+        src_idx, post = [], {}
+        for d in self._src_dims:
+            sl = sel.get(d, slice(None))
+            step = sl.step or 1
+            if step != 1:
+                # strided/reversed window: read the full dim, apply the
+                # canonical slice after reorder (h5py can't step < 0)
+                post[d] = sl
+                sl = slice(None)
+            elif d in self.flips:
+                n = size[d]
+                start, stop, _ = sl.indices(n)
+                sl = slice(n - stop, n - start)
+            src_idx.append(sl)
+        block = self._dset[tuple(src_idx)]
+        order = [self._src_dims.index(d) for d in self.dims
+                 if d in self._src_dims]
+        block = np.transpose(block, order)
+        for d in self.flips:
+            block = np.flip(block, axis=self.dims.index(d))
+        if post:
+            block = block[tuple(post.get(d, slice(None))
+                                for d in self.dims)]
+        return self._decode(block)
+
+    def __getitem__(self, idx):
+        """Materialize fully then index (for API parity with arrays)."""
+        return self.materialize()[idx]
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.materialize()
+        return out.astype(dtype) if dtype is not None else out
+
+    def materialize(self):
+        """Full read in canonical order."""
+        return self.isel({})
+
+
+class _LazyTimeConcat:
+    """Lazy concatenation of per-file lazy variables along time (e.g.
+    monthly/yearly NetCDF series). Window reads split the requested
+    time slice across member files so only touched files hit disk —
+    the TPU-native replacement for the reference's dask-backed
+    ``xr.open_mfdataset`` laziness (sup3r/preprocessing/loaders/nc.py)."""
+
+    def __init__(self, parts, dims):
+        self.parts = list(parts)
+        self.dims = dims
+        self._t_ax = dims.index(Dimension.TIME)
+        sizes = [p.shape[self._t_ax] for p in self.parts]
+        self._offsets = np.cumsum([0, *sizes])
+        shape = list(self.parts[0].shape)
+        shape[self._t_ax] = int(self._offsets[-1])
+        self.shape = tuple(shape)
+        self.ndim = len(self.shape)
+        self.dtype = np.float32
+
+    def isel(self, sel):
+        """Read a window; the time slice is routed to the member files
+        that overlap it (contiguous step-1 slices only)."""
+        tsl = sel.get(Dimension.TIME, slice(None))
+        start, stop, step = tsl.indices(self.shape[self._t_ax])
+        if step != 1:
+            # read the contiguous envelope, stride afterwards
+            env = dict(sel)
+            lo, hi = (start, stop) if step > 0 else (stop + 1, start + 1)
+            env[Dimension.TIME] = slice(lo, hi)
+            out = self.isel(env)
+            idx = [slice(None)] * out.ndim
+            idx[self._t_ax] = slice(None, None, step)
+            return out[tuple(idx)]
+        blocks = []
+        for i, part in enumerate(self.parts):
+            lo = max(start, int(self._offsets[i])) - int(self._offsets[i])
+            hi = min(stop, int(self._offsets[i + 1])) - int(
+                self._offsets[i])
+            if hi <= lo:
+                continue
+            psel = dict(sel)
+            psel[Dimension.TIME] = slice(lo, hi)
+            if hasattr(part, 'isel'):
+                blocks.append(part.isel(psel))
+            else:
+                idx = tuple(psel.get(d, slice(None)) for d in self.dims)
+                blocks.append(np.asarray(part[idx], dtype=np.float32))
+        return np.concatenate(blocks, axis=self._t_ax)
+
+    def __getitem__(self, idx):
+        return self.materialize()[idx]
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.materialize()
+        return out.astype(dtype) if dtype is not None else out
+
+    def materialize(self):
+        """Full read in canonical order."""
+        return self.isel({})
+
+
+def compose_slice(outer, inner, n):
+    """Compose two slices: the result selects, out of ``n`` elements,
+    what ``inner`` selects within the extent ``outer`` selects. Handles
+    arbitrary starts/stops/steps (range arithmetic)."""
+    r = range(n)[outer][inner]
+    if len(r) == 0:
+        # an empty negative-step range can carry start=stop=-1, and
+        # the stop<0 -> None rewrite below would turn "select nothing"
+        # into "select from the last element down" (review finding)
+        return slice(0, 0, 1)
+    stop = r.stop
+    if r.step < 0 and stop < 0:
+        stop = None
+    return slice(r.start, stop, r.step)
+
+
+def _is_lazy(x):
+    """Whether ``x`` reads from disk on demand (duck-typed on the
+    ``materialize`` method all lazy variable classes implement)."""
+    return hasattr(x, 'materialize')
+
+
+class _LazyWindow:
+    """A deferred window over another lazy variable: slicing composes
+    instead of reading, so chained ``RawDataset.isel`` calls (full
+    extent -> sample window) only touch disk when the innermost window
+    is finally accessed. This is what lets the streaming training data
+    plane sample from larger-than-RAM stores (reference ``mode='lazy'``,
+    sup3r/preprocessing/batch_queues/abstract.py:135-141)."""
+
+    def __init__(self, var, sel):
+        if isinstance(var, _LazyWindow):
+            sel = {d: compose_slice(
+                var._sel.get(d, slice(None)), sel.get(d, slice(None)),
+                dict(zip(var._var.dims, var._var.shape))[d])
+                for d in var.dims}
+            var = var._var
+        self._var = var
+        self._sel = {d: sel.get(d, slice(None)) for d in var.dims}
+        self.dims = var.dims
+        self.shape = tuple(
+            len(range(n)[self._sel[d]])
+            for d, n in zip(var.dims, var.shape))
+        self.ndim = len(self.shape)
+        self.dtype = np.float32
+
+    def isel(self, sel):
+        """Read a window (``sel`` relative to THIS window's extent)."""
+        composed = {
+            d: compose_slice(self._sel[d], sel.get(d, slice(None)), n)
+            for d, n in zip(self._var.dims, self._var.shape)}
+        return self._var.isel(composed)
+
+    def __getitem__(self, idx):
+        return self.materialize()[idx]
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.materialize()
+        return out.astype(dtype) if dtype is not None else out
+
+    def materialize(self):
+        """Full read of this window in canonical order."""
+        return self._var.isel(self._sel)
+
+
+#: duck-type tuple for "reads from disk on demand"
+_LAZY_TYPES = (_LazyNCVar, _LazyTimeConcat, _LazyWindow)
 
 
 class RawDataset:
@@ -207,21 +416,30 @@ class RawDataset:
         return str(name).lower() in self.data_vars
 
     def __getitem__(self, name):
-        return self.data_vars[str(name).lower()]
+        var = self.data_vars[str(name).lower()]
+        if _is_lazy(var):
+            var = var.materialize()
+            self.data_vars[str(name).lower()] = var
+        return var
 
     def dims(self, name):
         """Canonical dim names of a variable."""
         return self.var_dims[str(name).lower()]
 
     def isel(self, s1=slice(None), s2=slice(None), t=slice(None)):
-        """Slice all variables spatially/temporally."""
+        """Slice all variables spatially/temporally. Lazy variables
+        stay lazy (the window composes); they read from disk only when
+        accessed through ``__getitem__``/``materialize``."""
         sel = {Dimension.SOUTH_NORTH: s1, Dimension.WEST_EAST: s2,
                Dimension.TIME: t}
         new_vars, new_dims = {}, {}
         for name, arr in self.data_vars.items():
             dims = self.var_dims[name]
-            idx = tuple(sel.get(dim, slice(None)) for dim in dims)
-            new_vars[name] = arr[idx]
+            if _is_lazy(arr):
+                new_vars[name] = _LazyWindow(arr, sel)
+            else:
+                idx = tuple(sel.get(dim, slice(None)) for dim in dims)
+                new_vars[name] = arr[idx]
             new_dims[name] = dims
         ti = None if self.time_index is None else self.time_index[t]
         return RawDataset(new_vars, new_dims, self.lat_lon[s1, s2],
@@ -341,14 +559,12 @@ class LoaderNC:
         """``res_kwargs``/``chunks``/``BaseLoader`` are accepted for
         reference-config compatibility (they configure xarray/dask in
         the reference; the data plane here is h5py/scipy and loads are
-        eager). ``lazy=True`` (windowed reads of NetCDF4 files) comes
-        with ``preprocessing/lazy.py`` in a later slice of the port."""
-        if lazy:
-            raise NotImplementedError(
-                'LoaderNC(lazy=True): windowed reads come with '
-                'preprocessing/lazy.py, a later slice of the port '
-                '(ROADMAP queue 1 item 5: chunked_io / lazy.py)')
+        eager or lazy-windowed). ``lazy=True`` defers variable reads
+        (h5py-backed NetCDF4 files only): data is pulled from disk per
+        requested window. NetCDF3 is read whole either way."""
         self.file_paths = expand_paths(file_paths)
+        self._handles = []
+        self.lazy = lazy
         #: requested-feature filter, applied BEFORE eager reads so an
         #: explicit features list neither pays I/O for nor counts the
         #: other variables against the host-RAM budget
@@ -359,12 +575,25 @@ class LoaderNC:
 
     def _load_one(self, path):
         backend, handle = _nc_open(path)
+        lazy = self.lazy and backend == 'h5py'
         try:
-            return self._standardize(_nc_vars(backend, handle))
+            return self._standardize(_nc_vars(backend, handle),
+                                     lazy=lazy)
         finally:
-            handle.close()
+            if lazy:
+                self._handles.append(handle)  # kept open for reads
+            else:
+                # an eager load read everything: close the handle rather
+                # than leak one fd per member file
+                handle.close()
 
-    def _standardize(self, raw_vars):
+    def close(self):
+        """Close any lazily-held file handles."""
+        for h in self._handles:
+            h.close()
+        self._handles = []
+
+    def _standardize(self, raw_vars, lazy=False):
         # resolve coordinate arrays
         lower = {k.lower(): k for k in raw_vars}
 
@@ -482,24 +711,29 @@ class LoaderNC:
             fv = (float(np.asarray(fill).ravel()[0])
                   if fill is not None else None)
             canon = tuple(d for d in target_order if d in cdims)
-            # budget the CUMULATIVE eager load, not each variable in
-            # isolation — many medium variables can blow the host-RAM
-            # cap just as surely as one big one
-            self._eager_bytes += int(np.prod(arr.shape)) * 4
-            check_host_ram_budget(
-                self._eager_bytes,
-                f'Eager NetCDF load through variable "{name}"')
-            raw = np.asarray(arr[:])
-            values = raw.astype(np.float32)
-            # fill comparison happens in PACKED space
-            if fv is not None and not np.isnan(fv):
-                values = np.where(
-                    raw == np.asarray(fv).astype(raw.dtype),
-                    np.nan, values)
-            if sf != 1.0 or off != 0.0:
-                values = values * sf + off
-            order = [cdims.index(d) for d in target_order if d in cdims]
-            values = np.transpose(values, order)
+            if lazy:
+                values = _LazyNCVar(arr, cdims, canon, scale=sf,
+                                    offset=off, fill=fv)
+            else:
+                # budget the CUMULATIVE eager load, not each variable in
+                # isolation — many medium variables can blow the
+                # host-RAM cap just as surely as one big one
+                self._eager_bytes += int(np.prod(arr.shape)) * 4
+                check_host_ram_budget(
+                    self._eager_bytes,
+                    f'Eager NetCDF load through variable "{name}"')
+                raw = np.asarray(arr[:])
+                values = raw.astype(np.float32)
+                # fill comparison happens in PACKED space
+                if fv is not None and not np.isnan(fv):
+                    values = np.where(
+                        raw == np.asarray(fv).astype(raw.dtype),
+                        np.nan, values)
+                if sf != 1.0 or off != 0.0:
+                    values = values * sf + off
+                order = [cdims.index(d) for d in target_order
+                         if d in cdims]
+                values = np.transpose(values, order)
             data_vars[standardize_var_name(name)] = values
             var_dims[standardize_var_name(name)] = canon
 
@@ -514,6 +748,9 @@ class LoaderNC:
             dset.lat_lon = dset.lat_lon[::-1].copy()
             for name, arr in dset.data_vars.items():
                 if Dimension.SOUTH_NORTH in dset.var_dims[name]:
+                    if isinstance(arr, _LazyNCVar):
+                        arr.flips.add(Dimension.SOUTH_NORTH)
+                        continue
                     ax = dset.var_dims[name].index(Dimension.SOUTH_NORTH)
                     dset.data_vars[name] = np.flip(arr, axis=ax).copy()
         if dset.levels is not None and len(dset.levels) > 1 and (
@@ -522,6 +759,9 @@ class LoaderNC:
             for name, arr in dset.data_vars.items():
                 dims = dset.var_dims[name]
                 if Dimension.PRESSURE_LEVEL in dims:
+                    if isinstance(arr, _LazyNCVar):
+                        arr.flips.add(Dimension.PRESSURE_LEVEL)
+                        continue
                     ax = dims.index(Dimension.PRESSURE_LEVEL)
                     dset.data_vars[name] = np.flip(arr, axis=ax).copy()
         return dset
@@ -544,6 +784,7 @@ class LoaderNC:
                 order = np.argsort(
                     np.concatenate([base.time_index.values,
                                     other.time_index.values]))
+                sorted_cat = bool(np.all(np.diff(order) > 0))
                 for name in overlap:
                     if Dimension.TIME not in base.var_dims.get(
                             name, ()):
@@ -552,13 +793,25 @@ class LoaderNC:
                         # than crashing on the missing time axis
                         continue
                     a, b = base.data_vars[name], other.data_vars[name]
+                    lazy = isinstance(a, _LAZY_TYPES) or isinstance(
+                        b, _LAZY_TYPES)
+                    if lazy and sorted_cat:
+                        parts = (a.parts if isinstance(a, _LazyTimeConcat)
+                                 else [a])
+                        parts = [*parts, *(
+                            b.parts if isinstance(b, _LazyTimeConcat)
+                            else [b])]
+                        base.data_vars[name] = _LazyTimeConcat(
+                            parts, base.var_dims[name])
+                        continue
                     ax = base.var_dims[name].index(Dimension.TIME)
                     cat = np.concatenate([np.asarray(a), np.asarray(b)],
                                          axis=ax)
                     base.data_vars[name] = np.take(cat, order, axis=ax)
                 base.time_index = TimeIndex(
                     np.concatenate([base.time_index.values,
-                                    other.time_index.values])[order])
+                                    other.time_index.values])[order],
+                    unit=base.time_index.unit)
                 # a time-varying variable present in only ONE of the
                 # files cannot ride the extended time axis — dropping
                 # or keeping it short would silently misalign isel()
@@ -757,7 +1010,8 @@ class LoaderH5:
             self.file_paths = [self.file_paths[i] for i in order]
             h0 = self._handles[0]
         self.time_index = (TimeIndex(
-            np.concatenate([t.values for t in tis])) if tis else None)
+            np.concatenate([t.values for t in tis]), unit=tis[0].unit)
+            if tis else None)
         if self.time_index is not None and len(self.time_index) > 1:
             if (np.diff(self.time_index.values)
                     <= np.timedelta64(0)).any():
@@ -955,7 +1209,8 @@ class LoaderNCFlat:
                         'time concatenation')
                 var._parts = [var._parts[i] for i in order]
         self.time_index = (TimeIndex(
-            np.concatenate([t.values for t in tis])) if tis else None)
+            np.concatenate([t.values for t in tis]), unit=tis[0].unit)
+            if tis else None)
         if self.time_index is not None and len(self.time_index) > 1:
             if (np.diff(self.time_index.values)
                     <= np.timedelta64(0)).any():

@@ -4,8 +4,8 @@ loaded data, including flattened-H5 -> 2D grid reconstruction.
 Reference parity: sup3r/preprocessing/rasterizers/base.py:17 (gridded),
 extended.py:17 (flattened H5 + raster_file cache). The port's copy of
 the ``Rasterizer`` and ``DualRasterizer`` of
-``sup3r_tpu/preprocessing/rasterizers.py``; ``lazy=True`` (windowed H5
-views) comes with ``preprocessing/lazy.py`` (ROADMAP queue 1 item 5).
+``sup3r_tpu/preprocessing/rasterizers.py``; ``lazy=True`` keeps every
+variable a windowed-read view (``preprocessing/lazy.py``).
 """
 
 import logging
@@ -23,6 +23,7 @@ from sup3r_tpu_torch.preprocessing.loaders import (
     LoaderNCFlat,
     RawDataset,
     check_host_ram_budget,
+    get_source_type,
 )
 
 logger = logging.getLogger(__name__)
@@ -166,11 +167,10 @@ class Rasterizer:
         inference (ForwardPassStrategy(chunked_io=True)) so per-chunk
         reads skip the coordinate search entirely."""
         assert file_paths is not None or loader is not None
-        if lazy:
-            raise NotImplementedError(
-                'Rasterizer(lazy=True) streams windows through '
-                'preprocessing/lazy.py, which comes with a later slice of '
-                'the port (ROADMAP queue 1 item 5: chunked_io / lazy.py)')
+        self.lazy = lazy
+        if (lazy and loader is None
+                and get_source_type(file_paths) != 'h5'):
+            res_kwargs = {**(res_kwargs or {}), 'lazy': True}
         self.loader = loader if loader is not None else Loader(
             file_paths, features=features, **(res_kwargs or {}))
         self.file_paths = file_paths
@@ -269,28 +269,41 @@ class Rasterizer:
 
     def _rasterize_flat(self):
         """Flattened (time, sites) -> RawDataset on the reconstructed
-        grid (reference: rasterizers/extended.py:128)."""
+        grid (reference: rasterizers/extended.py:128). With
+        ``lazy=True`` each variable becomes a windowed-read view
+        (``_LazyH5Raster``) instead of an eager block."""
         gids = self.raster_index.ravel()
         s1, s2 = self.raster_index.shape
         data_vars, var_dims = {}, {}
         n_t = (len(self.loader.time_index[self.time_slice])
                if self.loader.time_index is not None else 1)
-        check_host_ram_budget(
-            s1 * s2 * n_t * len(self.loader.features) * 4,
-            'Eager H5 rasterization')
+        if not self.lazy:
+            check_host_ram_budget(
+                s1 * s2 * n_t * len(self.loader.features) * 4,
+                'Eager H5 rasterization')
         for feat in self.loader.features:
-            block = self.loader.get(feat, self.time_slice, gids)
-            t = block.shape[0]
-            data_vars[feat] = block.T.reshape(s1, s2, t)
+            if self.lazy:
+                from sup3r_tpu_torch.preprocessing.lazy import _LazyH5Raster
+
+                data_vars[feat] = _LazyH5Raster(
+                    self.loader, feat, self.raster_index, self.time_slice)
+            else:
+                block = self.loader.get(feat, self.time_slice, gids)
+                data_vars[feat] = block.T.reshape(s1, s2, block.shape[0])
             var_dims[feat] = ('south_north', 'west_east', 'time')
         if ('topography' not in data_vars
                 and self.loader.elevation is not None):
             elev = self.loader.elevation[gids].reshape(s1, s2)
-            t = (len(self.loader.time_index[self.time_slice])
-                 if self.loader.time_index is not None else 1)
-            data_vars['topography'] = np.repeat(
-                elev[:, :, None], t, axis=2).astype(np.float32)
-            var_dims['topography'] = ('south_north', 'west_east', 'time')
+            if self.lazy:
+                # kept 2D: the deriver broadcasts it over the window's
+                # time axis
+                data_vars['topography'] = elev.astype(np.float32)
+                var_dims['topography'] = ('south_north', 'west_east')
+            else:
+                data_vars['topography'] = np.repeat(
+                    elev[:, :, None], n_t, axis=2).astype(np.float32)
+                var_dims['topography'] = ('south_north', 'west_east',
+                                          'time')
         ti = (self.loader.time_index[self.time_slice]
               if self.loader.time_index is not None else None)
         return RawDataset(data_vars, var_dims, self.lat_lon,

@@ -337,12 +337,17 @@ class DualSamplerCC(DualSampler):
         lr = daily
         hr = hourly if t_enhance != 1 else daily
         if s_enhance > 1:
-            lr = GridDataset(
-                spatial_coarsening(lr.data, s_enhance, obs_axis=False),
-                lr.features,
-                lat_lon=spatial_coarsening(lr.lat_lon, s_enhance,
-                                           obs_axis=False),
-                time_index=lr.time_index)
+            if hasattr(lr, 'coarsen'):
+                # a lazy daily view: block-mean coarsening per sampled
+                # window (bit-identical: the blocks are disjoint)
+                lr = lr.coarsen(s_enhance)
+            else:
+                lr = GridDataset(
+                    spatial_coarsening(lr.data, s_enhance, obs_axis=False),
+                    lr.features,
+                    lat_lon=spatial_coarsening(lr.lat_lon, s_enhance,
+                                               obs_axis=False),
+                    time_index=lr.time_index)
         sample_shape = tuple(sample_shape or (10, 10, 24))
         if sample_shape[2] % t_enhance:
             raise ValueError(f'sample_shape[2]={sample_shape[2]} must be a '

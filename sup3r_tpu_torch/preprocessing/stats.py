@@ -1,7 +1,7 @@
 """Multi-container statistics: size-weighted means/stds with JSON
 files (the port of ``StatsCollection`` in
-``sup3r_tpu/preprocessing/stats.py``, for GridDataset and PairedDataset
-containers; the lazy containers come with ``chunked_io``)."""
+``sup3r_tpu/preprocessing/stats.py``, for GridDataset, PairedDataset
+and the lazy datasets, whose stats stream over time blocks)."""
 
 import json
 import logging
@@ -16,7 +16,8 @@ logger = logging.getLogger(__name__)
 
 
 def _is_dataset(obj):
-    """A GridDataset (anything with ``sample``) or a PairedDataset."""
+    """A GridDataset or a lazy dataset (anything with ``sample``) or a
+    PairedDataset."""
     return hasattr(obj, 'sample') or isinstance(obj, PairedDataset)
 
 
@@ -98,6 +99,10 @@ class StatsCollection:
 
     @staticmethod
     def _member_nanstats(member, feature):
+        """(nanmean, nanvar) of one member's feature: streamed for lazy
+        datasets, direct reductions otherwise."""
+        if hasattr(member, 'feature_nanstats'):
+            return member.feature_nanstats(feature)
         arr = member[feature]
         return float(np.nanmean(arr)), float(np.nanvar(arr))
 

@@ -16,3 +16,11 @@ from sup3r_tpu_torch.utilities.utilities import (  # noqa: F401
     safe_serialize,
 )
 from sup3r_tpu_torch.utilities.times import TimeIndex  # noqa: F401
+
+
+def load_reference_gan(model_dir, **kwargs):
+    """Import a reference (NREL sup3r / phygnn TF) model checkpoint
+    directory into a ``Sup3rGan`` (lazy import; see utilities/port.py)."""
+    from sup3r_tpu_torch.utilities.port import load_reference_gan as _load
+
+    return _load(model_dir, **kwargs)

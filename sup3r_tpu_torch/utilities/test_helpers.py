@@ -10,6 +10,7 @@ from sup3r_tpu_torch.preprocessing.grid import GridDataset
 from sup3r_tpu_torch.utilities import RANDOM_GENERATOR
 from sup3r_tpu_torch.utilities.times import (
     date_range,
+    infer_unit,
     seconds_since,
     timestamp,
 )
@@ -21,7 +22,8 @@ def _time_index(start, freq, t):
     step = (freq if isinstance(freq, np.timedelta64)
             else np.timedelta64(1, freq))
     t0 = timestamp(start)
-    return date_range(t0, t0 + (t - 1) * step, step)
+    return date_range(t0, t0 + (t - 1) * step, step,
+                      unit=infer_unit([start]))
 
 
 def make_fake_dset(shape, features, start='2023-01-01', freq='h',

@@ -327,10 +327,27 @@ def test_data_handler_h5_wind_cc_daily_extremes(tmp_path):
                                   hourly[..., :24].min(axis=2))
 
 
-def test_daily_handlers_refuse_lazy_mode(tmp_path):
-    with pytest.raises(NotImplementedError, match='5.1'):
-        DataHandlerH5SolarCC(_nsrdb_h5(tmp_path),
-                             features=['clearsky_ratio'], mode='lazy')
+@pytest.mark.parametrize('source', ['h5', 'nc'])
+def test_daily_handlers_refuse_lazy_mode(tmp_path, source):
+    """``mode='lazy'`` daily handlers give the eager daily and hourly
+    members (bit-exact windows, the NetCDF3 file the card reads too) and
+    the JAX package's; what they cannot window, a full-domain remap, is
+    still refused in both packages."""
+    fp = _nsrdb_h5(tmp_path) if source == 'h5' else _nsrdb_nc(tmp_path)
+    feats = ['clearsky_ratio', 'ghi', 'clearsky_ghi']
+    lazy = DataHandlerH5SolarCC(fp, features=feats, mode='lazy')
+    eager = DataHandlerH5SolarCC(fp, features=feats)
+    jax = jax_dh.DataHandlerH5SolarCC(fp, features=feats, mode='lazy')
+    for member in ('daily', 'hourly'):
+        got = getattr(lazy, member)
+        idx = (slice(None), slice(None), slice(None), feats)
+        np.testing.assert_array_equal(got.sample(idx),
+                                      getattr(eager, member).sample(idx))
+        np.testing.assert_array_equal(got.sample(idx),
+                                      getattr(jax, member).sample(idx))
+    for cls in (DataHandlerH5SolarCC, jax_dh.DataHandlerH5SolarCC):
+        with pytest.raises(NotImplementedError, match='time_roll'):
+            cls(fp, features=feats, mode='lazy', time_roll=1)
 
 
 def _solar_cc_train(package, fp, weights):

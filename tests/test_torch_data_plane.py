@@ -165,6 +165,29 @@ def test_get_times_matches(start, freq, n, shape):
                 JaxNC.get_times(lr, shape))
 
 
+@pytest.mark.parametrize('freq,n', [('h', 4), ('D', 2), ('h', 30)])
+@pytest.mark.parametrize('built_by', ['date_range', 'decode_cf_time'])
+def test_get_times_t_enhance_7_matches(freq, n, built_by):
+    """t_enhance 7 does not divide an hourly or daily step in
+    nanoseconds: the port floors the HR step to the input index's
+    resolution (microseconds here, as pandas holds both indexes), so
+    every timestamp equals the JAX package's."""
+    step = np.timedelta64(1, freq)
+    if built_by == 'date_range':
+        port_lr = date_range('2023-01-01',
+                             np.datetime64('2023-01-01') + (n - 1) * step,
+                             step)
+        jax_lr = pd.date_range('2023-01-01', periods=n, freq=freq)
+    else:
+        units = ('hours' if freq == 'h' else 'days') + ' since 2023-01-01'
+        port_lr = decode_cf_time(np.arange(n, dtype=float), units)
+        jax_lr = jax_decode(np.arange(n, dtype=float), units)
+    assert port_lr.unit == jax_lr.unit == 'us'
+    got = OutputHandlerNC.get_times(port_lr, 7 * n)
+    _same_times(got, JaxNC.get_times(jax_lr, 7 * n))
+    assert got.unit == 'us'
+
+
 def _chunk_output(s1=6, s2=5, t=8):
     rng = np.random.default_rng(5)
     data = rng.normal(0, 6, (s1, s2, t, 2)).astype(np.float32)

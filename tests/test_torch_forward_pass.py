@@ -6,7 +6,9 @@ test_boundary_chunks.py — the same input files and the same weights
 device-batched paths and both drains. Arrays and NetCDF output agree
 within 1e-4 of their largest magnitude; H5 output within one int16
 storage quantum, with equal meta, time_index and dataset attrs. Every
-option a later slice brings raises ``NotImplementedError``."""
+option a later slice brings raises ``NotImplementedError``; those of the
+streaming slice (``chunked_io``, the GCM handlers, ``mode='lazy'``) run
+and match the JAX package."""
 
 import glob
 import os
@@ -20,6 +22,7 @@ from scipy.io import netcdf_file
 
 from sup3r_tpu.pipeline import ForwardPass as JaxForwardPass
 from sup3r_tpu.pipeline import ForwardPassStrategy as JaxStrategy
+from sup3r_tpu.preprocessing import DataHandler as JaxDataHandler
 from sup3r_tpu.utilities.test_helpers import (
     make_fake_h5_file,
     make_fake_nc_file,
@@ -264,11 +267,8 @@ def test_nan_input_and_constant_output_raise(tmp_path, saved):
 @pytest.mark.parametrize('kwargs,match', [
     ({'input_handler_kwargs': {'cache_kwargs': {
         'cache_pattern': 'cache_{feature}.h5'}}}, 'cachers.py'),
-    ({'chunked_io': True}, 'lazy.py'),
     ({'bias_correct_method': 'linear'}, 'bias'),
     ({'use_mesh': True}, 'item 9'),
-    ({'input_handler_name': 'DataHandlerNCforCCwithPowerLaw'}, 'item 5'),
-    ({'input_handler_name': 'DataHandlerNCforCC'}, 'climate-change'),
 ])
 def test_later_slices_raise(tmp_path, saved, kwargs, match):
     kw = dict(file_paths=_nc_input(tmp_path, (8, 8, 4)),
@@ -278,9 +278,38 @@ def test_later_slices_raise(tmp_path, saved, kwargs, match):
         ForwardPassStrategy(**{**kw, **kwargs})
 
 
+@pytest.mark.parametrize('kwargs', [
+    {'chunked_io': True},
+    {'input_handler_name': 'DataHandlerNCforCCwithPowerLaw'},
+    {'input_handler_name': 'DataHandlerNCforCC'},
+], ids=['chunked_io', 'power_law', 'nc_for_cc'])
+def test_options_of_the_streaming_slice_run(tmp_path, saved, kwargs):
+    """The options the forward pass refused before the streaming slice
+    now run and give the JAX package's output on the same input (the
+    GCM handlers read u_100m / v_100m straight from the file here; their
+    own derivations are held in tests/test_torch_nc_cc.py)."""
+    strategy, out = _run_both(tmp_path, saved['st'],
+                              file_paths=_nc_input(tmp_path, (8, 8, 4)),
+                              fwp_chunk_shape=(4, 4, 4), spatial_pad=1,
+                              temporal_pad=1, out_pattern=None, **kwargs)
+    assert strategy.fwp_slicer.n_chunks == len(out) == 4
+
+
 def test_lazy_data_handler_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match='lazy.py'):
-        DataHandler(_nc_input(tmp_path, (8, 8, 4)), mode='lazy')
+    """``mode='lazy'`` gives the eager handler's data (windows derived
+    on demand, bit-exact) and the JAX package's; the options it cannot
+    window still raise."""
+    path = _nc_input(tmp_path, (8, 8, 4))
+    lazy = DataHandler(path, mode='lazy')
+    eager = DataHandler(path)
+    jax = JaxDataHandler(path, mode='lazy')
+    idx = (slice(1, 7), slice(0, 5), slice(0, 4), lazy.features)
+    np.testing.assert_array_equal(lazy.data.sample(idx),
+                                  eager.data.sample(idx))
+    np.testing.assert_array_equal(lazy.data.sample(idx),
+                                  jax.data.sample(idx))
+    with pytest.raises(NotImplementedError, match='time_roll'):
+        DataHandler(path, mode='lazy', time_roll=1)
 
 
 def test_auto_batch_on_the_cpu_needs_a_budget(tmp_path, saved):

@@ -26,7 +26,9 @@ TrainingSession with tensorboard_log (a warning, no logs), a second
 moment over a BatchHandlerMom2 whose producer thread runs the first,
 serves it through the ForwardPass (model_class='Sup3rCondMom'), profiles
 a Sup3rGan epoch with tensorboard_profile, and exports and imports a
-reference-format checkpoint (utilities.port)."""
+reference-format checkpoint (utilities.port). A fourth blocked run
+drives the streaming slice: a chunked_io pass, the power-law GCM handler
+through chunked_io, and an epoch over a lazy DataHandler."""
 
 import os
 import subprocess
@@ -488,6 +490,71 @@ assert not loaded, loaded
 print('REFERENCE IMPORT')
 '''
 
+_SCRIPT_LAZY = _BLOCKER + f'''
+import os
+import tempfile
+
+from sup3r_tpu_torch.configs import generator_st
+from sup3r_tpu_torch.models import Sup3rGan
+from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
+from sup3r_tpu_torch.preprocessing import (
+    BatchHandler,
+    DataHandler,
+    DataHandlerNCforCC,
+    DataHandlerNCforCCwithPowerLaw,
+    LazyGridDataset,
+)
+from sup3r_tpu_torch.preprocessing.lazy import LazyDailyDataset
+from sup3r_tpu_torch.utilities.test_helpers import make_fake_nc_file
+
+tmp = tempfile.mkdtemp()
+feats = ['u_100m', 'v_100m']
+model = Sup3rGan(generator_st(2, (3,), (2, 2), filters=8, n_resblocks=1),
+                 [{{'class': 'Flatten'}}, {{'class': 'Dense', 'units': 1}}],
+                 meta={{'lr_features': feats, 'hr_out_features': feats}},
+                 means={{'u_100m': 0.5, 'v_100m': 0.5}},
+                 stdevs={{'u_100m': 0.3, 'v_100m': 0.3}}, device='cpu')
+model.save(os.path.join(tmp, 'model'))
+inp = make_fake_nc_file(os.path.join(tmp, 'in.nc'), (8, 8, 6), feats)
+kw = dict(model_kwargs={{'model_dir': os.path.join(tmp, 'model'),
+                        'device': 'cpu'}},
+          fwp_chunk_shape=(4, 4, 3), spatial_pad=1, temporal_pad=1,
+          device_batch_size=2, out_pattern=None)
+eager = ForwardPass.run(ForwardPassStrategy(file_paths=inp, **kw), 0)
+lazy = ForwardPass.run(ForwardPassStrategy(file_paths=inp, chunked_io=True,
+                                           **kw), 0)
+assert sorted(eager) == sorted(lazy) and len(lazy) == 8
+for key in eager:
+    np.testing.assert_array_equal(lazy[key], eager[key])
+print('CHUNKED IO', len(lazy))
+
+gcm = make_fake_nc_file(os.path.join(tmp, 'gcm.nc'), (8, 8, 6),
+                        ['uas', 'vas'])
+handler = DataHandlerNCforCCwithPowerLaw(gcm, features=feats, mode='lazy')
+assert isinstance(handler.data, LazyGridDataset)
+gcm_out = ForwardPass.run(ForwardPassStrategy(
+    file_paths=gcm, chunked_io=True,
+    input_handler_name='DataHandlerNCforCCwithPowerLaw', **kw), 0)
+assert len(gcm_out) == 8
+assert all(np.isfinite(v).all() for v in gcm_out.values())
+assert issubclass(DataHandlerNCforCCwithPowerLaw, DataHandlerNCforCC)
+print('GCM CHUNKED IO', len(gcm_out))
+
+train = DataHandler(make_fake_nc_file(os.path.join(tmp, 'train.nc'),
+                                      (12, 12, 24), feats),
+                    features=feats, mode='lazy')
+bh = BatchHandler([train], [], batch_size=1, n_batches=2, s_enhance=3,
+                  t_enhance=4, sample_shape=(12, 12, 12), mode='lazy')
+model.train(bh, input_resolution={{'spatial': '30km', 'temporal': '60min'}},
+            n_epoch=1, out_dir=os.path.join(tmp, 'lazy_{{epoch}}'))
+assert len(model.history) == 1
+assert LazyDailyDataset.__module__ == 'sup3r_tpu_torch.preprocessing.lazy'
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not loaded, loaded
+print('LAZY TRAINED', len(model.history))
+'''
+
+
 def _run_blocked(script):
     env = dict(os.environ)
     env['PYTHONPATH'] = os.pathsep.join(
@@ -528,6 +595,18 @@ def test_port_serves_with_jax_and_friends_blocked():
     assert 'DUAL TRAINED 2' in proc.stdout
     assert 'SOLAR CHAIN 8' in proc.stdout
     assert 'SOLARCC TRAINED 1' in proc.stdout
+
+
+def test_streaming_slice_runs_with_jax_and_friends_blocked():
+    """``preprocessing/lazy.py``, the GCM handlers and the chunked_io
+    strategy import and run with jax, pandas and h5py blocked: a
+    chunked_io pass equal to the eager one, a chunked_io pass of the
+    power-law GCM handler over NetCDF3 uas / vas, and a lazy-fed epoch."""
+    proc = _run_blocked(_SCRIPT_LAZY)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'CHUNKED IO 8' in proc.stdout
+    assert 'GCM CHUNKED IO 8' in proc.stdout
+    assert 'LAZY TRAINED 1' in proc.stdout
 
 
 def test_no_card_without_explicit_cpu_raises(monkeypatch):

@@ -2,7 +2,10 @@
 against the optax optimizers the JAX package builds from the same config
 (``_make_optimizer``): TF/Keras key names, three updates on the same
 gradients with the second one gated off (not applied, as the JAX train
-step's ``lax.cond`` skips it), params and state at rtol 1e-6."""
+step's ``lax.cond`` skips it), params and state at rtol 1e-6; with
+``mu_dtype`` / ``accumulator_dtype`` bfloat16 the stored moment is
+bfloat16 in both, and an AdamW ``mask`` leaves the masked-out leaves
+undecayed."""
 
 import inspect
 import logging
@@ -36,12 +39,21 @@ CONFIGS = [
      'centered': True, 'initial_scale': 0.1},
     {'name': 'RMSprop', 'learning_rate': 1e-3, 'eps_in_sqrt': False,
      'bias_correction': True},
+    {'name': 'Adam', 'learning_rate': 1e-3, 'mu_dtype': 'bfloat16'},
+    {'name': 'Adam', 'learning_rate': 1e-3, 'nesterov': True,
+     'mu_dtype': 'bfloat16'},
+    {'name': 'AdamW', 'learning_rate': 1e-3, 'weight_decay': 1e-2,
+     'mask': [True, False, True]},
+    {'name': 'SGD', 'learning_rate': 1e-2, 'momentum': 0.9,
+     'accumulator_dtype': 'bfloat16'},
 ]
 
 
 def _flat_state(state):
     """The array leaves of an optax state, in order."""
-    return [np.asarray(v) for v in jax.tree.leaves(state)]
+    return [np.asarray(v).astype(np.float32 if v.dtype == jnp.bfloat16
+                                 else v.dtype)
+            for v in jax.tree.leaves(state)]
 
 
 def _port_leaves(opt, state):
@@ -51,7 +63,8 @@ def _port_leaves(opt, state):
             if key == 'count':
                 out.append(np.asarray(value))
             else:
-                out.extend(v.numpy() for v in value)
+                out.extend((v.float() if v.dtype == torch.bfloat16
+                            else v).numpy() for v in value)
     return out
 
 
@@ -103,5 +116,9 @@ def test_dropped_keys_warn_and_defaults_raise(caplog):
                                              'learning_rate': 2e-4}
     with pytest.raises(KeyError, match='Unknown optimizer'):
         make_optimizer({'name': 'Adagrad'})
-    with pytest.raises(NotImplementedError, match='mu_dtype'):
-        make_optimizer({'name': 'Adam', 'mu_dtype': 'bfloat16'})
+    # mu_dtype is taken, as optax takes it, and kept in the config
+    cfg = {'name': 'Adam', 'mu_dtype': 'bfloat16'}
+    opt, got = make_optimizer(dict(cfg))
+    assert got == _make_optimizer(dict(cfg))[1]
+    params = [torch.zeros(3)]
+    assert opt.init(params)['mu'][0].dtype == torch.bfloat16

@@ -1,0 +1,116 @@
+"""Names the JAX package exports at its package and subpackage level that
+the port now exports too: ``RANDOM_GENERATOR`` at the top, the array ops
+re-exported from ``ops``, ``utilities.load_reference_gan`` and
+``OutputHandler.write_output``. Each is held to its JAX counterpart on
+the same numpy inputs (bit-equal draws, ops at rtol 1e-6, the written
+file's variables within 1e-4 of their largest magnitude)."""
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+from scipy.io import netcdf_file
+
+import sup3r_tpu
+import sup3r_tpu.ops as jax_ops
+import sup3r_tpu_torch
+import sup3r_tpu_torch.ops as ops
+from sup3r_tpu.postprocessing.writers import OutputHandlerNC as JaxNC
+from sup3r_tpu.utilities import load_reference_gan as jax_load_reference
+from sup3r_tpu_torch.postprocessing.writers import OutputHandlerNC
+from sup3r_tpu_torch.utilities import load_reference_gan
+from sup3r_tpu_torch.utilities.port import export_reference_gan
+from tests.models.test_port_reference import (  # noqa: F401
+    source_model,
+)
+
+torch.set_num_threads(1)
+
+
+def test_random_generator_at_the_package_top():
+    from sup3r_tpu_torch.utilities import RANDOM_GENERATOR
+
+    assert sup3r_tpu_torch.RANDOM_GENERATOR is RANDOM_GENERATOR
+    for rng in (sup3r_tpu_torch.RANDOM_GENERATOR, sup3r_tpu.RANDOM_GENERATOR):
+        rng.bit_generator.state = np.random.default_rng(
+            4).bit_generator.state
+    np.testing.assert_array_equal(sup3r_tpu_torch.RANDOM_GENERATOR.random(5),
+                                  sup3r_tpu.RANDOM_GENERATOR.random(5))
+
+
+def _ops_cases():
+    rng = np.random.default_rng(0)
+    x5 = rng.random((2, 8, 8, 6, 3)).astype(np.float32)
+    x4 = rng.random((8, 8, 6, 2)).astype(np.float32)
+    lat_lon = np.dstack(np.meshgrid(np.linspace(40, 39, 8),
+                                    np.linspace(-105, -104, 8),
+                                    indexing='ij')).astype(np.float32)
+    ws = 10 * rng.random((8, 8, 6)).astype(np.float32)
+    wd = 360 * rng.random((8, 8, 6)).astype(np.float32)
+    return [
+        ('spatial_coarsening', (x5,), {'s_enhance': 2}),
+        ('temporal_coarsening', (x5,), {'t_enhance': 3,
+                                         'method': 'average'}),
+        ('spatial_simple_enhancing', (x5,), {'s_enhance': 2}),
+        ('temporal_simple_enhancing', (x5,), {'t_enhance': 2}),
+        ('smooth_data', (x5, ['a', 'b', 'c'], ['c'], 0.6), {}),
+        ('st_interp', (x4[..., 0],), {'s_enhance': 2, 't_enhance': 2}),
+        ('transform_rotate_wind', (ws, wd, lat_lon), {}),
+        ('invert_uv', (ws, wd - 180, lat_lon), {}),
+    ]
+
+
+@pytest.mark.parametrize('name,args,kwargs', _ops_cases(),
+                         ids=[c[0] for c in _ops_cases()])
+def test_ops_reexports_match_jax(name, args, kwargs):
+    assert name in dir(ops)
+    got = getattr(ops, name)(*args, **kwargs)
+    want = getattr(jax_ops, name)(*args, **kwargs)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-6,
+                                   atol=1e-5)
+
+
+def test_load_reference_gan_from_utilities(source_model, tmp_path):  # noqa
+    """``utilities.load_reference_gan`` is the reference importer of
+    ``utilities.port``: a reference checkpoint serves the JAX package's
+    output."""
+    from sup3r_tpu_torch.models import Sup3rGan
+
+    source_model.save(str(tmp_path / 'jax'))
+    d = str(tmp_path / 'ref')
+    export_reference_gan(Sup3rGan.load(str(tmp_path / 'jax'), device='cpu'),
+                         d)
+    model = load_reference_gan(d, lr_shape=(1, 8, 8, 2), device='cpu')
+    jmodel = jax_load_reference(d, lr_shape=(1, 8, 8, 2))
+    lr = np.random.default_rng(2).random((1, 8, 8, 2)).astype(np.float32)
+    want = np.asarray(jmodel.generate(lr))
+    got = model.generate(lr)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_write_output_matches_jax(tmp_path):
+    """``write_output`` synthesizes the HR coordinates and times from
+    the LR ones and writes: the NetCDF file equals the JAX package's."""
+    rng = np.random.default_rng(3)
+    data = rng.normal(0, 6, (6, 6, 8, 2)).astype(np.float32)
+    lr_ll = np.dstack(np.meshgrid(np.linspace(40, 39, 3),
+                                  np.linspace(-105.5, -104.3, 3),
+                                  indexing='ij'))
+    lr_times = pd.date_range('2023-01-01', periods=2, freq='4h')
+    feats = ['u_100m', 'v_100m']
+    OutputHandlerNC.write_output(data, feats, lr_ll, lr_times,
+                                 str(tmp_path / 'port.nc'))
+    JaxNC.write_output(data, feats, lr_ll, lr_times,
+                       str(tmp_path / 'jax.nc'))
+    with netcdf_file(str(tmp_path / 'port.nc'), 'r', mmap=False) as fp, \
+            netcdf_file(str(tmp_path / 'jax.nc'), 'r', mmap=False) as fj:
+        assert set(fp.variables) == set(fj.variables)
+        for var in fj.variables:
+            want = np.asarray(fj.variables[var].data, np.float64)
+            got = np.asarray(fp.variables[var].data, np.float64)
+            assert got.shape == want.shape, var
+            assert np.abs(got - want).max() <= 1e-4 * max(
+                np.abs(want).max(), 1e-30), var

@@ -203,8 +203,11 @@ def test_not_ported_options_raise():
     del model.train_shard_aligned
     with pytest.raises(NotImplementedError, match='item 9'):
         model.attach_mesh(None)
-    with pytest.raises(NotImplementedError, match='chunked_io'):
-        _handler(2, 1, (10, 10, 1), mode='lazy')
+    # mode='lazy' is taken (laziness lives in the containers); an unknown
+    # mode is refused
+    assert _handler(2, 1, (10, 10, 1), mode='lazy').n_batches == 2
+    with pytest.raises(ValueError, match='lazy'):
+        _handler(2, 1, (10, 10, 1), mode='nope')
     model.train_remat = True
     with pytest.raises(NotImplementedError, match='train_remat'):
         model._maybe_remat(lambda x, exo: x)(

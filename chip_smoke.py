@@ -250,10 +250,45 @@ exits non-zero:
    of max), and the most-called one of each kernel is timed for the
    ``kernels`` line (``chunked_io_shape``).
 
+15. bias correction (printed before the ``kernels`` line). (a) Seeded
+   synthetic NetCDF3 calibration data, daily for 10 years: u / v and a
+   precipitation-like ``pr`` with dry days on phase 14's (40, 40) LR grid
+   (history and a shifted future) and a baseline on an (80, 80) grid over
+   the same area, read through ``LoaderNC`` and the flat gid adapter.
+   ``QuantileDeltaMappingCorrection`` of u and of v and ``PresRat`` of pr
+   (101 quantiles, 24 day-of-year windows, the defaults), each run on the
+   card (``run(use_device=True)``: the batched ``torch.nanquantile`` and,
+   for PresRat, the batched QDM of the future series) and, but for v,
+   on the host (``run(use_device=False)``) in the same process: wall s
+   of each and of the percentiles alone, every output raster of the
+   card against the host's (rtol 2e-4 / atol 2e-2, the JAX package's
+   bar, tests/bias/test_qdm_device.py:64) and their NaN masks equal; the
+   card's rasters are written as NetCDF3 factor files. (b) Phase 14's cell with
+   ``bias_correct_method='local_qdm_bc'`` on both wind features: the
+   corrected first chunk equal to ``local_qdm_bc`` of the raw chunk, then
+   eager and ``chunked_io`` on both routes, 3 timed passes each after a
+   warm-up (wall s, HR voxels/s and prep s a chunk beside phase 14's
+   uncorrected passes), ``chunked_io`` equal to eager (1e-6 of max), a
+   chunk against the port's CPU pass with the correction (1e-4 of max),
+   then one ``local_presrat_bc`` pass on the default route. (c) The
+   flagship as a ``Sup3rCondMom`` trained with phase 13's Mom1 loop (2
+   epochs of 4 batches of 16) over a ``BatchHandlerMom1`` of
+   ``DataHandlerNCforCCwithPowerLaw`` handlers of hourly NetCDF3 uas / vas
+   ((40, 40, 240) and (40, 40, 96)), each corrected in place by
+   ``qdm_bc`` from (a)'s files (held to ``local_qdm_bc`` of the raw
+   fields, 1e-5 of max): s per batch and starvation beside phase 13's
+   loop. After the phase, every kernel shape the last ``chunked_io`` pass
+   of each route and the training loop gave (the recorded wrapper calls,
+   their count equal to the launches) is held to its plain version (1e-5
+   of max); the ``kernels`` line gives their launches
+   (``launches_per_bias_corrected_chunked_io_pass``,
+   ``launches_per_bias_fed_train_loop``) and the shapes checked.
+
 Before the ``kernels`` line, ``phase_seconds`` gives the seconds each
 phase took. The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import glob
 import json
 import os
@@ -269,6 +304,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sup3r_tpu_torch.bias import (
+    PresRat,
+    QuantileDeltaMappingCorrection,
+    local_qdm_bc,
+    qdm_bc,
+)
+from sup3r_tpu_torch.bias.transforms import get_date_range_kwargs
 from sup3r_tpu_torch.configs import generator_cc_spatial, get_config
 from sup3r_tpu_torch.models import (
     MultiStepGan,
@@ -304,6 +346,7 @@ from sup3r_tpu_torch.preprocessing import (
     ConditionalBatch,
     DataHandler,
     DataHandlerH5SolarCC,
+    DataHandlerNCforCCwithPowerLaw,
     DualBatchHandler,
     DualRasterizer,
     Sampler,
@@ -314,6 +357,7 @@ from sup3r_tpu_torch.utilities.test_helpers import (
     make_fake_dset,
     make_fake_nc_file,
     make_fake_topo_nc_file,
+    write_nc_factor_file,
 )
 from sup3r_tpu_torch.ops.kernels import (
     pack_weights,
@@ -3094,7 +3138,8 @@ def cond_mom1_loop(name, tmp):
     ``BatchHandlerMom1`` through a ``TrainingSession`` with
     ``tensorboard_log=True`` (2 epochs of 4 batches of 16, validation,
     checkpoints): without the tensorboard package it warns and goes on.
-    Returns the trained model and its last checkpoint."""
+    Returns the trained model, its last checkpoint and the loop's s per
+    batch and starvation rate."""
     handler = cond_handler(BatchHandlerMom1)
     model = Sup3rCondMom(get_config('spatiotemporal/gen_3x_4x_2f'),
                          learning_rate=TRAIN_LR_RATE)
@@ -3136,7 +3181,9 @@ def cond_mom1_loop(name, tmp):
     if not ok:
         raise AssertionError('cond mom1 loop: history, launches, '
                              'tensorboard or checkpoint failed')
-    return model, out_dir.format(epoch=1)
+    return model, out_dir.format(epoch=1), {
+        's_per_batch': per_batch,
+        'starvation_rate': handler._queue.starvation_rate}
 
 
 def cond_mom2_loop(name, mom1):
@@ -3405,18 +3452,19 @@ def profiled_epoch(name, tmp):
 
 def cond_mom_phase(name):
     """Phase 13: the conditional-moment family on the card; returns the
-    launches per Mom1 train step and per forward pass."""
+    launches per Mom1 train step and per forward pass, and the Mom1
+    loop's s per batch."""
     tmp = tempfile.mkdtemp(prefix='chip_smoke_cond_')
     try:
         check_err = cond_step_check()
         per_step = cond_step_cell(name)
-        mom1, mom1_dir = cond_mom1_loop(name, tmp)
+        mom1, mom1_dir, mom1_loop = cond_mom1_loop(name, tmp)
         target_err = cond_mom2_loop(name, mom1)
         per_pass, fwp_calls = cond_fwp(name, tmp, mom1_dir)
         reference_import_check(name, tmp)
         profiled_epoch(name, tmp)
         return {'per_step': per_step, 'per_pass': per_pass,
-                'fwp_calls': fwp_calls,
+                'fwp_calls': fwp_calls, 'mom1_loop': mom1_loop,
                 'train_check_rel_err': check_err,
                 'mom2_target_rel_err': target_err}
     finally:
@@ -3488,7 +3536,7 @@ def stream_dispatches(strategy):
 
 
 def stream_pass(make_strategy, out_dir, route, mode, index, n_dispatch,
-                hook=False):
+                hook=False, phase='streaming_pass'):
     """One timed ``ForwardPass.run`` of phase 14's cell to NetCDF (the
     wall time includes planning); returns (wall_s, launches, stitched
     HR domain, prep s per chunk, fused calls or None)."""
@@ -3512,7 +3560,7 @@ def stream_pass(make_strategy, out_dir, route, mode, index, n_dispatch,
     hr_shape, full = check_fwp_files(strategy, out_dir, keep=True,
                                      domain=STREAM_DOMAIN)
     prep_s = strategy.timer.log.get('prep_chunk_data', 0.0) / n_chunks
-    emit(phase='streaming_pass', io=STREAM_IO, route=route, mode=mode,
+    emit(phase=phase, io=STREAM_IO, route=route, mode=mode,
          pass_index=index, chunks=n_chunks, dispatches=n_dispatch,
          hr_shape=hr_shape, wall_s=wall_s,
          hr_voxels_per_s=int(np.prod(hr_shape)) / wall_s,
@@ -3521,7 +3569,8 @@ def stream_pass(make_strategy, out_dir, route, mode, index, n_dispatch,
     return wall_s, launches, full, prep_s, calls
 
 
-def stream_cpu_chunk_check(make_strategy, what, index=0):
+def stream_cpu_chunk_check(make_strategy, what, index=0,
+                           phase='streaming_cpu_check'):
     """One chunk of the card's pass (serial ``run_chunk``) against the
     port's CPU pass of the same strategy (1e-4 of max)."""
     outs = []
@@ -3534,7 +3583,7 @@ def stream_cpu_chunk_check(make_strategy, what, index=0):
     tol = PARITY_RTOL * float(np.abs(want).max())
     ok = bool(got.shape == want.shape and np.isfinite(got).all()
               and err <= tol)
-    emit(phase='streaming_cpu_check', io=STREAM_IO, what=what,
+    emit(phase=phase, io=STREAM_IO, what=what,
          chunk=index, hr_shape=list(got.shape), max_abs_err=err, tol=tol,
          ok=ok)
     if not ok:
@@ -3547,7 +3596,8 @@ def stream_passes(name, tmp, model_dir):
     (3 timed each after a warm-up), chunked_io equal to eager (1e-6 of
     max), one profiled chunked_io pass per route, a chunk against the
     CPU. Returns per route the launches per pass and the fused calls of
-    the last chunked_io pass."""
+    the last chunked_io pass, and the wall s and prep s a chunk of each
+    mode's timed passes."""
     rng = np.random.default_rng(0)
     s1, s2, t = STREAM_DOMAIN
     input_file = make_fake_nc_file(
@@ -3602,7 +3652,10 @@ def stream_passes(name, tmp, model_dir):
                           os.path.join(tmp, f'{route}_stream_profiled'),
                           route, phase='streaming_profile')
         out[route] = {'launches': rec['chunked_io']['launches'],
-                      'calls': rec['chunked_io']['calls']}
+                      'calls': rec['chunked_io']['calls'],
+                      'wall_s': {m: rec[m]['wall_s'] for m in rec},
+                      'prep_s_per_chunk': {
+                          m: rec[m]['prep_s_per_chunk'] for m in rec}}
     served.inference_pallas = False
     stream_cpu_chunk_check(
         lambda device: stream_strategy(input_file, model_dir, None,
@@ -3755,6 +3808,388 @@ def streaming_phase(name):
         gcm = gcm_pass(name, tmp, model_dir)
         lazy_train_loops(name, tmp)
         return per_route, gcm
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: phase 15: bias correction. Calibration data, daily for 10 years: u /
+#: v and a precipitation-like pr with dry days on phase 14's (40, 40) LR
+#: grid (history from 2000, future from 2050) and a baseline on an (80,
+#: 80) grid over the same area and years; QDM and PresRat at their
+#: defaults (101 quantiles, 24 day-of-year windows). The card's
+#: calibration is held to the host's at the JAX package's own bar
+#: (tests/bias/test_qdm_device.py:64)
+BIAS_DAYS = 3650
+BIAS_BASE_GRID = (80, 80)
+BIAS_NQ = 101
+BIAS_NT = 24
+BIAS_RTOL, BIAS_ATOL = 2e-4, 2e-2
+#: the corrected training feed: hourly NetCDF3 uas / vas on the LR grid
+BIAS_GCM_TRAIN = (40, 40, 240)
+BIAS_GCM_VAL = (40, 40, 96)
+
+
+def sync(device):
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def bias_series(rng, grid, kind, scale=1.0, shift=0.0, p_dry=0.0):
+    """(t, s1, s2) float32 daily fields of ``BIAS_DAYS`` with a seasonal
+    cycle: a wind component about 0.5, or (``kind='pr'``) gamma amounts
+    with a fraction ``p_dry`` of dry (zero) days."""
+    shape = (BIAS_DAYS,) + tuple(grid)
+    season = np.sin(2 * np.pi * np.arange(BIAS_DAYS) / 365.25).astype(
+        np.float32)[:, None, None]
+    if kind == 'pr':
+        wet = rng.gamma(0.8, 0.6, shape).astype(np.float32) * (
+            1 + 0.3 * season)
+        return np.where(rng.random(shape, dtype=np.float32) < p_dry, 0,
+                        scale * wet).astype(np.float32)
+    noise = rng.standard_normal(shape, dtype=np.float32)
+    return (scale * (0.5 + 0.15 * season + 0.3 * noise) + shift).astype(
+        np.float32)
+
+
+def bias_inputs(tmp, seed=3):
+    """Phase 15's NetCDF3 calibration files: {'wind' | 'pr': {'base' |
+    'hist' | 'fut': path}}. The history is biased (wind scaled 1.1 and
+    shifted 0.15; pr wetter), the future shifted again (a trend)."""
+    rng = np.random.default_rng(seed)
+    lr_grid = STREAM_DOMAIN[:2]
+    out = {'wind': {}, 'pr': {}}
+    for key, grid, start, wind_kw, pr_kw in (
+            ('base', BIAS_BASE_GRID, '2000-01-01', {}, {'p_dry': 0.4}),
+            ('hist', lr_grid, '2000-01-01', {'scale': 1.1, 'shift': 0.15},
+             {'p_dry': 0.25}),
+            ('fut', lr_grid, '2050-01-01', {'scale': 1.1, 'shift': 0.3},
+             {'p_dry': 0.3, 'scale': 1.15})):
+        shape = tuple(grid) + (BIAS_DAYS,)
+        out['wind'][key] = make_fake_nc_file(
+            os.path.join(tmp, f'{key}_wind.nc'), shape, FWP_FEATURES,
+            start=start, freq='D',
+            data={f: bias_series(rng, grid, 'wind', **wind_kw)
+                  for f in FWP_FEATURES})
+        out['pr'][key] = make_fake_nc_file(
+            os.path.join(tmp, f'{key}_pr.nc'), shape, ['pr'], start=start,
+            freq='D', data={'pr': bias_series(rng, grid, 'pr', **pr_kw)})
+    return out
+
+
+def bias_calibration(name, tmp, files, feature, cls=None, device='cuda',
+                     host=True):
+    """Phase 15a: one calibration from NetCDF3 files (the baseline
+    through ``LoaderNC`` and the flat gid adapter), ``run(use_device=
+    True)`` on ``device`` then (``host``) ``run(use_device=False)`` on
+    the host in the same process: wall s of each, and of the batched
+    percentiles alone; every output raster of the device path against
+    the host's (rtol 2e-4 / atol 2e-2, NaN masks equal). Writes the
+    device path's rasters as a NetCDF3 factor file; returns its path."""
+    cls = cls or QuantileDeltaMappingCorrection
+    calc = cls(files['base'], files['hist'], files['fut'], feature,
+               feature, base_handler='LoaderNC', n_quantiles=BIAS_NQ,
+               n_time_steps=BIAS_NT, device=device)
+    outs, wall_s, percentile_s = {}, {}, {}
+    arr = calc.bias_dh.data[feature]
+    for path, use_device in (('device', True), ('host', False))[:1 + host]:
+        sync(device)
+        t0 = time.perf_counter()
+        outs[path] = calc.run(use_device=use_device)
+        sync(device)
+        wall_s[path] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        calc._windowed_params_raster(arr, calc.bias_time_index,
+                                     use_device=use_device)
+        sync(device)
+        percentile_s[path] = time.perf_counter() - t0
+    errs, bar_share, nan_equal, n_nan = {}, {}, {}, {}
+    for key, want in outs.get('host', {}).items():
+        got = outs['device'][key]
+        nan_equal[key] = bool(np.array_equal(np.isnan(got), np.isnan(want)))
+        n_nan[key] = int(np.isnan(want).sum())
+        fin = np.isfinite(want) & np.isfinite(got)
+        diff = np.abs(got[fin].astype(np.float64) - want[fin])
+        errs[key] = float(diff.max()) if diff.size else 0.0
+        bar_share[key] = float((diff / (BIAS_ATOL + BIAS_RTOL * np.abs(
+            want[fin]))).max()) if diff.size else 0.0
+    ok = bool(all(nan_equal.values())
+              and max(bar_share.values(), default=0) <= 1)
+    emit(phase='bias_calibration', calibration=cls.__name__,
+         feature=feature, device=str(calc.device),
+         bias_grid=list(arr.shape[:2]), base_grid=list(BIAS_BASE_GRID),
+         days=BIAS_DAYS, n_quantiles=BIAS_NQ, n_time_steps=BIAS_NT,
+         wall_s=wall_s, percentile_s=percentile_s, max_abs_err=errs,
+         rtol=BIAS_RTOL, atol=BIAS_ATOL, share_of_bar=bar_share,
+         nan_masks_equal=nan_equal, nan_count=n_nan, nvidia_smi=name,
+         ok=ok)
+    if not ok:
+        raise AssertionError(f'{cls.__name__} {feature}: the device path '
+                             f'differs from the host (share of bar '
+                             f'{bar_share}, NaN masks equal {nan_equal})')
+    return write_nc_factor_file(
+        os.path.join(tmp, f'factors_{feature}.nc'), calc.bias_dh.lat_lon,
+        outs['device'], calc.factor_cfg())
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """Record each call the fused blocks make of the kernels' wrappers by
+    (kernel, input shape, co, alpha) while the block runs; on the card
+    each call is one launch."""
+    from sup3r_tpu_torch.models import fuse
+
+    calls = Counter()
+    names = {'small_reflect_conv': 'small_reflect_conv_cf',
+             'reflect_conv': 'reflect_conv_cf'}
+    originals = {k: getattr(fuse, v) for k, v in names.items()}
+
+    def recorder(kname, fn):
+        def call(x, weight, bias, alpha=None):
+            calls[(kname, tuple(x.shape), weight.shape[0], alpha)] += 1
+            return fn(x, weight, bias, alpha)
+        return call
+
+    for kname, attr in names.items():
+        setattr(fuse, attr, recorder(kname, originals[kname]))
+    try:
+        yield calls
+    finally:
+        for kname, attr in names.items():
+            setattr(fuse, attr, originals[kname])
+
+
+def bias_kwargs(fps):
+    """``local_qdm_bc`` kwargs of both wind features (absolute QDM: the
+    components are signed)."""
+    return {f: {'bias_fp': fps[f], 'base_dset': f, 'relative': False}
+            for f in FWP_FEATURES}
+
+
+def bias_chunk_check(input_file, model_dir, fps):
+    """The corrected input of the cell's first chunk is the raw chunk
+    through ``local_qdm_bc`` with the chunk's own window and stamps (the
+    strategy windows the factor file by ``lr_padded_slice``)."""
+    raw = stream_strategy(input_file, model_dir, None)
+    corr = stream_strategy(input_file, model_dir, None,
+                           bias_correct_method='local_qdm_bc',
+                           bias_correct_kwargs=bias_kwargs(fps))
+    got, _ = corr.prep_chunk_data(0)
+    data, _ = raw.prep_chunk_data(0)
+    s_idx, t_idx = raw.fwp_slicer.get_chunk_indices(0)
+    pad = raw.fwp_slicer.s_lr_pad_slices[s_idx]
+    ti = raw.input_handler.time_index[raw.fwp_slicer.t_lr_pad_slices[t_idx]]
+    errs, shifts = {}, {}
+    for i, f in enumerate(FWP_FEATURES):
+        want = local_qdm_bc(data[..., i], raw.input_handler.lat_lon, f, f,
+                            fps[f], get_date_range_kwargs(ti),
+                            lr_padded_slice=pad, relative=False)
+        errs[f] = float(np.abs(got[..., i] - want).max())
+        shifts[f] = [float(np.mean(got[..., i] - data[..., i])),
+                     float(np.abs(got[..., i] - data[..., i]).max())]
+    ok = bool(max(errs.values()) == 0 and all(
+        v[1] > 0.01 for v in shifts.values()))
+    emit(phase='bias_chunk_check', chunk_shape=list(got.shape),
+         max_abs_err=errs, correction_mean_and_max=shifts, ok=ok)
+    if not ok:
+        raise AssertionError(f'bias-corrected chunk: {errs}, {shifts}')
+
+
+def bias_passes(name, tmp, model_dir, fps, pr_fp, uncorrected):
+    """Phase 15b: phase 14's cell with ``local_qdm_bc`` on both wind
+    features from part (a)'s files: eager and chunked_io on both routes,
+    3 timed passes each after a warm-up (wall s, HR voxels/s and prep s
+    a chunk beside phase 14's uncorrected passes of the same strategy),
+    chunked_io equal to eager (1e-6 of max), a chunk against the port's
+    CPU pass with the correction (1e-4 of max); then one
+    ``local_presrat_bc`` pass on the default route. Returns per route
+    the launches per pass and the kernel calls of the last timed
+    chunked_io pass."""
+    rng = np.random.default_rng(0)
+    s1, s2, t = STREAM_DOMAIN
+    input_file = make_fake_nc_file(
+        os.path.join(tmp, 'stream.nc'), STREAM_DOMAIN, FWP_FEATURES,
+        data={f: rng.standard_normal((t, s1, s2)) * 0.3 + 0.5
+              for f in FWP_FEATURES})
+    bias_chunk_check(input_file, model_dir, fps)
+    bc = dict(bias_correct_method='local_qdm_bc',
+              bias_correct_kwargs=bias_kwargs(fps))
+
+    def make(mode, **kwargs):
+        return lambda out: stream_strategy(
+            input_file, model_dir, out, chunked_io=mode == 'chunked_io',
+            **{**bc, **kwargs})
+
+    eager = make('eager')(None)
+    served = eager.get_model()
+    n_dispatch = stream_dispatches(eager)
+    out = {}
+    for route, pallas in (('default', False), ('opt_in', True)):
+        served.inference_pallas = pallas
+        for mode in ('eager', 'chunked_io'):
+            ForwardPass.run(make(mode)(os.path.join(
+                tmp, f'bias_warm_{route}_{mode}', 'chunk_{file_id}.nc')), 0)
+        rec = {}
+        for mode in ('eager', 'chunked_io'):
+            walls, preps = [], []
+            for i in range(N_FWP_PASSES):
+                with kernel_calls() as calls:
+                    wall, launches, full, prep, _ = stream_pass(
+                        make(mode), os.path.join(tmp, f'bias_{route}_{mode}'
+                                                      f'_{i}'),
+                        route, mode, i, n_dispatch, phase='bias_pass')
+                walls.append(wall)
+                preps.append(prep)
+            # the launches and kernel calls are those of the last pass
+            rec[mode] = dict(wall_s=walls, prep_s_per_chunk=preps,
+                             launches=launches, full=full, calls=calls)
+        err = float(np.abs(rec['chunked_io']['full']
+                           - rec['eager']['full']).max())
+        tol = 1e-6 * float(np.abs(rec['eager']['full']).max())
+        hr_voxels = int(np.prod(rec['eager']['full'].shape[:-1]))
+        plain = uncorrected[route]
+        emit(phase='bias_route', io=STREAM_IO, route=route,
+             correction='local_qdm_bc',
+             **{f'{m}_wall_s': rec[m]['wall_s'] for m in rec},
+             **{f'{m}_hr_voxels_per_s': hr_voxels / float(
+                 np.median(rec[m]['wall_s'])) for m in rec},
+             **{f'{m}_prep_s_per_chunk': rec[m]['prep_s_per_chunk']
+                for m in rec},
+             uncorrected_wall_s=plain['wall_s'],
+             uncorrected_prep_s_per_chunk=plain['prep_s_per_chunk'],
+             wall_ratio_to_uncorrected={m: float(
+                 np.median(rec[m]['wall_s']) / np.median(
+                     plain['wall_s'][m])) for m in rec},
+             launches_per_pass={m: rec[m]['launches'] for m in rec},
+             chunked_io_vs_eager_max_abs_err=err, tol=tol,
+             nvidia_smi=name, ok=err <= tol)
+        if not err <= tol:
+            raise AssertionError(f'bias ({route}): chunked_io differs from '
+                                 f'the eager pass by {err} > {tol}')
+        out[route] = {'launches': rec['chunked_io']['launches'],
+                      'calls': rec['chunked_io']['calls']}
+    served.inference_pallas = False
+    stream_cpu_chunk_check(
+        lambda device: stream_strategy(input_file, model_dir, None,
+                                       device=device, chunked_io=True, **bc),
+        'bias-corrected chunked_io pass', phase='bias_cpu_check')
+    # pr's factors on the u channel: an absolute QDM keeps the mapped
+    # winds in range, then tau zeroes and K scales them
+    presrat = {'u_100m': {'bias_fp': pr_fp, 'base_dset': 'pr',
+                          'feature_name': 'pr', 'relative': False}}
+    wall, launches, _, prep, _ = stream_pass(
+        make('eager', bias_correct_method='local_presrat_bc',
+             bias_correct_kwargs=presrat),
+        os.path.join(tmp, 'bias_presrat'), 'default', 'eager', 0,
+        n_dispatch, phase='bias_presrat_pass')
+    return out
+
+
+def bias_train_loop(name, tmp, fps, phase13):
+    """Phase 15c: the flagship as a ``Sup3rCondMom`` trained with phase
+    13's Mom1 loop (2 epochs of 4 batches of 16, validation) over a
+    ``BatchHandlerMom1`` of ``DataHandlerNCforCCwithPowerLaw`` data on
+    hourly NetCDF3 uas / vas, each handler corrected in place by
+    ``qdm_bc`` with part (a)'s files first (held to ``local_qdm_bc`` of
+    the raw fields, 1e-5 of max): s per batch and starvation beside
+    phase 13's loop. Returns the kernel calls of the loop."""
+    rng = np.random.default_rng(4)
+    handlers, errs, shifts = {}, {}, {}
+    for split, domain in (('train', BIAS_GCM_TRAIN), ('val', BIAS_GCM_VAL)):
+        s1, s2, t = domain
+        path = make_fake_nc_file(
+            os.path.join(tmp, f'gcm_{split}.nc'), domain, ['uas', 'vas'],
+            data={f: (rng.standard_normal((t, s1, s2)) * 0.3 + 0.5)
+                  / 10 ** 0.2 for f in ('uas', 'vas')})
+        handler = DataHandlerNCforCCwithPowerLaw(path, features=FWP_FEATURES)
+        raw = {f: np.array(handler.data[f]) for f in FWP_FEATURES}
+        done = []
+        for f in FWP_FEATURES:
+            done += qdm_bc(handler, fps[f], f, relative=False)
+        if done != FWP_FEATURES:
+            raise AssertionError(f'qdm_bc corrected {done}')
+        kws = get_date_range_kwargs(handler.time_index)
+        for f in FWP_FEATURES:
+            want = local_qdm_bc(raw[f], np.asarray(handler.lat_lon), f, f,
+                                fps[f], kws, relative=False)
+            got = np.asarray(handler.data[f])
+            errs[f'{split}_{f}'] = float(np.abs(got - want).max()) / float(
+                np.abs(want).max())
+            shifts[f'{split}_{f}'] = float(np.mean(got - raw[f]))
+        handlers[split] = handler
+    ok = max(errs.values()) <= 1e-5
+    emit(phase='bias_feed_check', handler='DataHandlerNCforCCwithPowerLaw',
+         domains={'train': list(BIAS_GCM_TRAIN), 'val': list(BIAS_GCM_VAL)},
+         rel_err=errs, mean_correction=shifts, tol=1e-5, ok=ok)
+    if not ok:
+        raise AssertionError(f'qdm_bc feed: {errs}')
+    handler = BatchHandlerMom1(
+        [handlers['train']], [handlers['val']], batch_size=TRAIN_BATCH,
+        n_batches=4, s_enhance=3, t_enhance=4, sample_shape=TRAIN_HR[:3],
+        queue_kwargs=dict(COND_PADDING))
+    model = Sup3rCondMom(get_config('spatiotemporal/gen_3x_4x_2f'),
+                         learning_rate=TRAIN_LR_RATE)
+    zero_counts()
+    with kernel_calls() as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.train(handler, input_resolution={'spatial': '3km',
+                                               'temporal': '60min'},
+                    n_epoch=2, out_dir=os.path.join(tmp, 'bias_mom1_{epoch}'))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    model.calc_val_loss(handler)
+    val_s = time.perf_counter() - t0
+    handler.stop()
+    history = model.history
+    epoch_s, per_batch = epoch_split(history, val_s)
+    hooked = Counter()
+    for (kname, _, _, _), n in calls.items():
+        hooked[kname] += n
+    ok = bool(len(history) == 2 and all(
+        np.isfinite(history[c]).all()
+        for c in ('train_loss_gen', 'val_loss_gen'))
+        and launches == {'small_reflect_conv': 16, 'reflect_conv': 0}
+        and dict(hooked) == {k: v for k, v in launches.items() if v})
+    emit(phase='bias_train_loop', feed='BatchHandlerMom1 over '
+         'DataHandlerNCforCCwithPowerLaw corrected by qdm_bc', epochs=2,
+         batches_per_epoch=4, batch=TRAIN_BATCH, wall_s=wall_s,
+         epoch_s=epoch_s, validation_s_per_epoch=val_s,
+         s_per_batch=per_batch, starvation_rate=handler._queue.starvation_rate,
+         uncorrected_phase13=phase13, launches=launches,
+         calls_by_shape=[[k, list(x), co, a, n]
+                         for (k, x, co, a), n in calls.items()],
+         history={c: list(history[c]) for c in history.columns},
+         nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'bias-fed train loop: history, launches '
+                             f'{launches} or calls {dict(hooked)} failed')
+    return calls
+
+
+def bias_phase(name, stream_routes, phase13):
+    """Phase 15: bias correction on the card. Returns per route the
+    launches and kernel calls of the corrected chunked_io pass, and the
+    kernel calls of the corrected training loop."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_bias_')
+    try:
+        files = bias_inputs(tmp)
+        # v is the same calibration as u on other data: the card alone
+        fps = {f: bias_calibration(name, tmp, files['wind'], f,
+                                   host=f == 'u_100m')
+               for f in FWP_FEATURES}
+        pr_fp = bias_calibration(name, tmp, files['pr'], 'pr', cls=PresRat)
+        model = flagship('cuda')
+        model.meta.update(
+            input_resolution={'spatial': '12km', 'temporal': '60min'})
+        model_dir = os.path.join(tmp, 'model')
+        model.save(model_dir)
+        del model
+        per_route = bias_passes(name, tmp, model_dir, fps, pr_fp,
+                                stream_routes)
+        train_calls = bias_train_loop(name, tmp, fps, phase13)
+        return per_route, train_calls
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4061,6 +4496,48 @@ def main():
             shapes_checked=[[list(x), c, a, r['max_abs_err'], r['calls']]
                             for (x, c, a), r in by_shape.items()])
     mark('14_kernel_checks_and_timings')
+    # 15. bias correction: calibration on the card, the corrected forward
+    # pass and the corrected training feed
+    bias_routes, bias_train_calls = bias_phase(smi, stream_routes,
+                                               cond['mom1_loop'])
+    mark('15_bias')
+    # every kernel shape the corrected paths gave (read by the recorded
+    # wrapper calls of the last chunked_io pass of each route and of the
+    # training loop, their count equal to the launches) against its plain
+    # version
+    bias_shapes = {}
+    bias_train_launches = Counter()
+    for what, calls, pass_launches in (
+            [(f'{r}_chunked_io_pass', v['calls'], v['launches'])
+             for r, v in bias_routes.items()]
+            + [('train_loop', bias_train_calls, None)]):
+        hooked = Counter()
+        for (kname, x_shape, co, alpha), n in calls.items():
+            hooked[kname] += n
+            key = (x_shape, co, alpha)
+            if key not in bias_shapes.setdefault(kname, {}):
+                err = check_kernel(kname, KERNEL_FNS[kname],
+                                   *conv_inputs(gen, x_shape, co), alpha)
+                bias_shapes[kname][key] = {'max_abs_err': err, 'calls': {}}
+            bias_shapes[kname][key]['calls'][what] = n
+        if pass_launches is None:
+            bias_train_launches = hooked
+        elif dict(hooked) != {k: v for k, v in pass_launches.items() if v}:
+            raise AssertionError(f'bias ({what}): kernel calls '
+                                 f'{dict(hooked)} vs launches '
+                                 f'{pass_launches}')
+
+    def bias_record(kname):
+        return {
+            'launches_per_bias_corrected_chunked_io_pass': {
+                r: v['launches'][kname] for r, v in bias_routes.items()},
+            'launches_per_bias_fed_train_loop': bias_train_launches.get(
+                kname, 0),
+            'bias_shapes_checked': [
+                [list(x), c, a, r['max_abs_err'], r['calls']]
+                for (x, c, a), r in bias_shapes.get(kname, {}).items()]}
+
+    mark('15_kernel_checks')
     emit(phase='phase_seconds', seconds=seconds,
          total_s=sum(seconds.values()))
 
@@ -4112,6 +4589,7 @@ def main():
                       launches_per_gcm_chunked_io_pass=gcm_launches[
                           'small_reflect_conv'],
                       chunked_io_shape=stream_times['small_reflect_conv'],
+                      **bias_record('small_reflect_conv'),
                       obs_shape=obs_tail,
                       obs_train_check_rel_err=obs['train_check_rel_err'],
                       train_shape=dict(
@@ -4148,6 +4626,7 @@ def main():
                       launches_per_gcm_chunked_io_pass=gcm_launches[
                           'reflect_conv'],
                       chunked_io_shape=stream_times['reflect_conv'],
+                      **bias_record('reflect_conv'),
                       launches_per_train_step=0,
                       **per_mode('reflect_conv'))]
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -8,10 +8,12 @@ every model class the port exports (the solar composite's
 ``model_kwargs`` name its three groups' directories, ``t_enhance`` and
 ``device``; ``MultiStepSurfaceMetGan``'s its surface and temporal
 models' kwargs and ``device``; ``Sup3rCondMom`` runs chunk by chunk, as
-its ``generate`` has no ``fetch=``), and ``chunked_io`` (each chunk
-reads and derives only its padded window). Bias correction and
-``use_mesh`` come with later slices (ROADMAP queue 1 items 5.3, 8 and 9)
-and raise ``NotImplementedError``.
+its ``generate`` has no ``fetch=``), ``chunked_io`` (each chunk
+reads and derives only its padded window) and bias correction
+(``bias_correct_method`` / ``bias_correct_kwargs``, run on each chunk's
+padded input by ``bias.utilities.bias_correct_features``). ``use_mesh``
+comes with a later slice (ROADMAP queue 1 item 9) and raises
+``NotImplementedError``.
 """
 
 import logging
@@ -307,11 +309,6 @@ class ForwardPassStrategy:
         """Raise for the options whose modules later slices of the port
         bring, rather than silently running something else."""
         later = {
-            'bias_correct_method': (
-                bool(self.bias_correct_method
-                     or self.bias_correct_kwargs),
-                'bias correction in the strategy comes with the bias/ '
-                'modules (ROADMAP queue 1 items 5 and 8)'),
             'use_mesh': (
                 bool(self.use_mesh),
                 'device meshes come with the multi-device slice '
@@ -555,8 +552,9 @@ class ForwardPassStrategy:
             return None
 
     def prep_chunk_data(self, chunk_index=0):
-        """The padded low-res input of a chunk and its exo rasters
-        (``ExoData.get_chunk`` of the padded slices, or None)."""
+        """The padded low-res input of a chunk, bias corrected when the
+        strategy asks for it, and its exo rasters (``ExoData.get_chunk``
+        of the padded slices, or None)."""
         s_idx, t_idx = self.fwp_slicer.get_chunk_indices(chunk_index)
         lr_pad_slice = self.fwp_slicer.s_lr_pad_slices[s_idx]
         ti_pad_slice = self.fwp_slicer.t_lr_pad_slices[t_idx]
@@ -564,13 +562,33 @@ class ForwardPassStrategy:
             [lr_pad_slice[0], lr_pad_slice[1], ti_pad_slice])
             if self.exo_data is not None else None)
         if self.chunked_io:
-            return self._read_chunk_window(lr_pad_slice,
-                                           ti_pad_slice), exo_data
-        data = self.input_handler.data
-        input_data = data.as_array(self.features)[
-            lr_pad_slice[0], lr_pad_slice[1],
-            self._local_t(ti_pad_slice)]
-        return np.array(input_data), exo_data
+            input_data = self._read_chunk_window(lr_pad_slice,
+                                                 ti_pad_slice)
+        else:
+            data = self.input_handler.data
+            input_data = np.array(data.as_array(self.features)[
+                lr_pad_slice[0], lr_pad_slice[1],
+                self._local_t(ti_pad_slice)])
+
+        if self.bias_correct_kwargs:
+            from sup3r_tpu_torch.bias.utilities import (
+                bias_correct_features,
+            )
+
+            # full-domain lat_lon (the coordinates-only handler's under
+            # chunked_io) + lr_padded_slice: factor rasters are windowed
+            # file->domain by coordinate match, then domain->chunk by
+            # slice (reference: bias_transforms.py lr_padded_slice args)
+            input_data = bias_correct_features(
+                features=list(self.bias_correct_kwargs),
+                data=input_data, feature_names=self.features,
+                lat_lon=self.input_handler.lat_lon,
+                time_index=self.input_handler.time_index[
+                    self._local_t(ti_pad_slice)],
+                bc_method=self.bias_correct_method,
+                bc_kwargs=self.bias_correct_kwargs,
+                lr_padded_slice=lr_pad_slice)
+        return input_data, exo_data
 
     def init_chunk(self, chunk_index=0):
         """Build the ForwardPassChunk for a chunk id."""

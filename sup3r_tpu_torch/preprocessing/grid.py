@@ -98,6 +98,11 @@ class GridDataset:
             return base[rest] if rest else base
         return self.data[key]
 
+    def __setitem__(self, feature, values):
+        """Overwrite a feature channel (the handler-level bias
+        corrections write through this)."""
+        self.data[..., self.feature_index(feature)] = values
+
     def as_array(self, features=None):
         """Stacked (s1, s2, t, f) array for the requested features."""
         if features is None:

@@ -1,13 +1,14 @@
 """Fake data for tests and on-card runs of the port (the counterparts
 of ``make_fake_dset`` and ``make_fake_nc_file`` in
 ``sup3r_tpu/utilities/test_helpers.py``): an in-memory GridDataset,
-NetCDF3 input through scipy, and a NetCDF3 topography source, without
-pandas or h5py, so the card's machine can make its own input."""
+NetCDF3 input through scipy, a NetCDF3 topography source and the NetCDF3
+form of a bias factor file, without pandas or h5py, so a machine without
+them can make its own input."""
 
 import numpy as np
 
 from sup3r_tpu_torch.preprocessing.grid import GridDataset
-from sup3r_tpu_torch.utilities import RANDOM_GENERATOR
+from sup3r_tpu_torch.utilities import RANDOM_GENERATOR, safe_serialize
 from sup3r_tpu_torch.utilities.times import (
     date_range,
     infer_unit,
@@ -115,4 +116,34 @@ def make_fake_topo_nc_file(path, shape, lat_range=(40.2, 38.8),
         var = f.createVariable('topography', 'f4', ('lat', 'lon'))
         var[:] = np.asarray(data, dtype=np.float32)
         var.units = b'm'
+    return path
+
+
+def write_nc_factor_file(path, lat_lon, rasters, cfg=None):
+    """Write a bias factor file as NetCDF3 (via scipy): 2D ``latitude``
+    / ``longitude`` from ``lat_lon`` (s1, s2, 2), one float32 variable
+    per ``rasters`` entry (``{name: (s1, s2, ...) array}``, the dict a
+    calibration's ``run`` returns) and ``cfg`` as the JSON ``cfg``
+    attribute (a calibration's ``factor_cfg()``). The runtime
+    transforms read it as they read the H5 form ``write_outputs``
+    writes."""
+    from scipy.io import netcdf_file
+
+    lat_lon = np.asarray(lat_lon, dtype=np.float32)
+    with netcdf_file(path, 'w') as f:
+        f.createDimension('south_north', lat_lon.shape[0])
+        f.createDimension('west_east', lat_lon.shape[1])
+        grid = ('south_north', 'west_east')
+        f.createVariable('latitude', 'f4', grid)[:] = lat_lon[..., 0]
+        f.createVariable('longitude', 'f4', grid)[:] = lat_lon[..., 1]
+        for name, arr in rasters.items():
+            arr = np.asarray(arr, dtype=np.float32)
+            dims = []
+            for size in arr.shape[2:]:
+                dim = f'n{size}'
+                if dim not in f.dimensions:
+                    f.createDimension(dim, size)
+                dims.append(dim)
+            f.createVariable(name, 'f4', grid + tuple(dims))[:] = arr
+        f.cfg = safe_serialize(cfg or {})
     return path

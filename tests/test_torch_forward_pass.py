@@ -7,10 +7,11 @@ device-batched paths and both drains. Arrays and NetCDF output agree
 within 1e-4 of their largest magnitude; H5 output within one int16
 storage quantum, with equal meta, time_index and dataset attrs. Every
 option a later slice brings raises ``NotImplementedError``; those of the
-streaming slice (``chunked_io``, the GCM handlers, ``mode='lazy'``) run
-and match the JAX package."""
+streaming slice (``chunked_io``, the GCM handlers, ``mode='lazy'``) and
+bias correction run and match the JAX package."""
 
 import glob
+import json
 import os
 import warnings
 
@@ -267,7 +268,6 @@ def test_nan_input_and_constant_output_raise(tmp_path, saved):
 @pytest.mark.parametrize('kwargs,match', [
     ({'input_handler_kwargs': {'cache_kwargs': {
         'cache_pattern': 'cache_{feature}.h5'}}}, 'cachers.py'),
-    ({'bias_correct_method': 'linear'}, 'bias'),
     ({'use_mesh': True}, 'item 9'),
 ])
 def test_later_slices_raise(tmp_path, saved, kwargs, match):
@@ -276,6 +276,48 @@ def test_later_slices_raise(tmp_path, saved, kwargs, match):
               fwp_chunk_shape=(8, 8, 4), out_pattern=None)
     with pytest.raises(NotImplementedError, match=match):
         ForwardPassStrategy(**{**kw, **kwargs})
+
+
+def _factor_file(path, shape, method):
+    """A factor file on ``_nc_input``'s grid: spatially varying linear
+    factors, or QDM params correcting u_100m by about -0.1 in one
+    day-of-year window."""
+    rng = np.random.default_rng(9)
+    lat, lon = np.meshgrid(np.linspace(40.0, 39.0, shape[0]),
+                           np.linspace(-105.5, -104.3, shape[1]),
+                           indexing='ij')
+    with h5py.File(path, 'w') as f:
+        f.create_dataset('latitude', data=lat)
+        f.create_dataset('longitude', data=lon)
+        if method == 'local_linear_bc':
+            f.create_dataset('u_100m_scalar', data=rng.uniform(
+                0.8, 1.2, shape + (1,)).astype(np.float32))
+            f.create_dataset('u_100m_adder', data=rng.normal(
+                0, 0.1, shape + (1,)).astype(np.float32))
+            return {'u_100m': {'bias_fp': path}}
+        row = np.percentile(rng.random(3000), np.linspace(0, 100, 21))
+        oh = np.broadcast_to(row, shape + (1, 21)).astype(np.float32)
+        f.create_dataset('base_u_100m_params', data=oh)
+        f.create_dataset('bias_u_100m_params', data=oh + 0.1)
+        f.create_dataset('bias_fut_u_100m_params', data=oh + 0.1)
+        f.attrs['cfg'] = json.dumps({'time_window_center': [182.5],
+                                     'sampling': 'linear', 'log_base': 10})
+    return {'u_100m': {'bias_fp': path, 'base_dset': 'u_100m',
+                       'relative': False}}
+
+
+@pytest.mark.parametrize('method', ['local_linear_bc', 'local_qdm_bc'])
+def test_bias_correction_matches_jax(tmp_path, saved, method):
+    """Bias correction, which the forward pass refused before the bias
+    slice, runs and gives the JAX package's output on the same input
+    and factor file."""
+    kwargs = _factor_file(str(tmp_path / 'bc.h5'), (12, 12), method)
+    strategy, out = _run_both(
+        tmp_path, saved['st'], file_paths=_nc_input(tmp_path),
+        fwp_chunk_shape=(6, 6, 4), spatial_pad=1, temporal_pad=1,
+        out_pattern=None, bias_correct_method=method,
+        bias_correct_kwargs=kwargs)
+    assert strategy.fwp_slicer.n_chunks == len(out) == 8
 
 
 @pytest.mark.parametrize('kwargs', [

@@ -28,7 +28,11 @@ serves it through the ForwardPass (model_class='Sup3rCondMom'), profiles
 a Sup3rGan epoch with tensorboard_profile, and exports and imports a
 reference-format checkpoint (utilities.port). A fourth blocked run
 drives the streaming slice: a chunked_io pass, the power-law GCM handler
-through chunked_io, and an epoch over a lazy DataHandler."""
+through chunked_io, and an epoch over a lazy DataHandler. A fifth
+blocked run drives the bias slice: a QDM calibration from NetCDF3 files
+(a gridded baseline) on device='cpu', its NetCDF3 factor file, a
+bias-corrected ForwardPass (eager and chunked_io) and the handler-level
+qdm_bc."""
 
 import os
 import subprocess
@@ -554,6 +558,74 @@ assert not loaded, loaded
 print('LAZY TRAINED', len(model.history))
 '''
 
+_SCRIPT_BIAS = _BLOCKER + f'''
+import os
+import tempfile
+
+from sup3r_tpu_torch.bias import QuantileDeltaMappingCorrection, qdm_bc
+from sup3r_tpu_torch.configs import generator_st
+from sup3r_tpu_torch.models import Sup3rGan
+from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
+from sup3r_tpu_torch.preprocessing import DataHandler
+from sup3r_tpu_torch.utilities.test_helpers import (
+    make_fake_nc_file,
+    write_nc_factor_file,
+)
+
+tmp = tempfile.mkdtemp()
+feats = ['u_100m', 'v_100m']
+rng = np.random.default_rng(0)
+base = make_fake_nc_file(os.path.join(tmp, 'base.nc'), (16, 16, 730),
+                         ['u_100m'], freq='D', data={{'u_100m': rng.normal(
+                             0.5, 0.2, (730, 16, 16))}})
+hist, fut = [make_fake_nc_file(
+    os.path.join(tmp, f'{{name}}.nc'), (8, 8, 730), ['u_100m'], freq='D',
+    data={{'u_100m': rng.normal(0.6, 0.25, (730, 8, 8))}})
+    for name in ('hist', 'fut')]
+calc = QuantileDeltaMappingCorrection(
+    base, hist, fut, 'u_100m', 'u_100m', base_handler='LoaderNC',
+    n_quantiles=11, n_time_steps=4, device='cpu')
+out = calc.run()
+dev = calc.run(use_device=True)
+for key in out:
+    assert np.isfinite(out[key]).all(), key
+    np.testing.assert_allclose(dev[key], out[key], rtol=2e-4, atol=2e-2)
+fp = write_nc_factor_file(os.path.join(tmp, 'qdm.nc'), calc.bias_dh.lat_lon,
+                          out, calc.factor_cfg())
+print('QDM CALIBRATED', sorted(out))
+
+model = Sup3rGan(generator_st(2, (3,), (2, 2), filters=8, n_resblocks=1),
+                 [{{'class': 'Flatten'}}, {{'class': 'Dense', 'units': 1}}],
+                 meta={{'lr_features': feats, 'hr_out_features': feats}},
+                 means={{'u_100m': 0.5, 'v_100m': 0.5}},
+                 stdevs={{'u_100m': 0.3, 'v_100m': 0.3}}, device='cpu')
+model.save(os.path.join(tmp, 'model'))
+inp = make_fake_nc_file(os.path.join(tmp, 'in.nc'), (8, 8, 6), feats)
+kw = dict(model_kwargs={{'model_dir': os.path.join(tmp, 'model'),
+                        'device': 'cpu'}},
+          fwp_chunk_shape=(4, 4, 3), spatial_pad=1, temporal_pad=1,
+          device_batch_size=2, out_pattern=None, file_paths=inp)
+bc = dict(bias_correct_method='local_qdm_bc', bias_correct_kwargs={{
+    'u_100m': {{'bias_fp': fp, 'base_dset': 'u_100m', 'relative': False}}}})
+raw = ForwardPass.run(ForwardPassStrategy(**kw), 0)
+eager = ForwardPass.run(ForwardPassStrategy(**kw, **bc), 0)
+streamed = ForwardPass.run(ForwardPassStrategy(chunked_io=True, **kw, **bc),
+                           0)
+assert sorted(eager) == sorted(streamed) == sorted(raw) and len(eager) == 8
+for key in eager:
+    np.testing.assert_array_equal(streamed[key], eager[key])
+    assert not np.allclose(eager[key], raw[key])
+print('CORRECTED FORWARD PASS', len(eager))
+
+handler = DataHandler(inp, features=feats)
+before = np.array(handler.data['u_100m'])
+assert qdm_bc(handler, fp, 'u_100m', relative=False) == ['u_100m']
+assert not np.allclose(handler.data['u_100m'], before)
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not loaded, loaded
+print('QDM_BC', handler.data['u_100m'].shape)
+'''
+
 
 def _run_blocked(script):
     env = dict(os.environ)
@@ -607,6 +679,18 @@ def test_streaming_slice_runs_with_jax_and_friends_blocked():
     assert 'CHUNKED IO 8' in proc.stdout
     assert 'GCM CHUNKED IO 8' in proc.stdout
     assert 'LAZY TRAINED 1' in proc.stdout
+
+
+def test_bias_slice_runs_with_jax_and_friends_blocked():
+    """``bias/`` imports and runs with jax, pandas, h5py and PIL blocked:
+    a QDM calibration from NetCDF3 files on the CPU (host and torch
+    paths), its NetCDF3 factor file, a corrected forward pass (eager and
+    chunked_io equal) and ``qdm_bc``."""
+    proc = _run_blocked(_SCRIPT_BIAS)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'QDM CALIBRATED' in proc.stdout
+    assert 'CORRECTED FORWARD PASS 8' in proc.stdout
+    assert 'QDM_BC (8, 8, 6)' in proc.stdout
 
 
 def test_no_card_without_explicit_cpu_raises(monkeypatch):

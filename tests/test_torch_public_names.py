@@ -114,3 +114,33 @@ def test_write_output_matches_jax(tmp_path):
             assert got.shape == want.shape, var
             assert np.abs(got - want).max() <= 1e-4 * max(
                 np.abs(want).max(), 1e-30), var
+
+
+BIAS_MODULES = ('base', 'bias_calc', 'bias_calc_vortex', 'presrat', 'qdm',
+                'qdm_math', 'transforms', 'utilities')
+
+
+@pytest.mark.parametrize('module', ('',) + BIAS_MODULES)
+def test_bias_exports_match_jax(module):
+    """``sup3r_tpu_torch.bias`` exports every public name of
+    ``sup3r_tpu.bias``, and each of its modules every function and class
+    its JAX counterpart defines (with their public methods)."""
+    import importlib
+
+    def public(mod, own):
+        return {n for n in dir(mod) if not n.startswith('_') and (
+            not own or getattr(getattr(mod, n), '__module__', None)
+            == mod.__name__)}
+
+    suffix = f'.{module}' if module else ''
+    jax_mod = importlib.import_module(f'sup3r_tpu.bias{suffix}')
+    port_mod = importlib.import_module(f'sup3r_tpu_torch.bias{suffix}')
+    names = public(jax_mod, own=bool(module))
+    assert names and names <= public(port_mod, own=False)
+    if not module:
+        assert names == public(port_mod, own=False)
+    for name in names:
+        want = getattr(jax_mod, name)
+        if isinstance(want, type):
+            got = getattr(port_mod, name)
+            assert public(want, False) <= public(got, False), name

@@ -284,6 +284,27 @@ exits non-zero:
    (``launches_per_bias_corrected_chunked_io_pass``,
    ``launches_per_bias_fed_train_loop``) and the shapes checked.
 
+16. the production pipeline (printed before the ``kernels`` line):
+   phase 14's cell run as a user runs it, ``sup3r_tpu_torch/cli.py -c
+   config_pipeline.json pipeline --monitor`` from a run directory outside
+   the repo with no ``PYTHONPATH``: forward-pass (``chunked_io``, NetCDF
+   out, two nodes, a log file each, no device named: the card),
+   data-collect (``CollectorNC`` to one file) and qa (ws / wd errors, no
+   export: the card's machine has no h5py). Every job must end
+   ``successful``; each node's log must show ``small_reflect_conv``
+   launched once per dispatch of its chunks; the collected u / v must
+   equal an in-process ``ForwardPass.run`` of the same two-node strategy
+   on the card (1e-6 of max; its launches as phase 14 counts them), one
+   chunk must be within 1e-4 of max of the port's CPU pass, and the QA
+   on the card within 1e-5 of each error's max of the QA on the CPU. A
+   second ``pipeline --monitor`` must start no node (status and node
+   logs untouched, each step ``already successful``). Printed: each
+   step's wall s, the rerun's, each node's start-up s (process start to
+   its strategy ready) and the CLI pass's HR voxels/s beside phase 14's
+   in-process pass. Then ``estimate_flops`` of one flagship ``generate``
+   at phase 3's shape on the card and on the CPU, equal, with the
+   TFLOP/s it implies at phase 3's median request time.
+
 Before the ``kernels`` line, ``phase_seconds`` gives the seconds each
 phase took. The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -333,6 +354,7 @@ from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
 from sup3r_tpu_torch.postprocessing import OutputHandlerH5, OutputHandlerNC
 from sup3r_tpu_torch.postprocessing.writers import write_nc_file
 from sup3r_tpu_torch.preprocessing import LoaderNC
+from sup3r_tpu_torch.qa import Sup3rQa
 from sup3r_tpu_torch.models.gan import relativistic_disc_loss
 from sup3r_tpu_torch.models.weights import params_from_jax, params_to_jax
 from sup3r_tpu_torch.ops.conv_ad import _fold_reflect_halos, reflect_conv_ad
@@ -370,6 +392,7 @@ from sup3r_tpu_torch.ops.kernels import (
     small_reflect_conv_packed,
 )
 from sup3r_tpu_torch.utilities import Timer, exact_fp32
+from sup3r_tpu_torch.utilities.flops import estimate_flops
 from sup3r_tpu_torch.utilities.port import (
     export_reference_gan,
     load_reference_gan,
@@ -4194,6 +4217,261 @@ def bias_phase(name, stream_routes, phase13):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: phase 16: the production pipeline through the port's command line on
+#: phase 14's cell, the forward pass split over two nodes
+PIPE_NODES = 2
+PIPE_TIMEOUT_S = 600
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def node_dispatches(strategy, node):
+    """The device batches of one node's chunks (``stream_dispatches``'s
+    count for the node's share)."""
+    fwp = ForwardPass(strategy, node)
+    shapes = Counter(fwp.get_input_chunk(int(i)).input_data.shape
+                     for i in strategy.node_chunks[node])
+    return sum(-(-n // STREAM_BATCH) for n in shapes.values())
+
+
+def run_cli(run_dir, *args):
+    """``sup3r_tpu_torch/cli.py`` as a user runs it from ``run_dir``,
+    with no ``PYTHONPATH``: the nodes find the port by themselves.
+    Returns (wall s, stderr); a non-zero exit raises."""
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, 'sup3r_tpu_torch', 'cli.py'),
+         *args], cwd=run_dir, env=env, capture_output=True, text=True,
+        timeout=PIPE_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f'cli {args} exited {proc.returncode}:\n'
+                             f'{proc.stderr[-4000:]}')
+    return wall_s, proc.stderr
+
+
+def step_walls(stderr):
+    """{step module: s} from the pipeline's ``finished in`` lines."""
+    out = {}
+    for line in stderr.splitlines():
+        if 'finished in' in line and 'Pipeline step' in line:
+            key = line.split('"')[1].split('#')[0]
+            out[key] = float(line.rsplit('finished in ', 1)[1].split()[0])
+    return out
+
+
+def pipeline_configs(run_dir, input_file, model_dir):
+    """The four configs of the run: forward-pass (chunked_io, NetCDF out,
+    two nodes, a log file each), data-collect (``CollectorNC`` to one
+    file), qa (no ``qa_fp``: the card's machine has no h5py) and the
+    pipeline. No config names a device: nodes take the card."""
+    cfgs = {
+        'config_fwp.json': {
+            'file_paths': input_file, 'model_kwargs': {'model_dir': model_dir},
+            'fwp_chunk_shape': list(STREAM_CHUNK), 'spatial_pad': STREAM_PAD,
+            'temporal_pad': STREAM_PAD, 'device_batch_size': STREAM_BATCH,
+            'chunked_io': True, 'max_nodes': PIPE_NODES,
+            'out_pattern': './out/chunk_{file_id}.nc',
+            'log_file': './logs/fwp_{node_index}.log',
+            'execution_control': {'option': 'local'}},
+        'config_collect.json': {'file_paths': './out/chunk_*.nc',
+                                'out_file': './collected.nc'},
+        'config_qa.json': {'source_file_paths': input_file,
+                           'out_file_path': './collected.nc',
+                           's_enhance': 3, 't_enhance': 4,
+                           'features': FWP_FEATURES,
+                           'temporal_coarsening_method': 'average'},
+        'config_pipeline.json': {'pipeline': [
+            {'forward-pass': 'config_fwp.json'},
+            {'data-collect': 'config_collect.json'},
+            {'qa': 'config_qa.json'}]}}
+    for name, cfg in cfgs.items():
+        with open(os.path.join(run_dir, name), 'w') as f:
+            json.dump(cfg, f)
+    return os.path.join(run_dir, 'config_pipeline.json')
+
+
+def node_summaries(run_dir):
+    """The ``Node summary`` line of each forward-pass node's log."""
+    out = []
+    for i in range(PIPE_NODES):
+        with open(os.path.join(run_dir, 'logs', f'fwp_{i}.log')) as f:
+            line = next(x for x in f if 'Node summary' in x)
+        out.append(json.loads(line.split('Node summary: ', 1)[1]))
+    return out
+
+
+def read_collected(path):
+    data = LoaderNC(path).data
+    return np.stack([data[f] for f in FWP_FEATURES], axis=-1)
+
+
+def pipeline_flops(name, request_ms):
+    """``estimate_flops`` of one flagship ``generate`` at phase 3's
+    shape on the card and on the CPU (the same weights): the counts must
+    be equal (the card's fused tail reports its kernel's convolution)."""
+    lr = np.random.default_rng(0).standard_normal(LR_SHAPE).astype(
+        np.float32) * 0.3 + 0.5
+    counts = {}
+    for device in ('cuda', 'cpu'):
+        model = flagship(device)
+        zero_counts()
+        counts[device] = estimate_flops(model.generate, lr)
+        launches = launch_counts()
+        if device == 'cuda' and launches['small_reflect_conv'] != 1:
+            raise AssertionError(f'flops: the card generate launched '
+                                 f'{launches}')
+        del model
+    ok = counts['cuda'] == counts['cpu'] > 0
+    emit(phase='pipeline_flops', lr_shape=list(LR_SHAPE),
+         flops=counts['cuda'], cpu_flops=counts['cpu'],
+         median_request_ms=request_ms,
+         implied_tflops=counts['cuda'] / (request_ms / 1e3) / 1e12,
+         nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'flops: card {counts["cuda"]} vs CPU '
+                             f'{counts["cpu"]}')
+    return counts['cuda']
+
+
+def pipeline_phase(name, stream_routes, request_ms):
+    """Phase 16: phase 14's cell through the port's command line
+    (forward-pass on two nodes, data-collect, qa; then a rerun), held to
+    an in-process pass on the card and to the CPU. Returns the kernels'
+    launches of the CLI nodes and of the in-process pass."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_pipeline_')
+    try:
+        rng = np.random.default_rng(0)
+        s1, s2, t = STREAM_DOMAIN
+        input_file = make_fake_nc_file(
+            os.path.join(tmp, 'stream.nc'), STREAM_DOMAIN, FWP_FEATURES,
+            data={f: rng.standard_normal((t, s1, s2)) * 0.3 + 0.5
+                  for f in FWP_FEATURES})
+        model = flagship('cuda')
+        model.meta.update(
+            input_resolution={'spatial': '12km', 'temporal': '60min'})
+        model_dir = os.path.join(tmp, 'model')
+        model.save(model_dir)
+        del model
+        run_dir = os.path.join(tmp, 'run')
+        os.makedirs(run_dir)
+        pipe_fp = pipeline_configs(run_dir, input_file, model_dir)
+        torch.cuda.empty_cache()
+
+        # the run, then a rerun that must start no node
+        wall_s, stderr = run_cli(run_dir, '-c', pipe_fp, 'pipeline',
+                                 '--monitor')
+        walls = step_walls(stderr)
+        status_fp = os.path.join(run_dir, '.status.json')
+        with open(status_fp) as f:
+            status = json.load(f)
+        jobs = {j: rec for k, v in status.items() if not k.startswith('__')
+                for j, rec in v.items()}
+        if len(jobs) != PIPE_NODES + 2 or any(
+                r['job_status'] != 'successful' for r in jobs.values()):
+            raise AssertionError(f'pipeline: jobs {jobs}')
+        nodes = node_summaries(run_dir)
+        logs = sorted(glob.glob(os.path.join(run_dir, 'logs', '*')))
+        stamps = {p: os.path.getmtime(p) for p in logs}
+        rerun_s, rerun_err = run_cli(run_dir, '-c', pipe_fp, 'pipeline',
+                                     '--monitor')
+        with open(status_fp) as f:
+            rerun_ok = (json.load(f) == status
+                        and rerun_err.count('already successful') == 3
+                        and {p: os.path.getmtime(p) for p in glob.glob(
+                            os.path.join(run_dir, 'logs', '*'))} == stamps)
+        if not rerun_ok:
+            raise AssertionError(f'pipeline rerun started work:\n'
+                                 f'{rerun_err[-3000:]}')
+
+        # the same strategy in-process on the card: equal output, and
+        # the small kernel once per dispatch in every node
+        def make(out, device='cuda', max_nodes=PIPE_NODES):
+            return stream_strategy(input_file, model_dir, out,
+                                   device=device, chunked_io=True,
+                                   max_nodes=max_nodes)
+
+        plan = make(None)
+        per_node = [node_dispatches(plan, i) for i in range(PIPE_NODES)]
+        for i, node in enumerate(nodes):
+            want = {'small_reflect_conv': per_node[i], 'reflect_conv': 0}
+            if node['launches'] != want or not per_node[i]:
+                raise AssertionError(f'pipeline node {i}: launches '
+                                     f'{node["launches"]}, expected {want}')
+        out_dir = os.path.join(tmp, 'in_process')
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        strategy = make(os.path.join(out_dir, 'chunk_{file_id}.nc'))
+        for i in range(PIPE_NODES):
+            ForwardPass.run(strategy, i)
+        torch.cuda.synchronize()
+        in_process_s = time.perf_counter() - t0
+        launches = launch_counts()
+        check_fwp_launches('default', launches, sum(per_node))
+        hr_shape, full = check_fwp_files(strategy, out_dir, keep=True,
+                                         domain=STREAM_DOMAIN)
+        collected = read_collected(os.path.join(run_dir, 'collected.nc'))
+        err = float(np.abs(collected - full).max())
+        tol = 1e-6 * float(np.abs(full).max())
+
+        # one chunk of the collected file against the port's CPU pass
+        cpu = make(None, device='cpu', max_nodes=1)
+        _, want = ForwardPass(cpu, 0).run_chunk(
+            ForwardPass(cpu, 0).get_input_chunk(0))
+        s_idx, t_idx = cpu.fwp_slicer.get_chunk_indices(0)
+        s_hr = cpu.fwp_slicer.s_hr_slices[s_idx]
+        t_lr = cpu.fwp_slicer.t_lr_slices[t_idx]
+        got = collected[s_hr[0], s_hr[1], t_lr.start * 4:t_lr.stop * 4]
+        cpu_err = float(np.abs(got - want).max())
+        cpu_tol = PARITY_RTOL * float(np.abs(want).max())
+
+        # QA of the collected file on the card against the CPU
+        qa = {}
+        for device in ('cuda', 'cpu'):
+            t0 = time.perf_counter()
+            qa[device] = Sup3rQa(input_file, os.path.join(
+                run_dir, 'collected.nc'), s_enhance=3, t_enhance=4,
+                features=FWP_FEATURES, device=device).run()
+            qa[f'{device}_s'] = time.perf_counter() - t0
+        qa_errs = {k: float(np.abs(qa['cuda'][k] - v).max())
+                   / max(float(np.abs(v).max()), 1e-30)
+                   for k, v in qa['cpu'].items()}
+        hr_voxels = int(np.prod(hr_shape))
+        phase14 = float(np.median(
+            stream_routes['default']['wall_s']['chunked_io']))
+        ok = (err <= tol and cpu_err <= cpu_tol and got.shape == want.shape
+              and max(qa_errs.values()) <= 1e-5
+              and set(walls) == {'forward-pass', 'data-collect', 'qa'})
+        emit(phase='pipeline', io=STREAM_IO, nodes=PIPE_NODES,
+             pipeline_wall_s=wall_s, step_wall_s=walls, rerun_wall_s=rerun_s,
+             node_startup_s=[n['startup_s'] for n in nodes],
+             node_import_s=[n['import_s'] for n in nodes],
+             node_run_s=[n['run_s'] for n in nodes],
+             node_launches=[n['launches'] for n in nodes],
+             node_dispatches=per_node, hr_shape=hr_shape,
+             cli_fwp_hr_voxels_per_s=hr_voxels / walls.get(
+                 'forward-pass', float('nan')),
+             in_process_two_node_s=in_process_s,
+             in_process_hr_voxels_per_s=hr_voxels / in_process_s,
+             phase14_chunked_io_median_s=phase14,
+             phase14_hr_voxels_per_s=hr_voxels / phase14,
+             in_process_launches=launches,
+             collected_vs_in_process_max_abs_err=err, tol=tol,
+             cpu_chunk_max_abs_err=cpu_err, cpu_tol=cpu_tol,
+             qa_card_vs_cpu_rel_err=qa_errs, qa_card_s=qa['cuda_s'],
+             qa_cpu_s=qa['cpu_s'], nvidia_smi=name, ok=ok)
+        if not ok:
+            raise AssertionError(
+                f'pipeline: collected vs in-process {err} > {tol}, chunk vs '
+                f'CPU {cpu_err} > {cpu_tol}, QA {qa_errs} or steps {walls}')
+        flops = pipeline_flops(name, request_ms)
+        return {'nodes': [n['launches'] for n in nodes],
+                'in_process': launches, 'flops': flops}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device: '
@@ -4538,6 +4816,9 @@ def main():
                 for (x, c, a), r in bias_shapes.get(kname, {}).items()]}
 
     mark('15_kernel_checks')
+    # 16. the production pipeline through the command line
+    pipe = pipeline_phase(smi, stream_routes, float(np.median(times)))
+    mark('16_pipeline')
     emit(phase='phase_seconds', seconds=seconds,
          total_s=sum(seconds.values()))
 
@@ -4549,6 +4830,12 @@ def main():
         return {route: {k: v for k, v in counts.items()
                         if k.startswith(kname)}
                 for route, counts in per_route.items()}
+
+    def per_cli_pipeline(kname):
+        return {'launches_per_cli_pipeline_node': [
+            n[kname] for n in pipe['nodes']],
+            'launches_per_in_process_two_node_pass': pipe['in_process'][
+                kname]}
 
     def per_mode(kname):
         return {'launches_per_fast_request': per_request['fast'][kname],
@@ -4590,6 +4877,7 @@ def main():
                           'small_reflect_conv'],
                       chunked_io_shape=stream_times['small_reflect_conv'],
                       **bias_record('small_reflect_conv'),
+                      **per_cli_pipeline('small_reflect_conv'),
                       obs_shape=obs_tail,
                       obs_train_check_rel_err=obs['train_check_rel_err'],
                       train_shape=dict(
@@ -4627,6 +4915,7 @@ def main():
                           'reflect_conv'],
                       chunked_io_shape=stream_times['reflect_conv'],
                       **bias_record('reflect_conv'),
+                      **per_cli_pipeline('reflect_conv'),
                       launches_per_train_step=0,
                       **per_mode('reflect_conv'))]
     print(json.dumps({'kernels': kernels}), flush=True)

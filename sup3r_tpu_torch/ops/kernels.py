@@ -31,7 +31,9 @@ the layout the port's network runs in. A tensor on the CPU takes the
 plain version (``reflect_conv_reference``); a CUDA tensor launches the
 kernel or raises. Each wrapper's ``launches`` attribute counts its kernel
 launches (forward launches only); ``reflect_conv_cf.launches_by_rank``
-splits its count by the input's spatial rank. ``small_reflect_conv`` and
+splits its count by the input's spatial rank. Each launch also reports
+its convolution's FLOPs to ``utilities.flops.estimate_flops``, which
+cannot see a ``ctypes`` launch. ``small_reflect_conv`` and
 ``reflect_conv`` keep the JAX package's channels-last signatures for
 tests and callers holding JAX layouts.
 
@@ -57,6 +59,7 @@ from sup3r_tpu_torch.ops.conv_ad import (
     reflect_conv_ad,
     reflect_conv_backward,
 )
+from sup3r_tpu_torch.utilities.flops import count_kernel_conv
 
 #: output channels ``small_reflect_conv_cf`` takes
 SMALL_CONV_MAX_CO = 32
@@ -233,6 +236,7 @@ def small_reflect_conv_packed(x, packed, bias, co, alpha=None):
         raise RuntimeError(f'small_reflect_conv launch failed: CUDA error '
                            f'{err}')
     small_reflect_conv_cf.launches += 1
+    count_kernel_conv(x.shape, co)
     return y
 
 
@@ -321,6 +325,7 @@ def reflect_conv_packed(x, packed, bias, co, n_tile, alpha=None):
         raise RuntimeError(f'reflect_conv launch failed: CUDA error {err}')
     reflect_conv_cf.launches += 1
     reflect_conv_cf.launches_by_rank[n_spatial] += 1
+    count_kernel_conv(x.shape, co)
     return y
 
 

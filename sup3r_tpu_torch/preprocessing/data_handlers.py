@@ -5,9 +5,9 @@ Reference parity: sup3r/preprocessing/data_handlers/base.py:46
 (DataHandler), :293 (DailyDataHandler), :383-396 (H5WindCC / H5SolarCC),
 nc_cc.py:24 (DataHandlerNCforCC). The port's copy of
 ``sup3r_tpu/preprocessing/data_handlers.py``, on the pandas-free
-``TimeIndex``: eager handlers and ``mode='lazy'`` (windowed derivation,
-``preprocessing/lazy.py``). Feature caching comes with a later slice of
-the port and raises ``NotImplementedError`` here.
+``TimeIndex``: eager handlers with the feature cache (``cache_kwargs``,
+``postprocessing/cachers.py``; h5py) and ``mode='lazy'`` (windowed
+derivation, ``preprocessing/lazy.py``).
 """
 
 import logging
@@ -70,11 +70,12 @@ class DataHandler:
                 interp_kwargs=interp_kwargs, cache_kwargs=cache_kwargs,
                 res_kwargs=res_kwargs, window=window)
             return
-        if cache_kwargs is not None:
-            raise NotImplementedError(
-                'DataHandler(cache_kwargs=...): feature caching '
-                '(postprocessing/cachers.py) comes with a later slice of '
-                'the port (ROADMAP queue 1 item 8)')
+        cached = self._check_cache(cache_kwargs, features)
+        if cached is not None:
+            self.rasterizer = None
+            self.data = cached
+            self._cache_hit_hook()
+            return
         self.rasterizer = Rasterizer(
             file_paths, features='all', target=target, shape=shape,
             time_slice=time_slice, threshold=threshold,
@@ -91,6 +92,31 @@ class DataHandler:
             interp_kwargs=interp_kwargs)
         self.data = deriver.data
         self._deriver_hook()
+        if cache_kwargs is not None:
+            from sup3r_tpu_torch.postprocessing.cachers import Cacher
+
+            to_cache = self.data
+            if hasattr(to_cache, 'members'):
+                # paired (daily, hourly) handlers cache the hourly member
+                # and rebuild the daily view on reload; handlers that trim
+                # helper channels (H5SolarCC) keep the untrimmed hourly
+                # member for the cache, so the reload can rederive the
+                # totals-based daily clearsky_ratio
+                member = getattr(self, '_cache_member', None)
+                to_cache = member if member is not None else (
+                    to_cache.members.get(
+                        'hourly', list(to_cache.members.values())[-1]))
+            Cacher(to_cache, cache_kwargs)
+
+    @staticmethod
+    def _check_cache(cache_kwargs, features):
+        """The cached data of ``cache_kwargs['cache_pattern']`` when
+        every requested feature is there, else None."""
+        if not cache_kwargs or 'cache_pattern' not in cache_kwargs:
+            return None
+        from sup3r_tpu_torch.postprocessing.cachers import load_cached
+
+        return load_cached(cache_kwargs['cache_pattern'], features)
 
     def _init_lazy(self, file_paths, features, registry, time_roll,
                    hr_spatial_coarsen, cache_kwargs, time_shift,
@@ -140,6 +166,10 @@ class DataHandler:
     def _lazy_hook(self):
         """Subclass hook after lazy construction (e.g. pairing
         ``self.data`` with a lazy daily view)."""
+
+    def _cache_hit_hook(self):
+        """Subclass hook after a cache reload (e.g. rebuilding the daily
+        view from the cached hourly data)."""
 
     @property
     def features(self):
@@ -262,6 +292,10 @@ class DailyDataHandler(DataHandler):
         self.daily = daily
         self.hourly = hourly
 
+    def _cache_hit_hook(self):
+        """The cache holds the hourly member: rebuild the daily view."""
+        self._deriver_hook()
+
 
 class DataHandlerH5WindCC(DailyDataHandler):
     """Daily / hourly wind handler for WTK H5 (reference:
@@ -352,6 +386,7 @@ class DataHandlerH5SolarCC(DailyDataHandler):
         # features: the samplers index channels by position
         req = self._requested_features
         if req and any(f not in req for f in self.hourly.features):
+            self._cache_member = self.hourly
 
             def select(ds):
                 idx = [ds.feature_index(f) for f in req]

@@ -11,23 +11,17 @@ only, so it needs h5py, which it imports where it writes.
 
 import logging
 import os
-import re
 
 import numpy as np
 from scipy.spatial import cKDTree
 
+from sup3r_tpu_torch.postprocessing.collectors import get_chunk_indices
 from sup3r_tpu_torch.preprocessing.loaders import LoaderH5, expand_paths
 from sup3r_tpu_torch.solar.disc import calc_dhi, dark_night, disc
 from sup3r_tpu_torch.utilities import get_dset_attrs
 from sup3r_tpu_torch.utilities.times import format_timestamps
 
 logger = logging.getLogger(__name__)
-
-#: the chunk ids of a forward-pass output file name: the greedy prefix
-#: anchors on the LAST two index tokens (the collectors' pattern,
-#: reference collectors/base.py:53), so a date or job id earlier in the
-#: name is not taken for them
-_CHUNK_ID_PATTERN = re.compile(r'.*_(\d+)_(\d+).*\w+$')
 
 
 def _is_leap_year(time_index):
@@ -296,15 +290,18 @@ class Solar:
                        if ignore not in os.path.basename(fp)]
         all_fps = sorted(all_fps)
         source_dir = os.path.dirname(all_fps[0])
-        # one chunk-id convention: the collectors' anchored pattern
+        # one chunk-id convention: the collectors' (the LAST two index
+        # tokens), with the ids written as the forward pass writes them
 
         def _parse(fp):
             name = os.path.basename(fp)
-            m = _CHUNK_ID_PATTERN.match(name)
-            if not m:
+            ids = [f'{i:06d}' for i in get_chunk_indices(name)]
+            end = name.rfind('_{}_{}'.format(*ids))
+            if end < 0:
                 raise ValueError(
-                    f'Could not parse chunk ids from {name}')
-            return name[:m.start(1) - 1], m.group(1), m.group(2)
+                    f'Chunk ids of {name} are not written as 6-digit '
+                    '_tttttt_ssssss tokens')
+            return (name[:end], *ids)
 
         parsed = [_parse(fp) for fp in all_fps]
         bases = {p[0] for p in parsed}

@@ -270,10 +270,24 @@ def test_nan_input_and_constant_output_raise(tmp_path, saved):
         'cache_pattern': 'cache_{feature}.h5'}}}, 'cachers.py'),
     ({'use_mesh': True}, 'item 9'),
 ])
-def test_later_slices_raise(tmp_path, saved, kwargs, match):
+def test_later_slices_raise(tmp_path, saved, kwargs, match, monkeypatch):
+    """Options of later slices raise. Feature caching (cachers.py) has
+    come with the production-pipeline slice: its case now checks that
+    the strategy's handler writes the cache (relative to the working
+    directory) and that a second strategy reads it back."""
     kw = dict(file_paths=_nc_input(tmp_path, (8, 8, 4)),
               model_kwargs={'model_dir': saved['st'], 'device': 'cpu'},
               fwp_chunk_shape=(8, 8, 4), out_pattern=None)
+    if match == 'cachers.py':
+        monkeypatch.chdir(tmp_path)
+        first = ForwardPassStrategy(**{**kw, **kwargs})
+        assert sorted(os.listdir(tmp_path)) == [
+            'cache_u_100m.h5', 'cache_v_100m.h5', 'input.nc']
+        second = ForwardPassStrategy(**{**kw, **kwargs})
+        assert second.input_handler.rasterizer is None
+        np.testing.assert_array_equal(second.input_handler.data.data,
+                                      first.input_handler.data.data)
+        return
     with pytest.raises(NotImplementedError, match=match):
         ForwardPassStrategy(**{**kw, **kwargs})
 

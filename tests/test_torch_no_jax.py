@@ -32,12 +32,18 @@ through chunked_io, and an epoch over a lazy DataHandler. A fifth
 blocked run drives the bias slice: a QDM calibration from NetCDF3 files
 (a gridded baseline) on device='cpu', its NetCDF3 factor file, a
 bias-corrected ForwardPass (eager and chunked_io) and the handler-level
-qdm_bc."""
+qdm_bc. A sixth blocked run (click blocked too) drives the command line:
+``sup3r_tpu_torch/cli.py ... pipeline --monitor`` from a directory
+outside the repo with only the blocker on ``PYTHONPATH``, forward-pass
+on two nodes, data-collect and qa, the blocker active in the parent and
+in every node."""
 
+import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -635,6 +641,103 @@ def _run_blocked(script):
     return subprocess.run([sys.executable, '-c', script], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
+
+
+_SITECUSTOMIZE = f'''
+import atexit
+import importlib.abc
+import os
+import sys
+
+BLOCKED = {BLOCKED + ('click',)!r}
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in BLOCKED:
+            raise ModuleNotFoundError(f'{{name}} is blocked')
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+
+
+@atexit.register
+def _report():
+    loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+    with open(os.path.join(os.environ['BLOCKED_REPORT_DIR'],
+                           f'{{os.getpid()}}.json'), 'w') as f:
+        f.write(repr(loaded))
+'''
+
+
+def test_cli_pipeline_runs_with_jax_click_and_friends_blocked(tmp_path):
+    """The port's command line runs a forward-pass (two nodes), a NetCDF
+    collection and a QA from a directory outside the repo, with jax,
+    pandas, h5py, click and the JAX package blocked by a
+    ``sitecustomize`` that is the only entry of ``PYTHONPATH``: the
+    node processes find the port by themselves."""
+    from sup3r_tpu_torch.utilities.test_helpers import make_fake_nc_file
+
+    block_dir, report_dir, run_dir = (tmp_path / d for d in (
+        'block', 'report', 'run'))
+    for d in (block_dir, report_dir, run_dir):
+        d.mkdir()
+    (block_dir / 'sitecustomize.py').write_text(_SITECUSTOMIZE)
+    feats = ['u_100m', 'v_100m']
+    model = Sup3rGan(generator_st(2, (3,), (2, 2), filters=8, n_resblocks=1),
+                     [{'class': 'Flatten'}, {'class': 'Dense', 'units': 1}],
+                     meta={'lr_features': feats, 'hr_out_features': feats},
+                     means={f: 0.5 for f in feats},
+                     stdevs={f: 0.3 for f in feats}, device='cpu')
+    model.save(str(run_dir / 'model'))
+    inp = make_fake_nc_file(str(run_dir / 'in.nc'), (8, 8, 6), feats)
+    cfgs = {
+        'config_fwp.json': {
+            'file_paths': inp, 'fwp_chunk_shape': [4, 4, 3],
+            'model_kwargs': {'model_dir': str(run_dir / 'model'),
+                             'device': 'cpu'},
+            'spatial_pad': 1, 'temporal_pad': 1, 'max_nodes': 2,
+            'device_batch_size': 2,
+            'out_pattern': './out/chunk_{file_id}.nc',
+            'execution_control': {'option': 'local'}},
+        'config_collect.json': {'file_paths': './out/chunk_*.nc',
+                                'out_file': './collected.nc'},
+        'config_qa.json': {'source_file_paths': inp,
+                           'out_file_path': './collected.nc',
+                           's_enhance': 3, 't_enhance': 4,
+                           'features': feats, 'device': 'cpu'},
+        'config_pipeline.json': {'pipeline': [
+            {'forward-pass': 'config_fwp.json'},
+            {'data-collect': 'config_collect.json'},
+            {'qa': 'config_qa.json'}]}}
+    for name, cfg in cfgs.items():
+        (run_dir / name).write_text(json.dumps(cfg))
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    env.update(PYTHONPATH=str(block_dir), OMP_NUM_THREADS='1',
+               BLOCKED_REPORT_DIR=str(report_dir))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, 'sup3r_tpu_torch', 'cli.py'),
+         '-c', 'config_pipeline.json', 'pipeline', '--monitor'],
+        cwd=str(run_dir), env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    status = json.loads((run_dir / '.status.json').read_text())
+    jobs = [j for k, v in status.items() if not k.startswith('__')
+            for j in v.values()]
+    assert len(jobs) == 4
+    assert all(j['job_status'] == 'successful' for j in jobs)
+    assert len(os.listdir(run_dir / 'out')) == 8
+    from sup3r_tpu_torch.preprocessing import LoaderNC
+
+    data = LoaderNC(str(run_dir / 'collected.nc')).data
+    assert data.shape == (24, 24, 24, 2)
+    assert np.isfinite(data['u_100m']).all()
+    reports = sorted(report_dir.iterdir())
+    # the parent and its four nodes each loaded the blocker, and none
+    # of them imported a blocked module
+    assert len(reports) == 5, reports
+    assert all(r.read_text() == '[]' for r in reports)
 
 
 def test_trh_chain_obs_and_dc_run_with_jax_and_friends_blocked():

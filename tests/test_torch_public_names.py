@@ -144,3 +144,64 @@ def test_bias_exports_match_jax(module):
         if isinstance(want, type):
             got = getattr(port_mod, name)
             assert public(want, False) <= public(got, False), name
+
+
+SLICE_MODULES = ('utilities.cli', 'postprocessing.collectors',
+                 'postprocessing.cachers', 'qa', 'qa.qa', 'qa.utilities',
+                 'utilities.flops', 'utilities.era_downloader')
+
+
+@pytest.mark.parametrize('module', SLICE_MODULES)
+def test_pipeline_slice_exports_match_jax(module):
+    """Each module of the production-pipeline slice defines every public
+    function, class (with its public methods) and constant that its JAX
+    counterpart defines."""
+    import importlib
+
+    jax_mod = importlib.import_module(f'sup3r_tpu.{module}')
+    port_mod = importlib.import_module(f'sup3r_tpu_torch.{module}')
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith('_') and (
+            getattr(getattr(mod, n), '__module__', None) == mod.__name__
+            or (n.isupper() and isinstance(getattr(mod, n),
+                                           (int, float, str, tuple))))}
+
+    names = public(jax_mod) | set(getattr(jax_mod, '__all__', ()))
+    if module == 'qa':
+        names.add('Sup3rQa')
+    assert names
+    for name in names:
+        assert hasattr(port_mod, name), name
+        want, got = getattr(jax_mod, name), getattr(port_mod, name)
+        if isinstance(want, type):
+            assert ({n for n in dir(want) if not n.startswith('_')}
+                    <= {n for n in dir(got) if not n.startswith('_')}), name
+        elif not callable(want):
+            assert got == want, name
+
+
+def test_cli_commands_and_options_match_jax():
+    """The port's argparse CLI has the JAX click group's commands, each
+    with the same options (``import-model --device`` is the port's
+    own: the device a model is built on)."""
+    import argparse
+
+    from sup3r_tpu.cli import main as jax_main
+    from sup3r_tpu_torch import cli
+
+    def click_opts(cmd):
+        return {o for p in cmd.params for o in getattr(p, 'opts', ())
+                if o.startswith('-') and o != '--help'}
+
+    parser = cli.build_parser()
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    assert set(sub.choices) == set(jax_main.commands)
+    for name, cmd in jax_main.commands.items():
+        opts = {o for a in sub.choices[name]._actions
+                for o in a.option_strings if o not in ('-h', '--help')}
+        assert opts - {'--device'} == click_opts(cmd), name
+        assert hasattr(cli, name.replace('-', '_')), name
+    top = {o for a in parser._actions for o in a.option_strings}
+    assert click_opts(jax_main) - {'--version'} <= top

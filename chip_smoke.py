@@ -304,6 +304,25 @@ exits non-zero:
    in-process pass. Then ``estimate_flops`` of one flagship ``generate``
    at phase 3's shape on the card and on the CPU, equal, with the
    TFLOP/s it implies at phase 3's median request time.
+17. the mesh slice (``sup3r_tpu_torch.parallel``; printed before the
+   ``kernels`` line). (a) A world of one over NCCL in this process
+   (``init_multihost`` on a FileStore under ``build/``): the training
+   cell's step (batch 16, fp32 and bf16, Adam epsilon 1) from one init
+   with and without ``attach_mesh(get_mesh())``, losses and params
+   within 1e-6 relative, then the step ms each way; the all-reduce of
+   both networks' gradients by CUDA events; phase 14's cell by default,
+   with ``use_mesh=True`` (equal) and ``use_mesh='spatial'`` (within
+   1e-4), the pass seconds and launches of each (the sharded convs run
+   on cuDNN, as the JAX package's bypass Pallas). (b) Two ranks on the
+   card over gloo, each a process of its own (this script with
+   ``--mesh-rank``; NCCL cannot put two ranks on one device, so gloo
+   takes the collectives' tensors through host memory): the DP step on
+   8 rows each against (a)'s unmeshed fp32 step (rtol 2e-4, atol 1e-6,
+   the JAX package's bar), the same losses on both ranks; phase 14's
+   cell with ``use_mesh='spatial'`` (a chunk's 20 padded rows split 10 /
+   10) against the default pass (1e-4), the halo bytes the ranks sent
+   against ``estimate_halo_bytes`` (within a factor of 5); step ms, pass
+   s and each rank's ``small_reflect_conv`` launches per step and pass.
 
 Before the ``kernels`` line, ``phase_seconds`` gives the seconds each
 phase took. The last line is ``{"ok": true, "device": {...}}``.
@@ -323,6 +342,7 @@ from collections import Counter
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from sup3r_tpu_torch.bias import (
@@ -350,7 +370,10 @@ from sup3r_tpu_torch.ops.output_pack import (
     pack_plan,
     theta_for,
 )
+from sup3r_tpu_torch.parallel import get_mesh, init_multihost
+from sup3r_tpu_torch.parallel.mesh import all_reduce_
 from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
+from sup3r_tpu_torch.pipeline.memory import estimate_halo_bytes
 from sup3r_tpu_torch.postprocessing import OutputHandlerH5, OutputHandlerNC
 from sup3r_tpu_torch.postprocessing.writers import write_nc_file
 from sup3r_tpu_torch.preprocessing import LoaderNC
@@ -379,6 +402,9 @@ from sup3r_tpu_torch.utilities.test_helpers import (
     make_fake_dset,
     make_fake_nc_file,
     make_fake_topo_nc_file,
+    rank_results,
+    run_rank_scenarios,
+    spawn_ranks,
     write_nc_factor_file,
 )
 from sup3r_tpu_torch.ops.kernels import (
@@ -4472,6 +4498,343 @@ def pipeline_phase(name, stream_routes, request_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: phase 17: the mesh slice (``sup3r_tpu_torch.parallel``, one process
+#: per device). (a) a world of one over NCCL in this process: the
+#: training cell's step with and without ``attach_mesh`` (fp32 and bf16),
+#: the all-reduce of its gradients, and phase 14's cell with ``use_mesh``
+#: True and 'spatial'; (b) two ranks on the one card over gloo (NCCL
+#: cannot put two ranks on one device), each a process of its own
+#: (``spawn_ranks``: this script with ``--mesh-rank``): the data-parallel
+#: step and phase 14's cell split 10 / 10 rows a chunk
+MESH_RANKS = 2
+MESH_RANK_TIMEOUT_S = 420
+MESH_TIMED_STEPS = 4
+MESH_TIMED_PASSES = 2
+MESH_EQUAL_RTOL = 1e-6
+MESH_STEP_RTOL, MESH_STEP_ATOL = 2e-4, 1e-6
+MESH_SPATIAL_ATOL = 1e-4
+#: the HR tail's input in a rank's step of (b): 8 of the cell's 16 rows
+MESH_TAIL_SHAPE = (TRAIN_BATCH // MESH_RANKS, 8) + TRAIN_HR[:3]
+
+
+def mesh_step(model, lr, hr):
+    """One timed step of the training cell (the losses' fetch waits for
+    the device); returns (losses, launches, ms)."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = model.run_gradient_descent(lr, hr, W_ADV, True, True)
+    ms = 1e3 * (time.perf_counter() - t0)
+    return losses, launch_counts(), ms
+
+
+def step_params(model):
+    return [p.detach().clone() for p in (*model.gen_params,
+                                         *model.disc_params)]
+
+
+def mesh_step_pair(name, mesh, dtype):
+    """Phase 17a: the flagship's step at the training cell (Adam epsilon
+    1, as phase 7's checks) from one init, without a mesh and with the
+    world-of-one mesh attached: losses and params within 1e-6 relative;
+    then the step ms each way. Returns the unmeshed step's losses and
+    params (fp32: phase 17b's reference) and the meshed launches."""
+    lr_np, hr_np = train_batch(TRAIN_BATCH)
+    lr, hr = (torch.as_tensor(a, device='cuda') for a in (lr_np, hr_np))
+    got, times = {}, {}
+    for label in ('plain', 'mesh'):
+        model = train_model('cuda', CHECK_OPT)
+        model.train_dtype = dtype
+        if label == 'mesh':
+            model.attach_mesh(mesh)
+        losses, launches, _ = mesh_step(model, lr, hr)
+        got[label] = (losses, step_params(model), launches)
+        times[label] = [mesh_step(model, lr, hr)[2]
+                        for _ in range(MESH_TIMED_STEPS)]
+        del model
+    (l_plain, p_plain, _), (l_mesh, p_mesh, launches) = (got['plain'],
+                                                         got['mesh'])
+    loss_err = max(abs(l_mesh[k] - l_plain[k]) / abs(l_plain[k])
+                   for k in l_plain)
+    param_err = rel_err(p_mesh, p_plain)
+    # a bf16 tail is never the fp32-only small kernel's
+    ok = bool(loss_err <= MESH_EQUAL_RTOL and param_err <= MESH_EQUAL_RTOL
+              and launches['small_reflect_conv'] == (0 if dtype else 1))
+    emit(phase='mesh_world_of_one_step', train_dtype=dtype,
+         backend=mesh.backend,
+         batch=TRAIN_BATCH, lr_shape=list(TRAIN_LR), hr_shape=list(TRAIN_HR),
+         losses=l_mesh, loss_rel_err=loss_err, param_rel_err=param_err,
+         tol=MESH_EQUAL_RTOL, step_ms=times['mesh'],
+         plain_step_ms=times['plain'],
+         median_step_ms=float(np.median(times['mesh'])),
+         plain_median_step_ms=float(np.median(times['plain'])),
+         launches_per_step=launches, nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'mesh step ({dtype}): {loss_err} / '
+                             f'{param_err} vs the unmeshed step, launches '
+                             f'{launches}')
+    return l_plain, p_plain, launches
+
+
+def mesh_allreduce_ms(name, mesh, iters=20):
+    """Phase 17a: the step's gradient all-reduce (both networks' grads,
+    one flat buffer) by CUDA events, on the world-of-one NCCL mesh."""
+    model = train_model('cuda')
+    grads = [torch.randn_like(p) for p in (*model.gen_params,
+                                           *model.disc_params)]
+    del model
+    all_reduce_(mesh, grads)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        all_reduce_(mesh, grads)
+    end.record()
+    torch.cuda.synchronize()
+    nbytes = sum(g.numel() * g.element_size() for g in grads)
+    ms = start.elapsed_time(end) / iters
+    emit(phase='mesh_allreduce', backend=mesh.backend, ranks=mesh.size,
+         bytes=nbytes, tensors=len(grads), ms=ms, nvidia_smi=name)
+    return ms
+
+
+def mesh_pass(make_strategy, out_dir):
+    """One timed ``ForwardPass.run`` of phase 14's cell to NetCDF;
+    returns (wall s, launches, the strategy, the pass's mesh
+    counters)."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strategy = make_strategy(os.path.join(out_dir, 'chunk_{file_id}.nc'))
+    RecordedForwardPass.run(strategy, 0)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    mesh = RecordedForwardPass.last.mesh
+    counters = dict(mesh.counters) if mesh is not None else {}
+    return wall_s, launches, strategy, counters
+
+
+def stitched(strategy, out_dir):
+    return check_fwp_files(strategy, out_dir, keep=True,
+                           domain=STREAM_DOMAIN)[1]
+
+
+def mesh_cell(tmp):
+    """Phase 14's cell: the flagship saved, the (40, 40, 40) NetCDF3
+    input drawn as phase 14 draws it."""
+    model = flagship('cuda')
+    model.meta.update(
+        input_resolution={'spatial': '12km', 'temporal': '60min'})
+    model_dir = os.path.join(tmp, 'model')
+    model.save(model_dir)
+    rng = np.random.default_rng(0)
+    s1, s2, t = STREAM_DOMAIN
+    input_file = make_fake_nc_file(
+        os.path.join(tmp, 'stream.nc'), STREAM_DOMAIN, FWP_FEATURES,
+        data={f: rng.standard_normal((t, s1, s2)) * 0.3 + 0.5
+              for f in FWP_FEATURES})
+    return model, model_dir, input_file
+
+
+def mesh_halo_estimate(model, strategy, ranks):
+    """``estimate_halo_bytes`` summed over a pass's dispatches: each
+    batch of same-shaped padded chunks is one generator application on
+    ``STREAM_BATCH`` chunks (partial batches are padded)."""
+    fwp = ForwardPass(strategy, 0)
+    shapes = Counter(fwp.get_input_chunk(i).input_data.shape
+                     for i in range(strategy.fwp_slicer.n_chunks))
+    return sum(-(-n // STREAM_BATCH) * STREAM_BATCH * estimate_halo_bytes(
+        model, shape, ranks) for shape, n in shapes.items())
+
+
+def mesh_world_of_one_passes(name, tmp, model_dir, input_file):
+    """Phase 17a: phase 14's cell by default, with use_mesh=True and with
+    use_mesh='spatial' on the world of one (a warm-up, then timed
+    passes): True equal to the default, 'spatial' within 1e-4."""
+    def make(use_mesh):
+        return lambda out: stream_strategy(input_file, model_dir, out,
+                                           use_mesh=use_mesh)
+
+    n_dispatch = stream_dispatches(make(False)(None))
+    rec = {}
+    for mode in (False, True, 'spatial'):
+        mesh_pass(make(mode), os.path.join(tmp, f'warm_{mode}'))
+        walls = []
+        for i in range(MESH_TIMED_PASSES):
+            out_dir = os.path.join(tmp, f'pass_{mode}_{i}')
+            wall, launches, strategy, _ = mesh_pass(make(mode), out_dir)
+            walls.append(wall)
+        rec[mode] = dict(wall_s=walls, launches=launches,
+                         full=stitched(strategy, out_dir))
+    want = {False: n_dispatch, True: n_dispatch, 'spatial': 0}
+    errs = {str(mode): float(np.abs(rec[mode]['full']
+                                    - rec[False]['full']).max())
+            for mode in (True, 'spatial')}
+    ok = bool(errs['True'] == 0.0 and errs['spatial'] <= MESH_SPATIAL_ATOL
+              and all(rec[m]['launches']['small_reflect_conv'] == want[m]
+                      and rec[m]['launches']['reflect_conv'] == 0
+                      for m in rec))
+    emit(phase='mesh_world_of_one_pass', io=STREAM_IO,
+         backend=dist.get_backend(), dispatches=n_dispatch,
+         wall_s={str(m): rec[m]['wall_s'] for m in rec},
+         launches_per_pass={str(m): rec[m]['launches'] for m in rec},
+         max_abs_err_vs_default=errs, tol=MESH_SPATIAL_ATOL,
+         nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'mesh passes (world of one): errors {errs}, '
+                             f'launches {[rec[m]["launches"] for m in rec]}')
+    return rec
+
+
+def mesh_rank_step(rank, world, out):
+    """Phase 17b, in a rank: the fp32 step of phase 17a on this rank's
+    rows of the training cell's batch, then timed steps."""
+    model = train_model('cuda', CHECK_OPT)
+    model.attach_mesh(get_mesh())
+    lr_np, hr_np = train_batch(TRAIN_BATCH)
+    n = TRAIN_BATCH // world
+    lr, hr = (torch.as_tensor(a[rank * n:(rank + 1) * n], device='cuda')
+              for a in (lr_np, hr_np))
+    model._mesh.reset_counters()
+    losses, launches, _ = mesh_step(model, lr, hr)
+    counters = dict(model._mesh.counters)
+    params = [p.cpu().numpy() for p in step_params(model)]
+    times = [mesh_step(model, lr, hr)[2] for _ in range(MESH_TIMED_STEPS)]
+    return {'losses': losses, 'launches': launches, 'params': params,
+            'step_ms': times, 'counters': counters,
+            'device': torch.cuda.get_device_name(0)}
+
+
+def mesh_rank_pass(rank, world, out):
+    """Phase 17b, in a rank: phase 14's cell with use_mesh='spatial' over
+    the ranks (a warm-up, then timed passes to a directory every rank
+    writes its chunks to); the launches and halo counters of the last."""
+    with open(os.path.join(out, 'cell.json')) as f:
+        cell = json.load(f)
+    walls = []
+    for i in range(1 + MESH_TIMED_PASSES):
+        wall, launches, _, counters = mesh_pass(
+            lambda o: stream_strategy(cell['input_file'], cell['model_dir'],
+                                      o, use_mesh='spatial'),
+            os.path.join(out, f'spatial_{i}'))
+        walls.append(wall)
+    return {'wall_s': walls[1:], 'launches': launches, 'counters': counters}
+
+
+MESH_RANK_SCENARIOS = {'step': mesh_rank_step, 'pass': mesh_rank_pass}
+
+
+def mesh_two_ranks(name, tmp, cell, ref_step, default_full):
+    """Phase 17b: two ranks on the card over gloo, each its own process:
+    the DP step against phase 17a's unmeshed step (rtol 2e-4, atol
+    1e-6), the spatial pass against the default pass (1e-4), the halo
+    bytes the ranks sent against ``estimate_halo_bytes``."""
+    model, model_dir, input_file = cell
+    run_dir = os.path.join(tmp, 'ranks')
+    os.makedirs(run_dir)
+    with open(os.path.join(run_dir, 'cell.json'), 'w') as f:
+        json.dump({'model_dir': model_dir, 'input_file': input_file}, f)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn_ranks([sys.executable, os.path.abspath(__file__), '--mesh-rank',
+                 run_dir], MESH_RANKS, run_dir, timeout=MESH_RANK_TIMEOUT_S,
+                attempts=1)
+    spawn_s = time.perf_counter() - t0
+    ranks = rank_results(run_dir, MESH_RANKS)
+    for res in ranks:
+        for key in MESH_RANK_SCENARIOS:
+            if 'error' in res[key]:
+                raise AssertionError(f'mesh rank {key}: {res[key]["error"]}')
+    steps = [res['step'] for res in ranks]
+    l_ref, p_ref = ref_step
+    loss_err = max(abs(steps[0]['losses'][k] - l_ref[k]) for k in l_ref)
+    # every rank the same losses; losses and params within the bar
+    step_ok = all(s['losses'] == steps[0]['losses'] for s in steps) and all(
+        np.isclose(steps[0]['losses'][k], l_ref[k], rtol=MESH_STEP_RTOL,
+                   atol=MESH_STEP_ATOL) for k in l_ref)
+    param_err = 0.0
+    for got, want in zip(steps[0]['params'], p_ref):
+        want = want.cpu().numpy()
+        param_err = max(param_err, float(np.abs(got - want).max()))
+        step_ok = step_ok and np.allclose(got, want, rtol=MESH_STEP_RTOL,
+                                          atol=MESH_STEP_ATOL)
+    emit(phase='mesh_two_ranks_step', backend='gloo', ranks=MESH_RANKS,
+         devices=[s['device'] for s in steps], batch_per_rank=TRAIN_BATCH
+         // MESH_RANKS, losses=steps[0]['losses'],
+         max_abs_loss_err=loss_err, max_abs_param_err=param_err,
+         rtol=MESH_STEP_RTOL, atol=MESH_STEP_ATOL,
+         step_ms=[s['step_ms'] for s in steps],
+         launches_per_step=[s['launches'] for s in steps],
+         collective_bytes=[s['counters'] for s in steps],
+         spawn_s=spawn_s, nvidia_smi=name, ok=step_ok)
+    if not step_ok:
+        raise AssertionError(f'two-rank DP step vs the unmeshed step: loss '
+                             f'{loss_err}, params {param_err}')
+    passes = [res['pass'] for res in ranks]
+    strategy = stream_strategy(input_file, model_dir, os.path.join(
+        run_dir, f'spatial_{MESH_TIMED_PASSES}', 'chunk_{file_id}.nc'))
+    full = stitched(strategy, os.path.dirname(strategy.out_pattern))
+    err = float(np.abs(full - default_full).max())
+    sent = [p['counters'].get('halo_bytes', 0) for p in passes]
+    estimate = mesh_halo_estimate(model, strategy, MESH_RANKS)
+    ratio = sum(sent) / estimate
+    pass_ok = bool(err <= MESH_SPATIAL_ATOL and 0.2 < ratio < 5 and all(
+        p['launches']['reflect_conv'] == 0 for p in passes))
+    emit(phase='mesh_two_ranks_pass', io=STREAM_IO, backend='gloo',
+         ranks=MESH_RANKS, use_mesh='spatial',
+         padded_rows_per_rank=(STREAM_CHUNK[0] + 2 * STREAM_PAD)
+         // MESH_RANKS, wall_s=[p['wall_s'] for p in passes],
+         launches_per_pass=[p['launches'] for p in passes],
+         halo_bytes_sent=sent, halo_ops=[p['counters'].get('halo_ops', 0)
+                                         for p in passes],
+         gather_bytes=[p['counters'].get('gather_bytes', 0)
+                       for p in passes],
+         halo_bytes_estimate=estimate, halo_ratio=ratio,
+         max_abs_err_vs_default=err, tol=MESH_SPATIAL_ATOL,
+         nvidia_smi=name, ok=pass_ok)
+    if not pass_ok:
+        raise AssertionError(f'two-rank spatial pass: error {err}, halo '
+                             f'ratio {ratio}')
+    return steps, passes
+
+
+def mesh_phase(name):
+    """Phase 17: the mesh slice, (a) then (b). Returns the launches of
+    the meshed paths for the ``kernels`` line."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_mesh_')
+    store = os.path.join(ROOT, 'build', f'mesh_store_{os.getpid()}')
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    try:
+        init_multihost(f'file://{store}', 1, 0)
+        mesh = get_mesh()
+        ref_step, launches = None, {}
+        for dtype in (None, 'bfloat16'):
+            l_plain, p_plain, per_step = mesh_step_pair(name, mesh, dtype)
+            launches[f'mesh_{dtype or "fp32"}_train_step'] = per_step
+            if dtype is None:
+                ref_step = (l_plain, p_plain)
+        mesh_allreduce_ms(name, mesh)
+        cell = mesh_cell(tmp)
+        rec = mesh_world_of_one_passes(name, tmp, *cell[1:])
+        for mode in (True, 'spatial'):
+            launches[f'world_of_one_{mode}_pass'] = rec[mode]['launches']
+        dist.destroy_process_group()
+        steps, passes = mesh_two_ranks(name, tmp, cell, ref_step,
+                                       rec[False]['full'])
+        launches['two_rank_train_step'] = [s['launches'] for s in steps]
+        launches['two_rank_spatial_pass'] = [p['launches'] for p in passes]
+        return launches
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        if os.path.exists(store):
+            os.remove(store)
+
+
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device: '
@@ -4819,6 +5182,20 @@ def main():
     # 16. the production pipeline through the command line
     pipe = pipeline_phase(smi, stream_routes, float(np.median(times)))
     mark('16_pipeline')
+    # 17. the mesh slice: a world of one over NCCL, two ranks over gloo
+    mesh_launches = mesh_phase(smi)
+    mark('17_mesh')
+    # the small kernel at the tail shape of a rank's step in (b)
+    mesh_inputs = conv_inputs(gen, MESH_TAIL_SHAPE, 2)
+    mesh_tail = dict(
+        timing('small_reflect_conv', small_reflect_conv_cf, *mesh_inputs,
+               None),
+        max_abs_err=check_kernel('small_reflect_conv', small_reflect_conv_cf,
+                                 *mesh_inputs, None),
+        launches_per_rank_train_step=[
+            c['small_reflect_conv']
+            for c in mesh_launches['two_rank_train_step']])
+    mark('17_kernel_checks_and_timings')
     emit(phase='phase_seconds', seconds=seconds,
          total_s=sum(seconds.values()))
 
@@ -4836,6 +5213,13 @@ def main():
             n[kname] for n in pipe['nodes']],
             'launches_per_in_process_two_node_pass': pipe['in_process'][
                 kname]}
+
+    def per_mesh(kname):
+        """Phase 17's launches: per step or pass, per rank in (b)."""
+        return {'launches_in_mesh_paths': {
+            path: ([c[kname] for c in counts] if isinstance(counts, list)
+                   else counts[kname])
+            for path, counts in mesh_launches.items()}}
 
     def per_mode(kname):
         return {'launches_per_fast_request': per_request['fast'][kname],
@@ -4878,6 +5262,8 @@ def main():
                       chunked_io_shape=stream_times['small_reflect_conv'],
                       **bias_record('small_reflect_conv'),
                       **per_cli_pipeline('small_reflect_conv'),
+                      **per_mesh('small_reflect_conv'),
+                      mesh_rank_train_shape=mesh_tail,
                       obs_shape=obs_tail,
                       obs_train_check_rel_err=obs['train_check_rel_err'],
                       train_shape=dict(
@@ -4916,6 +5302,7 @@ def main():
                       chunked_io_shape=stream_times['reflect_conv'],
                       **bias_record('reflect_conv'),
                       **per_cli_pipeline('reflect_conv'),
+                      **per_mesh('reflect_conv'),
                       launches_per_train_step=0,
                       **per_mode('reflect_conv'))]
     print(json.dumps({'kernels': kernels}), flush=True)
@@ -4925,4 +5312,7 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--mesh-rank']:
+        # a rank of phase 17b (spawn_ranks: out_dir rank world store)
+        sys.exit(run_rank_scenarios(MESH_RANK_SCENARIOS, *sys.argv[2:]))
     sys.exit(main())

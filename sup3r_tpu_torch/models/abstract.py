@@ -46,6 +46,7 @@ from sup3r_tpu_torch.models.weights import (
 )
 from sup3r_tpu_torch.names import strip_obs_suffix
 from sup3r_tpu_torch.ops.losses import get_loss_fun
+from sup3r_tpu_torch.parallel.mesh import all_gather_rows, all_reduce_
 from sup3r_tpu_torch.utilities import safe_serialize
 
 logger = logging.getLogger(__name__)
@@ -266,8 +267,11 @@ class AbstractSingleModel(AbstractInterface):
     train_fuse = True
 
     #: the JAX package's shard-aligned s1 formulation for spatially
-    #: sharded training; comes with the multi-device slice
+    #: sharded training (dp x sp meshes: ROADMAP queue 1 item 9b)
     train_shard_aligned = None
+
+    #: the 1D mesh of data-parallel training (``Sup3rGan.attach_mesh``)
+    _mesh = None
 
     #: mixed-precision training: 'bfloat16' runs both networks' forward
     #: and backward in bf16, while master weights, the gradients (cast
@@ -323,8 +327,34 @@ class AbstractSingleModel(AbstractInterface):
 
     def _place_batch(self, arr):
         """A float32 tensor on the model's device (no copy for one that
-        is there already)."""
+        is there already). With a mesh attached, ``arr`` is this rank's
+        own rows of the global batch (the JAX package's multi-host
+        convention: a rank is a host with one device)."""
         return torch.as_tensor(arr, dtype=torch.float32, device=self.device)
+
+    def _gather(self, tensor):
+        """``tensor``'s rows of every rank of the attached mesh, in rank
+        order (differentiable; ``parallel.mesh.all_gather_rows``): the
+        losses of a data-parallel step are the global batch's, the same
+        on every rank. The tensor itself without a mesh (or for None)."""
+        if self._mesh is None or tensor is None:
+            return tensor
+        return all_gather_rows(self._mesh, tensor, self._mesh_axis)
+
+    def _reduce_grads(self, grads):
+        """Sum a step's gradients over the ranks of the attached mesh, in
+        place (each rank's backward gives its own rows' share of the
+        global loss's gradient); returns them."""
+        if self._mesh is not None:
+            all_reduce_(self._mesh, grads, self._mesh_axis)
+        return grads
+
+    @property
+    def _is_writer(self):
+        """Whether this rank writes the run's files (history, checkpoints,
+        tensorboard): the mesh's first rank, or the one process."""
+        return self._mesh is None or self._mesh.rank == int(
+            self._mesh.devices.flat[0])
 
     @staticmethod
     def _fetch_details(details):
@@ -649,19 +679,23 @@ class AbstractSingleModel(AbstractInterface):
         ``out_dir.format(epoch=...)`` at the cadence and at the end, and
         stops the batch handler at the end or on an error.
         ``tensorboard_profile`` records the first epoch's training with
-        ``torch.profiler`` into ``<dirname(out_dir)>/profile``."""
+        ``torch.profiler`` into ``<dirname(out_dir)>/profile``. With a
+        mesh attached only its first rank writes files; every rank keeps
+        the history and stops early on the same (global) losses."""
         epochs = list(range(n_epoch))
         if self._history is None:
             self._history = Record()
         else:
             epochs = [e + len(self._history) for e in epochs]
-        tb_writer = make_tb_writer(out_dir) if tensorboard_log else None
+        writer = self._is_writer
+        tb_writer = (make_tb_writer(out_dir) if tensorboard_log and writer
+                     else None)
         log_dir = os.path.join(os.path.dirname(out_dir or './'), 'profile')
         t0 = time.time()
         try:
             for epoch in epochs:
                 profile = profile_to_dir(
-                    log_dir, enabled=tensorboard_profile
+                    log_dir, enabled=tensorboard_profile and writer
                     and epoch == epochs[0])
                 row = run_epoch(epoch, profile)
                 row = {'elapsed_time': time.time() - t0, **row}
@@ -672,7 +706,7 @@ class AbstractSingleModel(AbstractInterface):
                         self._history, early_stop_on,
                         threshold=early_stop_threshold,
                         n_epoch=early_stop_n_epoch)
-                if out_dir is not None and (
+                if writer and out_dir is not None and (
                         stop or epoch == epochs[-1]
                         or (checkpoint_int is not None
                             and epoch % checkpoint_int == 0)):

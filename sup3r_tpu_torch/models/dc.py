@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from sup3r_tpu_torch.models.gan import Sup3rGan
+from sup3r_tpu_torch.parallel.mesh import all_reduce_
 from sup3r_tpu_torch.utilities import exact_fp32
 
 logger = logging.getLogger(__name__)
@@ -23,7 +24,8 @@ class Sup3rGanDC(Sup3rGan):
         """Per-bin (total, content) validation losses, each of shape
         (n_space_bins, n_time_bins). Batch ``i`` of the validation queue
         is bin (``i % n_s``, ``(i // n_s) % n_t``), the order in which
-        ``ValBatchQueueDC`` emits them."""
+        ``ValBatchQueueDC`` emits them. With a mesh attached, each rank's
+        losses of its own batches are averaged over the ranks."""
         n_s = batch_handler.n_space_bins
         n_t = batch_handler.n_time_bins
         total = np.zeros((n_s, n_t), dtype=np.float32)
@@ -40,6 +42,10 @@ class Sup3rGanDC(Sup3rGan):
             vals = self._fetch_details({'loss': loss, **details})
             total[i % n_s, (i // n_s) % n_t] = vals['loss']
             content[i % n_s, (i // n_s) % n_t] = vals['loss_gen_content']
+        if self._mesh is not None:
+            both = [torch.from_numpy(total), torch.from_numpy(content)]
+            all_reduce_(self._mesh, both, self._mesh_axis)
+            total, content = (t.numpy() / self._mesh.size for t in both)
         return total, content
 
     def calc_val_loss(self, batch_handler, weight_gen_advers):

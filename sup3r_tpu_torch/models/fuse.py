@@ -30,11 +30,18 @@ tensor:
   * otherwise the block runs ``reflect_conv_ad``: ``F.pad`` + cuDNN,
     with the custom backward.
 On a CPU tensor every block runs ``reflect_conv_ad``, the kernels'
-plain version. A block runs in its input's dtype: its weight and bias
-are cast to it (differentiably). A bf16 block is never the small
-kernel's (it takes float32 only, as the JAX package's does), so a bf16
-tail runs ``reflect_conv_ad`` on cuDNN; ``reflect_conv`` refuses bf16,
-as the JAX package's Pallas kernel does.
+plain version. A block of s1 rows under a spatial mesh
+(``ctx['spatial']``) comes first, on either device, and bypasses the
+kernels (as the JAX package's sharded route bypasses Pallas, which does
+not partition): it exchanges its boundary rows with its neighbours and
+runs ``reflect_conv_halo``. ``shard_aligned`` (the JAX package's
+formulation for its SPMD partitioner) takes the place of
+``reflect_conv_ad`` only: on the card the kernels keep the blocks they
+take, and the sharded route does not read it. A block runs in
+its input's dtype: its weight and bias are cast to it (differentiably).
+A bf16 block is never the small kernel's (it takes float32 only, as the
+JAX package's does), so a bf16 tail runs ``reflect_conv_ad`` on cuDNN;
+``reflect_conv`` refuses bf16, as the JAX package's Pallas kernel does.
 
 ``fuse_subpixel_tail`` (fast mode, ``Sup3rGan.inference_subpixel_tail``)
 folds the generator's ``expansion -> tail conv`` ending into one
@@ -61,7 +68,11 @@ from sup3r_tpu_torch.models.layers import (
     SpatialExpansion,
     SpatioTemporalExpansion,
 )
-from sup3r_tpu_torch.ops.conv_ad import reflect_conv_ad
+from sup3r_tpu_torch.ops.conv_ad import (
+    reflect_conv_ad,
+    reflect_conv_halo,
+    reflect_conv_shard_aligned,
+)
 from sup3r_tpu_torch.ops.kernels import reflect_conv_cf, small_reflect_conv_cf
 from sup3r_tpu_torch.ops.subpixel import subpixel_tail_conv
 
@@ -87,6 +98,15 @@ class FusedReflectConv(Layer):
     #: generator's final 8->2 conv at HR resolution) to the
     #: ``small_reflect_conv`` kernel
     small_channel_kernel = True
+
+    #: the JAX package's shard-aligned s1 formulation (set from
+    #: ``Sup3rGan.inference_shard_aligned``): s1 zero-padded inside the
+    #: conv and its boundary rows corrected, on cuDNN, in place of
+    #: ``reflect_conv_ad`` (not of the kernels, nor of the sharded
+    #: route); equal to the default route up to fp32 reassociation
+    shard_aligned = False
+
+    sharded_form = True
 
     def __init__(self, n_spatial, conv, alpha=None):
         super().__init__()
@@ -118,11 +138,18 @@ class FusedReflectConv(Layer):
         on_cuda = x.is_cuda
         weight = self.conv.fused_weight(x.dtype)
         bias = self.bias.to(x.dtype)
+        shard = ctx.get('spatial')
+        if shard is not None:
+            return reflect_conv_halo(x, weight, bias, self.n_spatial,
+                                     self.alpha, *shard.halo(x))
         if (self.small_channel_kernel and on_cuda
                 and self._small_ok(x, weight)):
             return small_reflect_conv_cf(x, weight, bias, self.alpha)
         if self.use_pallas and on_cuda and not torch.is_grad_enabled():
             return reflect_conv_cf(x, weight, bias, self.alpha)
+        if self.shard_aligned:
+            return reflect_conv_shard_aligned(x, weight, bias,
+                                              self.n_spatial, self.alpha)
         return reflect_conv_ad(x, weight, bias, self.n_spatial, self.alpha)
 
 
@@ -246,7 +273,11 @@ class SubpixelTailConv(Layer):
     resolution (``ops/subpixel.py``). It holds the fused tail block and
     reads its conv's weight at each call. The conv runs in the input's
     dtype: bf16 in fast mode, float32 (TF32 off) in the 'custom' mode
-    with the tail on and ``inference_dtype`` None."""
+    with the tail on and ``inference_dtype`` None. On a block of s1 rows
+    under a spatial mesh it exchanges one boundary cell with each
+    neighbour first."""
+
+    sharded_form = True
 
     def __init__(self, m, tail, alpha_prev=None):
         super().__init__()
@@ -261,9 +292,11 @@ class SubpixelTailConv(Layer):
             'existing params')
 
     def forward(self, x, ctx):
+        shard = ctx.get('spatial')
         return subpixel_tail_conv(
             x, self.tail.conv.fused_weight(x.dtype), self.tail.bias, self.m,
-            alpha_prev=self.alpha_prev, alpha=self.alpha)
+            alpha_prev=self.alpha_prev, alpha=self.alpha,
+            halo=(None, None) if shard is None else shard.halo(x))
 
 
 def fuse_subpixel_tail(layers):

@@ -33,8 +33,19 @@ and a bf16 body on cuDNN's bf16 convs, the output cast back to float32).
 
 ``train(tensorboard_log=True)`` writes each epoch's history row as
 tensorboard scalars and ``tensorboard_profile=True`` records the first
-epoch with ``torch.profiler`` (``models/utilities.py``). Meshes come with
-the multi-device slice (ROADMAP queue 1 item 9).
+epoch with ``torch.profiler`` (``models/utilities.py``).
+
+``attach_mesh`` makes the step data parallel over a 1D mesh of ranks
+(``sup3r_tpu_torch.parallel``): each rank runs both networks on its own
+rows; the discriminator outputs, the generated and true HR batches (and
+a subclass's loss state) are gathered, so every rank computes the
+global batch's losses, exactly as one device would (the relativistic
+loss subtracts batch means and a content loss like ``mmd_loss`` pairs
+every sample with every other); a rank's dropout masks are its rows of
+the global batch's (``Dropout``); the gradients are summed over the
+ranks (one flat all-reduce per network) before the identical updates.
+``generate(..., mesh=...)`` serves a block of s1 rows of a spatially
+sharded input.
 """
 
 import logging
@@ -65,6 +76,7 @@ from sup3r_tpu_torch.ops.coarsen import (
     temporal_coarsening,
 )
 from sup3r_tpu_torch.ops.losses import apply_loss
+from sup3r_tpu_torch.parallel.mesh import SpatialShard, replicate
 from sup3r_tpu_torch.utilities import exact_fp32, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -168,6 +180,8 @@ class Sup3rGan(AbstractSingleModel):
         self._set_trainable()
         self._gen_opt_state = self._gen_tx.init(self.gen_params)
         self._disc_opt_state = self._disc_tx.init(self.disc_params)
+        if self._mesh is not None:
+            self._replicate()
         logger.debug('Initialized GAN weights: gen in %s -> out %s; disc '
                      'in %s', lr_shape, gen_out, hr_shape)
 
@@ -195,8 +209,8 @@ class Sup3rGan(AbstractSingleModel):
     def _check_train_options(self):
         if self.train_shard_aligned:
             raise NotImplementedError(
-                'train_shard_aligned comes with the multi-device slice '
-                '(ROADMAP queue 1 item 9)')
+                'train_shard_aligned is for spatially sharded training on a '
+                'dp x sp mesh: ROADMAP queue 1 item 9b')
 
     def _loss_generator(self):
         """A ``torch.Generator`` for losses that draw random numbers,
@@ -209,13 +223,19 @@ class Sup3rGan(AbstractSingleModel):
     def _dropout_kwargs(self, network, offset):
         """The ``apply`` kwargs that turn a network's ``Dropout`` layers
         on in a train step: a generator on the model's device seeded with
-        the step counter, one stream per network call (``offset``); none
-        for a network without dropout."""
+        the step counter, one stream per network call (``offset``), and
+        with a mesh attached this rank's rows of the global batch's masks;
+        none for a network without dropout."""
         if not network.has_dropout:
             return {}
         seed = 4 * self._step_counter + offset
-        return {'train': True, 'dropout_generator': torch.Generator(
+        kwargs = {'train': True, 'dropout_generator': torch.Generator(
             device=self.device).manual_seed(seed)}
+        if self._mesh is not None:
+            kwargs['dropout_rows'] = (
+                self._mesh.axis_index(self._mesh_axis),
+                self._mesh.shape[self._mesh_axis])
+        return kwargs
 
     def _train_exo(self, hr):
         """(exo rasters for the generator, state for
@@ -245,6 +265,7 @@ class Sup3rGan(AbstractSingleModel):
         slc = slice(0, -len(names)) if names else slice(None)
         generator = self._loss_generator()
         disc = self._disc
+        gather = self._gather
         with exact_fp32():
             exo, state = self._train_exo(hr)
             with torch.set_grad_enabled(do_gen):
@@ -255,31 +276,35 @@ class Sup3rGan(AbstractSingleModel):
                     if names else out)
             with torch.set_grad_enabled(do_gen or do_disc):
                 with torch.set_grad_enabled(do_disc):
-                    d_true = disc.apply(cast(hr), **self._dropout_kwargs(
-                        disc, 1)).float()
-                d_gen = disc.apply(cast(full), **self._dropout_kwargs(
-                    disc, 2)).float()
-                content = apply_loss(self.loss_fun, out, hr[..., slc],
-                                     generator=generator)
-                extra, details = self._extra_gen_loss(out, hr, state)
+                    d_true = gather(disc.apply(
+                        cast(hr), **self._dropout_kwargs(disc, 1)).float())
+                d_gen = gather(disc.apply(
+                    cast(full), **self._dropout_kwargs(disc, 2)).float())
+                out_all, hr_all = gather(out), gather(hr)
+                content = apply_loss(self.loss_fun, out_all,
+                                     hr_all[..., slc], generator=generator)
+                extra, details = self._extra_gen_loss(out_all, hr_all,
+                                                      gather(state))
                 advers = relativistic_disc_loss(d_gen, d_true)
                 gen_loss = content + extra + weight_gen_advers * advers
                 if disc.has_dropout:
                     with torch.set_grad_enabled(do_disc):
                         kw = self._dropout_kwargs(disc, 3)
                         disc_loss = relativistic_disc_loss(
-                            disc.apply(cast(hr), **kw).float(),
-                            disc.apply(cast(full.detach()), **kw).float())
+                            gather(disc.apply(cast(hr), **kw).float()),
+                            gather(disc.apply(cast(full.detach()),
+                                              **kw).float()))
                 else:
                     # the discriminator's loss reads the same outputs:
                     # its pre-update params on the generated output's
                     # value
                     disc_loss = relativistic_disc_loss(d_true, d_gen)
             if do_gen:
-                gen_grads = torch.autograd.grad(gen_loss, gen_params,
-                                                retain_graph=do_disc)
+                gen_grads = self._reduce_grads(torch.autograd.grad(
+                    gen_loss, gen_params, retain_graph=do_disc))
             if do_disc:
-                disc_grads = torch.autograd.grad(disc_loss, disc_params)
+                disc_grads = self._reduce_grads(torch.autograd.grad(
+                    disc_loss, disc_params))
             if do_gen:
                 self._gen_tx.update(gen_params, gen_grads,
                                     self._gen_opt_state)
@@ -336,11 +361,40 @@ class Sup3rGan(AbstractSingleModel):
                 {**self._optimizer_disc_config, **kwargs})
 
     def attach_mesh(self, mesh, axis='data', spatial_axis=None):
-        """Data-parallel and spatially sharded training come with the
-        multi-device slice."""
-        raise NotImplementedError(
-            'attach_mesh comes with the multi-device slice of the port '
-            '(ROADMAP queue 1 item 9)')
+        """Train data-parallel over a 1D mesh of ranks
+        (``parallel.get_mesh``, on this model's device): params and
+        optimizer state are broadcast from the mesh's first rank, each
+        rank then passes its OWN rows of every batch (its own batch
+        handler, or its block of a global batch: ``parallel.shard_batch``)
+        and every rank reports the global batch's losses and applies the
+        same update (the module docstring says how). Only the first rank
+        writes checkpoints, history and tensorboard files.
+
+        A spatial axis (``spatial_axis``, or a 2D mesh) would split each
+        sample's s1 rows too: dp x sp training is ROADMAP queue 1 item
+        9b, and raises."""
+        if spatial_axis or len(mesh.axis_names) != 1:
+            raise NotImplementedError(
+                'attach_mesh: spatially sharded (dp x sp) training is '
+                'ROADMAP queue 1 item 9b; pass a 1D mesh')
+        if axis not in mesh.axis_names:
+            raise ValueError(f'attach_mesh: the mesh has axes '
+                             f'{mesh.axis_names}, not {axis!r}')
+        here = torch.empty(0, device=self.device).device
+        if torch.empty(0, device=mesh.device).device != here:
+            raise ValueError(f'attach_mesh: the mesh is on {mesh.device}, '
+                             f'the model on {here}')
+        self._mesh, self._mesh_axis = mesh, axis
+        if self.gen_params is not None:
+            self._replicate()
+
+    def _replicate(self):
+        """Broadcast both networks' params and optimizer states from the
+        mesh's first rank."""
+        replicate(self._mesh, [self.gen_params, self.disc_params,
+                               self._gen_opt_state, self._disc_opt_state])
+        self._gen.mark_weights_written()
+        self._disc.mark_weights_written()
 
     # ------------------------------------------------------------------
     # inference
@@ -361,6 +415,12 @@ class Sup3rGan(AbstractSingleModel):
     #: rasters and (in each layer) the params at the network boundary and
     #: the output back to float32; None serves float32
     inference_dtype = None
+    #: the fused blocks' plain route in the JAX package's shard-aligned
+    #: s1 formulation (``ops/conv_ad.py::reflect_conv_shard_aligned``, on
+    #: cuDNN), for API parity: the kernels keep their blocks, and the
+    #: port's sharded route (``generate(..., mesh=)``) and its forward
+    #: pass neither read nor set it
+    inference_shard_aligned = False
 
     @property
     def inference_mode(self):
@@ -402,7 +462,7 @@ class Sup3rGan(AbstractSingleModel):
         it does not change the layers."""
         params = self.gen_params
         flags = (self.inference_pallas, self.inference_dtype,
-                 self.inference_subpixel_tail)
+                 self.inference_subpixel_tail, self.inference_shard_aligned)
         # entries hold STRONG references to the params and compare
         # identity — an id() key could collide after the old tensors are
         # freed; entries for params that are no longer live are dropped
@@ -417,6 +477,7 @@ class Sup3rGan(AbstractSingleModel):
             for lyr in layers:
                 if isinstance(lyr, FusedReflectConv):
                     lyr.use_pallas = self.inference_pallas
+                    lyr.shard_aligned = self.inference_shard_aligned
             cached = (params, flags, Network(layers))
             entries.append(cached)
         return cached[2]
@@ -446,7 +507,7 @@ class Sup3rGan(AbstractSingleModel):
         return out
 
     def generate(self, low_res, norm_in=True, un_norm_out=True,
-                 exogenous_data=None, fetch=True):
+                 exogenous_data=None, fetch=True, mesh=None):
         """Public inference: (input-exo concat) -> normalize -> generator
         (+layer exo) -> denormalize on ``self.device`` -> (output-exo
         concat after the fetch), in the mode ``inference_mode``
@@ -460,7 +521,14 @@ class Sup3rGan(AbstractSingleModel):
         crops and drains it while the next batch is dispatched), unless
         output-combine exo needs the host concat. That tensor was made
         under ``torch.inference_mode``: slice it, do not modify it in
-        place, and keep it out of training."""
+        place, and keep it out of training.
+
+        With a 1D ``mesh`` (``parallel.get_mesh``), ``low_res`` is this
+        rank's block of s1 rows of the input (``parallel.shard_spatial``)
+        and the output is its block of the HR rows: every rank of the
+        mesh calls this together, and each conv exchanges boundary rows
+        with the neighbouring ranks. Layer exo rasters stay full-size
+        (each layer takes its rows)."""
         low_res = torch.as_tensor(low_res, dtype=torch.float32,
                                   device=self.device)
         low_res = self._combine_fwp_input(low_res, exogenous_data)
@@ -491,9 +559,11 @@ class Sup3rGan(AbstractSingleModel):
         net = self._get_fused_apply() if self.inference_fuse else self._gen
         un_norm = self.un_norm_tensors(self.device) if un_norm_out else None
         dtype = compute_dtype(self.inference_dtype) or torch.float32
+        spatial = None if mesh is None else SpatialShard(mesh)
         with torch.inference_mode(), exact_fp32():
             out = net.apply(low_res.to(dtype), {
-                k: v.to(dtype) for k, v in fixed_exo.items()}).float()
+                k: v.to(dtype) for k, v in fixed_exo.items()},
+                spatial=spatial).float()
             if un_norm is not None:
                 out = out * un_norm[0] + un_norm[1]
         if not fetch and not self._has_output_exo(exogenous_data):
@@ -660,16 +730,20 @@ class Sup3rGan(AbstractSingleModel):
 
     def _val_step(self, lr, hr, weight_gen_advers):
         """The losses of one validation batch (no gradients), with the
-        train step's extra loss terms."""
+        train step's extra loss terms; over the global batch, gathered as
+        in the train step, when a mesh is attached."""
+        gather = self._gather
         names = self.hr_exo_features
         slc = slice(0, -len(names)) if names else slice(None)
         exo, state = self._val_exo(hr)
         out = self._train_gen_net().apply(lr, exo)
         full = self._combine_loss_input(hr, out)
-        d_true = self._disc.apply(hr)
-        d_gen = self._disc.apply(full)
+        d_true = gather(self._disc.apply(hr))
+        d_gen = gather(self._disc.apply(full))
+        full, hr = gather(full), gather(hr)
+        out = full[..., :out.shape[-1]]
         content = apply_loss(self.loss_fun, full[..., slc], hr[..., slc])
-        extra, details = self._extra_gen_loss(out, hr, state)
+        extra, details = self._extra_gen_loss(out, hr, gather(state))
         advers = relativistic_disc_loss(d_gen, d_true)
         return {'loss_disc': relativistic_disc_loss(d_true, d_gen),
                 'loss_gen': content + extra + weight_gen_advers * advers,
@@ -743,7 +817,9 @@ class Sup3rGan(AbstractSingleModel):
         the ``tensorboard`` package); ``tensorboard_profile=True``
         records the first epoch with ``torch.profiler`` into
         ``<dirname(out_dir)>/profile``. ``multi_gpu`` is accepted for API
-        parity, as in the JAX package. The batch handler stages its
+        parity, as in the JAX package: data parallelism is a mesh
+        (``attach_mesh``), one process per device. The batch handler
+        stages its
         batches on this model's device (its ``device``, set here when it
         has none)."""
         self._prepare_training(batch_handler, input_resolution)

@@ -25,6 +25,14 @@ while ``F.conv_transpose*d`` is the true adjoint of a correlation.
 in ``ctx['dropout_generator']`` (and acts only with ``ctx['train']``);
 the observation layers (``Sup3rConcatObs``, ``Sup3rObsModel``) read
 sparse, NaN-filled observation rasters from ``ctx['exo']``.
+
+Under a spatial mesh ``ctx['spatial']`` holds a
+``parallel.mesh.SpatialShard`` and each rank's tensor is its block of s1
+rows. A layer with ``sharded_form`` runs on the block: the elementwise
+layers, skip connections and expansions (a block of rows expands into
+r times the rows) as they are, the exo layers on their raster's rows at
+the layer's resolution, and stride-1 'same' convs after a halo exchange
+(zero rows at the global edges). ``Network`` refuses the others.
 """
 
 import inspect
@@ -115,6 +123,10 @@ class Layer(nn.Module):
     spatial_mult = 1
     temporal_mult = 1
 
+    #: whether the layer runs on a block of s1 rows under a spatial mesh
+    #: (``ctx['spatial']``)
+    sharded_form = False
+
     def init(self, in_shape, generator):
         """Create parameters for the given input shape; returns the
         output shape."""
@@ -162,6 +174,8 @@ class Layer(nn.Module):
 class Activation(Layer):
     """Elementwise activation by name."""
 
+    sharded_form = True
+
     def __init__(self, activation='relu', **_):
         super().__init__()
         self._fn = _get_activation(activation)
@@ -173,6 +187,8 @@ class Activation(Layer):
 
 class LeakyReLU(Layer):
     """Leaky ReLU with configurable negative slope."""
+
+    sharded_form = True
 
     def __init__(self, alpha=0.3, **_):
         super().__init__()
@@ -187,7 +203,13 @@ class LeakyReLU(Layer):
 class Dropout(Layer):
     """Inverted dropout: active only when ``ctx['train']`` is set and
     ``ctx['dropout_generator']`` holds a ``torch.Generator``, whose draws
-    (on its own device) make the keep mask."""
+    (on its own device) make the keep mask. With ``ctx['dropout_rows']``
+    (rank index i of n, each rank holding an equal block of the global
+    batch) the mask is drawn for the whole global batch and this rank
+    keeps its block i: a data-parallel step masks each sample as one
+    device would."""
+
+    sharded_form = True
 
     def __init__(self, rate=0.5, **_):
         super().__init__()
@@ -198,8 +220,11 @@ class Dropout(Layer):
         if not ctx.get('train') or generator is None or self.rate <= 0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator,
-                          device=generator.device) < keep
+        index, n = ctx.get('dropout_rows') or (0, 1)
+        rows = x.shape[0]
+        mask = torch.rand((n * rows, *x.shape[1:]), generator=generator,
+                          device=generator.device)[
+                              index * rows:(index + 1) * rows] < keep
         return torch.where(mask.to(x.device), x / keep, 0.0)
 
 
@@ -361,6 +386,7 @@ class _ConvBase(Layer):
 
     n_spatial = 2
     transpose = False
+    sharded_form = True
 
     def __init__(self, filters, kernel_size, strides=1, padding='valid',
                  activation=None, **_):
@@ -429,9 +455,34 @@ class _ConvBase(Layer):
         return weight.flip(tuple(range(2, 2 + n))).transpose(
             0, 1).contiguous()
 
+    def _sharded_input(self, x, shard):
+        """A block of s1 rows with the rows its conv reads from the
+        neighbouring blocks above and below (zero rows at a global edge,
+        as 'same' padding has): stride-1 'same' convs (or k = 1 on s1)
+        only."""
+        k, stride = self.kernel_size[0], self.strides[0]
+        if self.transpose or stride != 1 or (
+                self.padding != 'SAME' and k != 1):
+            raise NotImplementedError(
+                f'{type(self).__name__}(kernel_size={self.kernel_size}, '
+                f'strides={self.strides}, padding={self.padding!r}) has no '
+                'spatially sharded form (stride-1 SAME convs only): '
+                'ROADMAP queue 1 item 9b')
+        before, after = _same_pads(x.shape[2], k, 1)
+        top, bottom = shard.halo(x, 2, before, after)
+
+        def rows(t, n):
+            return x.new_zeros((*x.shape[:2], n, *x.shape[3:])) if (
+                t is None) else t
+
+        return torch.cat([rows(top, before), x, rows(bottom, after)], dim=2)
+
     def forward(self, x, ctx):
         # params in the input's dtype, as the JAX layers cast them
         weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        shard = ctx.get('spatial')
+        if shard is not None:
+            x = self._sharded_input(x, shard)
         if self.transpose:
             conv = F.conv_transpose3d if self.n_spatial == 3 else (
                 F.conv_transpose2d)
@@ -451,6 +502,8 @@ class _ConvBase(Layer):
                                     reversed(self.kernel_size),
                                     reversed(self.strides)):
                     flat += list(_same_pads(s, k, st))
+                if shard is not None:  # s1's rows came with the block
+                    flat[-2:] = [0, 0]
                 x = F.pad(x, flat)
             conv = F.conv3d if self.n_spatial == 3 else F.conv2d
             y = conv(x, weight, bias, self.strides)
@@ -503,6 +556,8 @@ class SpatialExpansion(Layer):
     spatial dims by m.
     """
 
+    sharded_form = True
+
     def __init__(self, spatial_mult=1, **_):
         super().__init__()
         self.spatial_mult = int(spatial_mult)
@@ -529,6 +584,8 @@ class SpatioTemporalExpansion(Layer):
     pixel-shuffle moving channel blocks into new time steps (channels
     c -> c/mult). ``t_roll`` rolls the expanded time axis.
     """
+
+    sharded_form = True
 
     def __init__(self, spatial_mult=1, temporal_mult=1,
                  temporal_method='nearest', t_roll=0, **_):
@@ -587,6 +644,8 @@ class SpatioTemporalExpansion(Layer):
 class SkipConnection(Layer):
     """Named residual: first occurrence caches, second occurrence adds."""
 
+    sharded_form = True
+
     def __init__(self, name, **_):
         super().__init__()
         self.name = name
@@ -609,7 +668,10 @@ class _ExoLayerBase(Layer):
 
     ``ctx['exo']`` maps feature name -> channels-last tensor shaped like
     the current activation's spatial(/temporal) dims with trailing
-    channel(s), as the JAX package takes it."""
+    channel(s), as the JAX package takes it. Under a spatial mesh the
+    raster is full-size and the layer takes its block of s1 rows."""
+
+    sharded_form = True
 
     def __init__(self, name, **_):
         super().__init__()
@@ -624,6 +686,9 @@ class _ExoLayerBase(Layer):
         t = exo[self.name]
         if t.ndim == x.ndim - 1:
             t = t[..., None]
+        shard = ctx.get('spatial')
+        if shard is not None:
+            t = shard.rows(t, 1, x.shape[2])
         # broadcast batch dim if exo was provided unbatched
         if t.ndim == x.ndim and t.shape[0] == 1 and x.shape[0] != 1:
             t = t.expand(x.shape[0], *t.shape[1:])

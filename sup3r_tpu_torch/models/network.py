@@ -123,14 +123,25 @@ class Network(nn.Module):
             shape = lyr.init(shape, generator)
         return shape
 
-    def forward(self, x, exo=None, train=False, dropout_generator=None):
+    def forward(self, x, exo=None, train=False, dropout_generator=None,
+                spatial=None, dropout_rows=None):
         """Run the layers on a channels-first tensor. ``exo`` maps
         feature name -> channels-last raster for the injection layers
         (exo and observations alike); ``train`` with a
-        ``dropout_generator`` turns the ``Dropout`` layers on."""
+        ``dropout_generator`` turns the ``Dropout`` layers on, and
+        ``dropout_rows`` (this rank's index, the number of ranks) makes
+        their masks the global batch's rows of a data-parallel step. With a
+        ``spatial`` shard (``parallel.mesh.SpatialShard``) ``x`` is this
+        rank's block of s1 rows, and a layer without a sharded form
+        raises."""
         ctx = {'exo': exo or {}, 'skips': {}, 'train': train,
-               'dropout_generator': dropout_generator}
+               'dropout_generator': dropout_generator, 'spatial': spatial,
+               'dropout_rows': dropout_rows}
         for lyr in self.layers:
+            if spatial is not None and not lyr.sharded_form:
+                raise NotImplementedError(
+                    f'{type(lyr).__name__} has no spatially sharded form '
+                    '(use_mesh="spatial"): ROADMAP queue 1 item 9b')
             x = lyr(x, ctx)
         if ctx['skips']:
             raise ValueError(
@@ -139,13 +150,14 @@ class Network(nn.Module):
                 'appear exactly twice')
         return x
 
-    def apply(self, x, exo=None, train=False, dropout_generator=None):
+    def apply(self, x, exo=None, train=False, dropout_generator=None,
+              spatial=None, dropout_rows=None):
         """Run the network on a channels-last tensor; returns the
         channels-last output (a view of the channels-first result).
         Shadows ``nn.Module.apply(fn)``, as the JAX package's
         ``Network.apply`` runs the network."""
         x = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1)).contiguous()
-        out = self(x, exo, train, dropout_generator)
+        out = self(x, exo, train, dropout_generator, spatial, dropout_rows)
         return out.permute(0, *range(2, out.ndim), 1)
 
     def out_shape(self, in_shape):

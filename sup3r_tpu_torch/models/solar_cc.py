@@ -19,7 +19,11 @@ Loss structure (reference: sup3r/models/solar_cc.py:31-250):
 
 Each day's windows run through the discriminator as one batch (the days
 stacked on the batch axis in day order), which gives the per-day calls'
-concatenation.
+concatenation. With a mesh attached the step is data parallel as
+``Sup3rGan``'s: the discriminator outputs and the generated and true
+batches are gathered (the relativistic loss reads only means, so the
+rank-major order of the gathered outputs gives the same loss), and the
+gradients are summed over the ranks.
 """
 
 import logging
@@ -139,6 +143,7 @@ class SolarCC(Sup3rGan):
         cast = self._train_cast()
         generator = self._loss_generator()
         n_days = self._n_days(hr)
+        gather = self._gather
         with exact_fp32():
             with torch.set_grad_enabled(do_gen):
                 out = gen_apply(cast(lr), {}).float()
@@ -146,24 +151,26 @@ class SolarCC(Sup3rGan):
                                              self._window_generator(0))
             with torch.set_grad_enabled(do_gen or do_disc):
                 with torch.set_grad_enabled(do_disc):
-                    d_true = self._disc.apply(
-                        cast(self.true_windows(hr))).float()
-                d_gen = self._disc.apply(cast(self.gen_windows(
-                    out, starts))).float()
-                content = self.content_loss(out, hr, generator=generator)
+                    d_true = gather(self._disc.apply(
+                        cast(self.true_windows(hr))).float())
+                d_gen = gather(self._disc.apply(cast(self.gen_windows(
+                    out, starts))).float())
+                content = self.content_loss(gather(out), gather(hr),
+                                            generator=generator)
                 advers = relativistic_disc_loss(d_gen, d_true)
                 gen_loss = content + weight_gen_advers * advers
                 disc_starts = self.draw_window_starts(
                     n_days, out.shape[3], self._window_generator(1))
                 with torch.set_grad_enabled(do_disc):
-                    d_gen_disc = self._disc.apply(cast(self.gen_windows(
-                        out.detach(), disc_starts))).float()
+                    d_gen_disc = gather(self._disc.apply(cast(
+                        self.gen_windows(out.detach(), disc_starts))).float())
                     disc_loss = relativistic_disc_loss(d_true, d_gen_disc)
             if do_gen:
-                gen_grads = torch.autograd.grad(gen_loss, gen_params,
-                                                retain_graph=do_disc)
+                gen_grads = self._reduce_grads(torch.autograd.grad(
+                    gen_loss, gen_params, retain_graph=do_disc))
             if do_disc:
-                disc_grads = torch.autograd.grad(disc_loss, disc_params)
+                disc_grads = self._reduce_grads(torch.autograd.grad(
+                    disc_loss, disc_params))
             if do_gen:
                 self._gen_tx.update(gen_params, gen_grads,
                                     self._gen_opt_state)
@@ -187,11 +194,13 @@ class SolarCC(Sup3rGan):
     def _val_step(self, lr, hr, weight_gen_advers):
         """Validation with the daylight-window losses on fixed windows of
         both samples, the generated output reflected to the true length
-        first (reference: solar_cc.py:160-220)."""
+        first (reference: solar_cc.py:160-220); over the global batch
+        (gathered) with a mesh attached."""
         self._n_days(hr)
         out = self._train_gen_net().apply(lr, self._split_exo(hr))
         out = reflect_pad_time(out, (hr.shape[3] - out.shape[3]) // 2)
-        return self._window_losses(hr, out, weight_gen_advers)
+        return self._window_losses(self._gather(hr), self._gather(out),
+                                   weight_gen_advers)
 
     def calc_loss(self, hi_res_true, hi_res_gen, weight_gen_advers=0.001,
                   train_gen=True, train_disc=False, compute_disc=False):
@@ -226,12 +235,13 @@ class SolarCC(Sup3rGan):
                                             / 2))
 
     def generate(self, low_res, norm_in=True, un_norm_out=True,
-                 exogenous_data=None, fetch=True):
+                 exogenous_data=None, fetch=True, mesh=None):
         """``Sup3rGan.generate``, then ``temporal_pad`` back to the full
         length (on the device when the output is a tensor)."""
         out = super().generate(low_res, norm_in=norm_in,
                                un_norm_out=un_norm_out,
-                               exogenous_data=exogenous_data, fetch=False)
+                               exogenous_data=exogenous_data, fetch=False,
+                               mesh=mesh)
         out = self.temporal_pad(low_res, out)
         if fetch and isinstance(out, torch.Tensor):
             return out.cpu().numpy()

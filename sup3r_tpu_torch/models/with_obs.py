@@ -65,7 +65,9 @@ class Sup3rGanWithObs(Sup3rGan):
         """Boolean mask of ``hr_shape``, True where NOT observed, drawn
         on the CPU from ``generator`` and moved to the model's device: a
         fraction drawn within the spatial bounds, a spatial mask constant
-        over time and (5D) a ``time_frac`` mask of the time steps."""
+        over time and (5D) a ``time_frac`` mask of the time steps. One
+        mask serves every sample, so the ranks of a data-parallel step,
+        each drawing from the same seed, hold the global batch's."""
         lo, hi = self._spatial_frac_bounds()
         time_frac = float(self.onshore_obs_frac.get('time_frac', 1.0))
         frac = lo + (hi - lo) * torch.rand((), generator=generator)

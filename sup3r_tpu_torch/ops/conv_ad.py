@@ -23,14 +23,20 @@ custom backward (``reflect_conv_backward``) instead runs:
 Every step runs in the gradient's dtype: float32, or bf16 in bf16
 training (``train_dtype``). ``small_reflect_conv_cf`` (``ops/kernels.py``)
 shares this backward.
-The shard-aligned variant comes with the multi-device slice (ROADMAP
-queue 1 item 9).
+
+``reflect_conv_shard_aligned`` is the JAX package's shard-aligned s1
+formulation (zero s1 pad inside the conv, the two boundary rows
+corrected), with the custom backward of its ``_sa_bwd``.
+``reflect_conv_halo`` is the route of a block of s1 rows under a
+spatial mesh: the neighbours' boundary rows (or the block's own reflect
+row at a global edge) above and below, then a conv that is valid on s1.
 """
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ['reflect_conv_ad', 'reflect_conv_backward']
+__all__ = ['reflect_conv_ad', 'reflect_conv_backward', 'reflect_conv_halo',
+           'reflect_conv_shard_aligned', 'shard_aligned_worthwhile']
 
 
 def _check_k3(weight, n_spatial):
@@ -46,16 +52,32 @@ def _check_k3(weight, n_spatial):
 
 
 def _conv(n_spatial):
-    return F.conv3d if n_spatial == 3 else F.conv2d
+    return (F.conv1d, F.conv2d, F.conv3d)[n_spatial - 1]
 
 
-def _fold_reflect_halos(gxp, n_spatial):
-    """Exact transpose of the 1-cell reflect pad on every spatial dim of
-    a channels-first gradient, one dim at a time: inner cell ``i`` takes
-    the padded gradient at ``i + 1``; cells 1 and S-2 absorb the
-    reflected halo gradients. Halo slabs keep the other dims' padding, so
-    corner contributions compose as the nested forward pads did."""
-    for d in range(2, 2 + n_spatial):
+def _conv_weight_grad(n_spatial):
+    grad = torch.nn.grad
+    return (grad.conv1d_weight, grad.conv2d_weight,
+            grad.conv3d_weight)[n_spatial - 1]
+
+
+def shard_aligned_worthwhile(spatial_width):
+    """Whether the JAX package's shard-aligned s1 formulation pays off
+    on a spatial mesh axis of this width (>= 4: at 2 its XLA partitioner
+    already moves 1-row halos). The port's sharded route exchanges one
+    row each way at any width, so only ROADMAP item 9b's training will
+    ask."""
+    return int(spatial_width) >= 4
+
+
+def _fold_reflect_halos(gxp, n_spatial, start=0):
+    """Exact transpose of the 1-cell reflect pad on the spatial dims
+    from ``start`` on of a channels-first gradient, one dim at a time:
+    inner cell ``i`` takes the padded gradient at ``i + 1``; cells 1 and
+    S-2 absorb the reflected halo gradients. Halo slabs keep the other
+    dims' padding, so corner contributions compose as the nested forward
+    pads did. Shared by the plain and shard-aligned backwards."""
+    for d in range(2 + start, 2 + n_spatial):
         n = gxp.shape[d]
         gx = gxp.narrow(d, 1, n - 2).clone()
         gx.narrow(d, 1, 1).add_(gxp.narrow(d, 0, 1))
@@ -83,9 +105,7 @@ def reflect_conv_backward(dy, x, weight, n_spatial, alpha, pre,
         dx = _fold_reflect_halos(conv(dy, kf, padding=2), n_spatial)
     if needs[1]:
         xp = F.pad(x, (1, 1) * n_spatial, mode='reflect')
-        grad = (torch.nn.grad.conv3d_weight if n_spatial == 3
-                else torch.nn.grad.conv2d_weight)
-        dw = grad(xp, weight.shape, dy)
+        dw = _conv_weight_grad(n_spatial)(xp, weight.shape, dy)
     return dx, dw, db
 
 
@@ -121,3 +141,104 @@ def reflect_conv_ad(x, weight, bias, n_spatial, alpha):
     composition's; the backward is ``reflect_conv_backward``."""
     _check_k3(weight, n_spatial)
     return ReflectConvAD.apply(x, weight, bias, n_spatial, alpha)
+
+
+def _leaky(pre, alpha):
+    return pre if alpha is None else F.leaky_relu(pre, alpha)
+
+
+def _pad_st(x, n_spatial):
+    """1-cell reflect pad of the spatial dims after s1 (s1 untouched)."""
+    return F.pad(x, (1, 1) * (n_spatial - 1) + (0, 0), mode='reflect')
+
+
+def _sa_forward(x, weight, bias, n_spatial):
+    """The shard-aligned pre-activation: s2 (and t) reflect-padded, s1
+    zero-padded inside the conv, and the two s1 boundary rows given the
+    reflect contribution the zero pad dropped:
+    ``out[0] += conv(x[1], weight[s1 tap 0])``,
+    ``out[-1] += conv(x[-2], weight[s1 tap 2])``."""
+    xp = _pad_st(x, n_spatial)
+    y = _conv(n_spatial)(xp, weight, None,
+                         padding=(1,) + (0,) * (n_spatial - 1))
+    edge = _conv(n_spatial - 1)
+    top = edge(xp[:, :, 1], weight[:, :, 0])
+    bottom = edge(xp[:, :, -2], weight[:, :, 2])
+    y = torch.cat([(y[:, :, :1] + top[:, :, None]), y[:, :, 1:-1],
+                   (y[:, :, -1:] + bottom[:, :, None])], dim=2)
+    return y + bias.view(-1, *[1] * n_spatial)
+
+
+class ReflectConvShardAligned(torch.autograd.Function):
+    """The shard-aligned block with the JAX package's custom backward
+    (``sup3r_tpu/ops/conv_ad.py::_sa_bwd``): the dgrad keeps s1's (1, 1)
+    zero pad plus two boundary-row terms, the s2 / t halos fold back as
+    in ``reflect_conv_backward``, and the wgrad adds the two edge taps'
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, n_spatial, alpha):
+        pre = _sa_forward(x, weight, bias, n_spatial)
+        ctx.save_for_backward(x, weight, None if alpha is None else pre)
+        ctx.n_spatial, ctx.alpha = n_spatial, alpha
+        return _leaky(pre, alpha)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, pre = ctx.saved_tensors
+        n, alpha = ctx.n_spatial, ctx.alpha
+        if alpha is not None:
+            dy = torch.where(pre >= 0, dy, dy * float(alpha))
+        conv, edge = _conv(n), _conv(n - 1)
+        db = dy.sum(dim=[0, *range(2, dy.ndim)])
+        kf = weight.flip(list(range(2, 2 + n))).transpose(0, 1)
+        gxp = conv(dy, kf, padding=(1,) + (2,) * (n - 1))
+        # the boundary rows read xp[1] through tap 0 and xp[-2] through
+        # tap 2
+        edge_kf = [weight[:, :, tap].flip(list(range(2, 1 + n))).transpose(
+            0, 1) for tap in (0, 2)]
+        gxp[:, :, 1] += edge(dy[:, :, 0], edge_kf[0], padding=2)
+        gxp[:, :, -2] += edge(dy[:, :, -1], edge_kf[1], padding=2)
+        dx = _fold_reflect_halos(gxp, n, start=1)
+        xp = _pad_st(x, n)
+        dw = _conv_weight_grad(n)(xp, weight.shape, dy,
+                                  padding=(1,) + (0,) * (n - 1))
+        edge_grad = _conv_weight_grad(n - 1)
+        dw[:, :, 0] += edge_grad(xp[:, :, 1], weight[:, :, 0].shape,
+                                 dy[:, :, 0])
+        dw[:, :, 2] += edge_grad(xp[:, :, -2], weight[:, :, 2].shape,
+                                 dy[:, :, -1])
+        return dx, dw, db, None, None
+
+
+def reflect_conv_shard_aligned(x, weight, bias, n_spatial, alpha):
+    """The math of ``reflect_conv_ad`` in the JAX package's shard-aligned
+    s1 formulation (``sup3r_tpu/ops/conv_ad.py``): s1 zero-padded inside
+    the conv and its two boundary rows corrected, s2 / t reflect-padded.
+    Equal to ``reflect_conv_ad`` up to fp32 reassociation; 3D and 2D
+    blocks (``n_spatial`` 3 or 2)."""
+    _check_k3(weight, n_spatial)
+    return ReflectConvShardAligned.apply(x, weight, bias, n_spatial, alpha)
+
+
+def reflect_conv_halo(x, weight, bias, n_spatial, alpha, top=None,
+                      bottom=None):
+    """``reflect_conv_ad``'s forward on a block of s1 rows (dim 2) of a
+    tensor split over ranks: ``top`` / ``bottom`` are the neighbouring
+    ranks' boundary rows (``halo_exchange``); at a global edge (None)
+    the block's own reflect row stands in. The conv is valid on s1 and
+    reflect-padded on s2 / t, so the rows out equal the unsplit conv's.
+    Forward only: spatially sharded training is ROADMAP item 9b."""
+    _check_k3(weight, n_spatial)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        raise NotImplementedError(
+            'gradients through a spatially sharded conv: spatially sharded '
+            'training is ROADMAP queue 1 item 9b')
+    if x.shape[2] < 2:
+        raise ValueError(
+            f'a spatially sharded reflect conv needs >= 2 s1 rows on each '
+            f'rank (its reflect row at a global edge); got {x.shape[2]}')
+    top = x[:, :, 1:2] if top is None else top
+    bottom = x[:, :, -2:-1] if bottom is None else bottom
+    xp = _pad_st(torch.cat([top, x, bottom], dim=2), n_spatial)
+    return _leaky(_conv(n_spatial)(xp, weight, bias), alpha)

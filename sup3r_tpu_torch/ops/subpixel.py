@@ -62,12 +62,15 @@ def build_subpixel_kernel(weight, m):
     return flat[idx]
 
 
-def _phase_reflect_pad(z, m, ci):
+def _phase_reflect_pad(z, m, ci, top=None, bottom=None):
     """Pad ``z`` (n, m*m*ci, S1, S2, T) by one cell on each side of its
     two spatial dims with phase-remapped reflections (the HR reflect-pad-1
     in ``z`` space), and by a plain reflection on time, which carries no
     phase. A halo cell holds the one phase it is read at in every phase
-    slot: the others' kernel weights are zero."""
+    slot: the others' kernel weights are zero. On a block of s1 rows of a
+    spatially sharded ``z``, ``top`` / ``bottom`` are the neighbouring
+    ranks' boundary cells (every phase: they are plain neighbours), and
+    the reflection applies only at a global edge (None)."""
     n = z.shape[0]
 
     def phase(cell, dim, k):
@@ -79,8 +82,9 @@ def _phase_reflect_pad(z, m, ci):
 
     # x[-1] = x[1]: phase 1 of the first cell; x[mS] = x[mS-2]: phase
     # m-2 of the last
-    z = torch.cat([phase(z[:, :, :1], 1, 1), z,
-                   phase(z[:, :, -1:], 1, m - 2)], dim=2)
+    top = phase(z[:, :, :1], 1, 1) if top is None else top
+    bottom = phase(z[:, :, -1:], 1, m - 2) if bottom is None else bottom
+    z = torch.cat([top, z, bottom], dim=2)
     z = torch.cat([phase(z[:, :, :, :1], 2, 1), z,
                    phase(z[:, :, :, -1:], 2, m - 2)], dim=3)
     return torch.cat([z[..., 1:2], z, z[..., -2:-1]], dim=4)
@@ -91,7 +95,8 @@ def _leaky(x, alpha):
     return x if alpha is None else torch.where(x >= 0, x, alpha * x)
 
 
-def subpixel_tail_conv(z, weight, bias, m, alpha_prev=None, alpha=None):
+def subpixel_tail_conv(z, weight, bias, m, alpha_prev=None, alpha=None,
+                       halo=(None, None)):
     """LeakyReLU(alpha_prev) -> depth_to_space(m) -> reflect-pad-1 -> k3
     valid conv(weight, bias) -> LeakyReLU(alpha), computed at the
     pre-expansion resolution.
@@ -99,7 +104,9 @@ def subpixel_tail_conv(z, weight, bias, m, alpha_prev=None, alpha=None):
     z: (n, m*m*C, S1, S2, T); weight: (co, C, 3, 3, 3), the HR tail's
     OIDHW weight; bias: (co,). Returns (n, co, m*S1, m*S2, T) in
     ``z``'s dtype. The conv runs at the precision the backend flags set
-    (``exact_fp32()`` turns TF32 off)."""
+    (``exact_fp32()`` turns TF32 off). ``halo``: the neighbouring ranks'
+    boundary cells of a spatially sharded ``z`` (``_phase_reflect_pad``).
+    """
     from sup3r_tpu_torch.models.layers import _depth_to_space
 
     co, ci = weight.shape[:2]
@@ -110,7 +117,8 @@ def subpixel_tail_conv(z, weight, bias, m, alpha_prev=None, alpha=None):
         raise ValueError(f'z has {z.shape[1]} channels; m={m} and the '
                          f'weight {tuple(weight.shape)} need {m * m * ci}')
     z = _leaky(z, alpha_prev)
+    top, bottom = (h if h is None else _leaky(h, alpha_prev) for h in halo)
     kernel = build_subpixel_kernel(weight, m).to(z.dtype)
-    y = F.conv3d(_phase_reflect_pad(z, m, ci), kernel,
+    y = F.conv3d(_phase_reflect_pad(z, m, ci, top, bottom), kernel,
                  bias.to(z.dtype).repeat(m * m))
     return _leaky(_depth_to_space(y, m), alpha)

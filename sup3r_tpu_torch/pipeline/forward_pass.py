@@ -11,6 +11,19 @@ while the next batch is prepared and dispatched. Exogenous rasters are
 padded with their chunk and reach ``generate`` per model step; 4D models,
 models without ``fetch=`` (``MultiStepGan``, ``LinearInterp``), mixed exo
 structures and output-combine exo run chunk by chunk.
+
+With ``use_mesh`` every rank of the process group runs ``run`` on the
+same strategy (``sup3r_tpu_torch.parallel``: one process per device).
+The ranks take the first rank's chunk list. With ``use_mesh=True`` rank
+i of n takes every n-th chunk from its i-th, prep included, and runs
+them as one process would, in device batches of ``device_batch_size /
+n`` chunks (rounded up: the batch size counts the chunks of one
+generator application over the mesh, as in the JAX package). With
+``use_mesh='spatial'`` every rank runs its block of s1 rows of every
+chunk (halo exchanges in each conv), and the output blocks of a batch's
+j-th chunk gather to rank j mod n, which writes it; chunks that cannot
+batch run whole on that rank. With ``out_pattern=None`` every rank
+returns every chunk's output.
 """
 
 import contextlib
@@ -22,6 +35,13 @@ import numpy as np
 import torch
 
 from sup3r_tpu_torch.models.abstract import supports_fetch
+from sup3r_tpu_torch.parallel.mesh import (
+    all_gather_object,
+    broadcast_object,
+    gather_rows,
+    get_mesh,
+    shard_spatial,
+)
 from sup3r_tpu_torch.postprocessing.writers import (
     OutputHandlerH5,
     OutputHandlerNC,
@@ -76,15 +96,27 @@ class ForwardPass:
         #: dispatch they drain, not for the dispatch queued after it
         self._drain_stream = (torch.cuda.Stream(device)
                               if device.type == 'cuda' else None)
+        #: the mesh of ranks that share the node's chunks (None without
+        #: ``use_mesh``)
+        self.mesh = None
         self._resolve_auto_batch()
+        if strategy.use_mesh and self.mesh is None:
+            self.mesh = get_mesh(devices=device)
+        #: the chunks of one device batch, partial batches padded to it
+        #: (``run_chunks_batched`` sets it)
+        self.batch_size = getattr(strategy, 'device_batch_size', 1)
 
     def _resolve_auto_batch(self):
         """Resolve device_batch_size='auto' into an int from the memory
-        estimate of one padded chunk (see pipeline/memory.py)."""
+        estimate of one padded chunk (see pipeline/memory.py). When one
+        padded chunk alone does not fit the card, switch on spatial
+        sharding over the ranks of the process group; raise when there
+        is no other rank to share it with."""
         strategy = self.strategy
         if getattr(strategy, 'device_batch_size', 1) != 'auto':
             return
         from sup3r_tpu_torch.pipeline.memory import (
+            estimate_halo_bytes,
             resolve_device_batch_size,
         )
 
@@ -96,13 +128,23 @@ class ForwardPass:
         n_feats = len(self.model.lr_features)
         batch, use_spatial = resolve_device_batch_size(
             self.model, padded, n_feats)
-        if use_spatial:
-            raise NotImplementedError(
-                f'one padded chunk {padded} does not fit the card; '
-                'spatial sharding over a device mesh comes with the '
-                'multi-device slice of the port (ROADMAP queue 1 item 9)'
-                ': use a smaller fwp_chunk_shape')
         strategy.device_batch_size = batch
+        if use_spatial and not strategy.use_mesh:
+            self.mesh = get_mesh(devices=self.model.device)
+            n_dev = self.mesh.size
+            if n_dev == 1:
+                raise ValueError(
+                    f'one padded chunk {padded} does not fit the card, and '
+                    'use_mesh="spatial" needs more than one rank to share '
+                    'it (this process is a world of one): use a smaller '
+                    'fwp_chunk_shape, or run the pass on more ranks (one '
+                    'process per card, e.g. under torchrun)')
+            strategy.use_mesh = 'spatial'
+            halo = estimate_halo_bytes(self.model, (*padded, n_feats), n_dev)
+            logger.info(
+                'auto batching -> use_mesh="spatial" over %d rank(s); '
+                'estimated halo exchange ~%.2f MB per generator '
+                'application', n_dev, halo / 1024 ** 2)
 
     @property
     def meta(self):
@@ -302,20 +344,20 @@ class ForwardPass:
         drain thread while the next one is dispatched."""
         from collections import deque
 
+        self.batch_size = batch_size
         outputs = {}
 
         def run_batch(batch, drain_pool, drain_futs):
             dispatched = self.timer(self._dispatch_chunk_batch)(batch)
-            if dispatched is None:  # per-chunk path
+            if dispatched is None:  # per-chunk path, this rank's chunks
                 outputs.update({
                     c.index: self.run_chunk(
                         c,
                         allowed_const=self.strategy.allowed_const)[1]
-                    for c in batch})
+                    for c in self._writes(batch)})
                 return
             drain_futs.append(drain_pool.submit(
-                self.timer(self._drain_chunk_batch), batch,
-                dispatched))
+                self.timer(self._drain_chunk_batch), dispatched))
 
         # STREAMING grouping: chunks are prepared with a bounded
         # number in flight and dispatched as soon as a same-shape
@@ -358,13 +400,26 @@ class ForwardPass:
                 outputs.update(fut.result())
         return outputs
 
+    def _writes(self, batch):
+        """The chunks of ``batch`` this rank writes: all of them, or
+        under ``use_mesh='spatial'`` every n-th from the rank's index i
+        (of n)."""
+        if self.strategy.use_mesh != 'spatial':
+            return list(batch)
+        mesh = self.mesh
+        return list(batch[mesh.axis_index(mesh.axis_names[0])::mesh.size])
+
     def _dispatch_chunk_batch(self, batch):
-        """Stack same-shaped chunks and launch the device batch.
-        Returns ``(output tensor, n_real, ready event)`` without waiting
-        for the device, or None when the chunks must run one by one: 4D
-        models (they already batch over time), models without
-        ``norm_input`` / ``fetch=`` (every chain), chunks whose exo
-        structures differ, and output-combine exo (a host concat)."""
+        """Stack same-shaped chunks and launch the device batch (this
+        rank's s1 blocks of it under ``use_mesh='spatial'``: see the
+        module docstring). Returns ``(output tensor, chunks, ready
+        event)`` without waiting for the device, ``chunks`` being those
+        whose outputs are the tensor's first rows (the rest are padding;
+        under ``'spatial'``, the chunks this rank writes), or None when the
+        chunks must run one by one: 4D models (they already batch over
+        time), models without ``norm_input`` / ``fetch=`` (every chain),
+        chunks whose exo structures differ, and output-combine exo (a
+        host concat)."""
         if self.model.is_4d:
             return None
         if not (hasattr(self.model, 'norm_input')
@@ -383,9 +438,9 @@ class ForwardPass:
                 return None
         stacked = np.stack([c.input_data for c in batch], axis=0)
         n_real = len(batch)
-        # pad partial batches up to the configured device batch size by
-        # repeating the last chunk: one batch shape per chunk shape
-        full = getattr(self.strategy, 'device_batch_size', 1)
+        # pad partial batches up to the device batch size by repeating
+        # the last chunk: one batch shape per chunk shape
+        full = self.batch_size
 
         def pad_full(arr):
             if n_real < full:
@@ -410,14 +465,49 @@ class ForwardPass:
                 for step in entry['steps']
                 if step.get('combine_type') == 'layer'})
         lr = self.model.norm_input(stacked)
-        out = self.model.generate(lr, norm_in=False, un_norm_out=True,
-                                  exogenous_data=layer_exo or None,
-                                  fetch=False)
+        chunks = list(batch)
+        if self.strategy.use_mesh == 'spatial':
+            out, chunks = self._generate_spatial(lr, layer_exo, batch)
+        else:
+            out = self.model.generate(lr, norm_in=False, un_norm_out=True,
+                                      exogenous_data=layer_exo or None,
+                                      fetch=False)
         ready = None
         if self._drain_stream is not None:
             ready = torch.cuda.Event()
             ready.record()
-        return out, n_real, ready
+        return out, chunks, ready
+
+    def _generate_spatial(self, lr, layer_exo, batch):
+        """``use_mesh='spatial'``: run this rank's block of s1 rows of
+        every chunk of the stacked ``lr`` (the ranks together), then
+        gather each real chunk's output blocks to the rank that writes it,
+        j mod n for the j-th (one gather a chunk, in this thread: every
+        rank must issue the collectives in one order). Returns (this
+        rank's chunks' outputs stacked, those chunks)."""
+        mesh = self.mesh
+        if not getattr(self, '_sp_halo_logged', False):
+            from sup3r_tpu_torch.pipeline.memory import estimate_halo_bytes
+
+            self._sp_halo_logged = True
+            halo = lr.shape[0] * estimate_halo_bytes(
+                self.model, lr.shape[1:], mesh.size)
+            logger.info(
+                'use_mesh=spatial: s1=%d split over %d rank(s); estimated '
+                'conv halo exchange ~%.2f MB per batched generator '
+                'application', lr.shape[1], mesh.size, halo / 1024 ** 2)
+        block = self.model.generate(
+            shard_spatial(mesh, lr, dim=1), norm_in=False, un_norm_out=True,
+            exogenous_data=layer_exo or None, fetch=False, mesh=mesh)
+        mine, outs = [], []
+        with torch.inference_mode():
+            for j, chunk in enumerate(batch):
+                full = gather_rows(mesh, block[j], j % mesh.size, dim=0)
+                if full is not None:
+                    mine.append(chunk)
+                    outs.append(full)
+            out = torch.stack(outs) if outs else block[:0]
+        return out, mine
 
     @staticmethod
     def _stack_exo(batch):
@@ -579,11 +669,13 @@ class ForwardPass:
                     f'({first})! If this is intended pass '
                     'allowed_const including this value.')
 
-    def _drain_chunk_batch(self, batch, dispatched):
+    def _drain_chunk_batch(self, dispatched):
         """Crop each chunk of a dispatched batch on the device, fetch
         the crops to the host in ONE copy, then check and write/return
         each chunk (or pack on the device for H5 output)."""
-        out, n_real, ready = dispatched
+        out, batch, ready = dispatched
+        if not batch:
+            return {}
         with self._drain_context(out, ready):
             crops = [out[i][chunk.hr_crop_slice]
                      for i, chunk in enumerate(batch)]
@@ -593,7 +685,7 @@ class ForwardPass:
             flat = self.timer(_to_host)(
                 torch.cat([c.reshape(-1) for c in crops]))
         self.stats['fetch_mb'] += flat.nbytes / 2 ** 20
-        self.stats['host_chunks'] += n_real
+        self.stats['host_chunks'] += len(batch)
         outputs, start = {}, 0
         for chunk, crop in zip(batch, crops):
             size = crop.numel()
@@ -612,19 +704,29 @@ class ForwardPass:
     @classmethod
     def run(cls, strategy, node_index):
         """Run all this node's chunks (serial, IO-threaded, or
-        device-batched)."""
-        if strategy.node_finished(node_index):
+        device-batched; over the ranks of a mesh with ``use_mesh``)."""
+        fwp = cls(strategy, node_index)
+        finished = strategy.node_finished(node_index)
+        chunk_ids = [] if finished else [
+            i for i in strategy.node_chunks[node_index]
+            if not strategy.chunk_finished(i)]
+        if fwp.mesh is not None:
+            # one plan for every rank, taken before any rank writes
+            finished, chunk_ids = broadcast_object(
+                fwp.mesh, (finished, chunk_ids))
+        if finished:
             logger.info('All chunks for node %s already done.',
                         node_index)
             return None
-        fwp = cls(strategy, node_index)
-        chunk_ids = [
-            i for i in strategy.node_chunks[node_index]
-            if not strategy.chunk_finished(i)]
         outputs = {}
-        if getattr(strategy, 'device_batch_size', 1) > 1:
-            outputs = fwp.run_chunks_batched(
-                chunk_ids, strategy.device_batch_size)
+        batch_size = max(1, getattr(strategy, 'device_batch_size', 1))
+        if fwp.mesh is not None and strategy.use_mesh != 'spatial':
+            # chunk fan-out: this rank's chunks, its share of each batch
+            index, n = fwp.mesh.axis_index(fwp.mesh.axis_names[0]), (
+                fwp.mesh.size)
+            chunk_ids, batch_size = chunk_ids[index::n], -(-batch_size // n)
+        if batch_size > 1 or strategy.use_mesh == 'spatial':
+            outputs = fwp.run_chunks_batched(chunk_ids, batch_size)
         elif strategy.pass_workers > 1:
             with ThreadPoolExecutor(strategy.pass_workers) as pool:
                 futures = {
@@ -639,6 +741,9 @@ class ForwardPass:
                     node_index, len(chunk_ids), fwp.timer.log,
                     fwp.stats)
         if strategy.out_pattern is None:
+            if fwp.mesh is not None:
+                for part in all_gather_object(fwp.mesh, outputs):
+                    outputs.update(part)
             return outputs
         return None
 

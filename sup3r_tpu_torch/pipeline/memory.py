@@ -3,9 +3,9 @@
 the generator. The port of ``sup3r_tpu/pipeline/memory.py``, sized for
 the card: the budget is the free memory ``torch.cuda.mem_get_info``
 reports for the model's device, unless ``hbm_bytes`` is given (it must
-be on the CPU). One padded chunk that alone exceeds the budget needs
-spatial sharding over a device mesh, which comes with the multi-device
-slice (ROADMAP queue 1 item 9).
+be on the CPU). One padded chunk that alone exceeds the budget is
+sharded over a mesh of ranks instead (``use_mesh='spatial'``), and
+``estimate_halo_bytes`` gives the bytes its halo exchanges move.
 
 The analytic model walks the network's layer shapes: peak residency
 for a feed-forward conv stack is dominated by the largest adjacent
@@ -120,6 +120,25 @@ def _solar_chain_bytes(groups, lr_shape):
         wind_out + solar_out + 4 * hr_cells * t_feats
         + estimate_activation_bytes(
             temporal, (s1 * se, s2 * se, t, t_feats))))
+
+
+def estimate_halo_bytes(model, lr_shape, n_devices):
+    """Estimated bytes exchanged per generator application when ONE
+    chunk's s1 dim is split over ``n_devices`` ranks (the
+    use_mesh='spatial' path): every k3 conv needs a 1-cell boundary
+    plane from each neighbour, both directions. Summed over the ranks
+    (each rank's ``Mesh.counters['halo_bytes']`` counts what it sent)."""
+    gen = getattr(model, 'generator', None)
+    if gen is None or n_devices <= 1:
+        return 0
+    shapes = _layer_shapes(gen.layers, (1, *lr_shape))
+    total = 0
+    for lyr, shape in zip(gen.layers, shapes[:-1]):
+        if 'Conv' in type(lyr).__name__:  # incl. FusedReflectConv
+            # plane = everything but the sharded s1 dim
+            plane = int(np.prod(shape[2:])) * 4
+            total += 2 * (n_devices - 1) * plane
+    return total
 
 
 def resolve_device_batch_size(model, padded_lr_shape, n_features,

@@ -12,8 +12,10 @@ its ``generate`` has no ``fetch=``), ``chunked_io`` (each chunk
 reads and derives only its padded window) and bias correction
 (``bias_correct_method`` / ``bias_correct_kwargs``, run on each chunk's
 padded input by ``bias.utilities.bias_correct_features``). ``use_mesh``
-comes with a later slice (ROADMAP queue 1 item 9) and raises
-``NotImplementedError``.
+runs the node's chunks over a mesh of ranks (``sup3r_tpu_torch.parallel``:
+every rank of the process group runs ``ForwardPass.run`` with the same
+strategy): True fans each device batch's chunks out over the ranks,
+'spatial' splits each chunk's s1 rows over them.
 """
 
 import logging
@@ -175,8 +177,12 @@ class ForwardPassStrategy:
     #: sizes the batch from a per-chunk memory estimate of the generator
     #: against the card's free memory (see pipeline/memory.py)
     device_batch_size: Union[int, str] = 1
-    #: shard device batches over a device mesh: comes with the
-    #: multi-device slice (ROADMAP queue 1 item 9); raises if set
+    #: run device batches over the ranks of the process group (one
+    #: device each, ``parallel.get_mesh``): True = each rank runs its
+    #: share of every batch's chunks; 'spatial' = each rank runs its
+    #: block of every chunk's s1 rows, with conv halo exchanges between
+    #: neighbouring ranks (for chunks too large for one card). Without a
+    #: process group the mesh is this process alone
     use_mesh: Union[bool, str] = False
     #: stream input per chunk: only coordinates are loaded up front and
     #: each chunk reads just its padded window from disk (lazy NetCDF4
@@ -207,7 +213,9 @@ class ForwardPassStrategy:
     node_chunks_plan: Optional[list] = None
 
     def __post_init__(self):
-        self._check_ported()
+        if self.use_mesh and self.use_mesh not in (True, 'spatial'):
+            raise ValueError(f'use_mesh must be False, True or "spatial", '
+                             f'got {self.use_mesh!r}')
         self.timer = Timer()
         model = self.get_model()
         self.s_enhance = model.s_enhance
@@ -304,20 +312,6 @@ class ForwardPassStrategy:
         # fresh outputs and compute a DIFFERENT (shifted) plan,
         # orphaning chunks (tests/pipeline/test_chaos.py)
         _ = self.node_chunks
-
-    def _check_ported(self):
-        """Raise for the options whose modules later slices of the port
-        bring, rather than silently running something else."""
-        later = {
-            'use_mesh': (
-                bool(self.use_mesh),
-                'device meshes come with the multi-device slice '
-                '(ROADMAP queue 1 item 9)'),
-        }
-        for name, (is_set, why) in later.items():
-            if is_set:
-                raise NotImplementedError(
-                    f'ForwardPassStrategy({name}=...): {why} of the port')
 
     # ------------------------------------------------------------------
     def get_model(self):

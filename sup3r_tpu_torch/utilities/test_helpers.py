@@ -3,7 +3,12 @@ of ``make_fake_dset`` and ``make_fake_nc_file`` in
 ``sup3r_tpu/utilities/test_helpers.py``): an in-memory GridDataset,
 NetCDF3 input through scipy, a NetCDF3 topography source and the NetCDF3
 form of a bias factor file, without pandas or h5py, so a machine without
-them can make its own input."""
+them can make its own input; and ``spawn_ranks``, which starts a group
+of rank processes for the multi-rank tests and runs."""
+
+import os
+import subprocess
+import time
 
 import numpy as np
 
@@ -147,3 +152,97 @@ def write_nc_factor_file(path, lat_lon, rasters, cfg=None):
             f.createVariable(name, 'f4', grid + tuple(dims))[:] = arr
         f.cfg = safe_serialize(cfg or {})
     return path
+
+
+def spawn_ranks(argv, world, run_dir, timeout=120.0, attempts=2, env=None):
+    """Run ``world`` processes ``argv + [rank, world, store]``, the ranks
+    of one process group: each joins it with
+    ``parallel.init_multihost(f'file://{store}', world, rank,
+    backend='gloo')`` (a FileStore under ``run_dir``, fresh for every
+    attempt: no port to collide on). They run gloo on the loopback with
+    one thread, and the directory holding ``sup3r_tpu_torch`` leads
+    ``PYTHONPATH``. Returns each rank's standard output.
+
+    A group that times out or has a failed rank is killed (by handle) and
+    started again, with twice the timeout, up to ``attempts`` times;
+    then RuntimeError with the last attempt's output."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ if env is None else env)
+    env.update(GLOO_SOCKET_IFNAME='lo', OMP_NUM_THREADS='1',
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in env.get('PYTHONPATH', '').split(
+                       os.pathsep) if p]))
+    last = ''
+    for attempt in range(attempts):
+        store = os.path.join(run_dir, f'store_{attempt}')
+        procs = [subprocess.Popen(
+            [*argv, str(rank), str(world), store], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env)
+            for rank in range(world)]
+        outs, timed_out = [], False
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))[0])
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                outs.append('')
+        if timed_out:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+            last = f'attempt {attempt}: timed out after {timeout} s'
+        elif any(p.returncode for p in procs):
+            last = '\n'.join(f'--- rank {r} (exit {p.returncode}):\n'
+                             f'{o[-3000:]}' for r, (p, o) in enumerate(
+                                 zip(procs, outs)))
+        else:
+            return outs
+        timeout *= 2
+    raise RuntimeError(f'rank group of {world} failed after {attempts} '
+                       f'attempt(s):\n{last}')
+
+
+def run_rank_scenarios(scenarios, out_dir, rank, world, store):
+    """The body of a rank process of ``spawn_ranks``: join the group
+    (gloo, the FileStore ``store``), run ``scenarios`` (``{name:
+    fn(rank, world, out_dir)}``) in order and pickle ``{name: result}`` to
+    ``<out_dir>/rank<rank>.pkl``; a scenario that raises gives ``{'error':
+    its traceback}`` instead, and the next ones still run. The ranks
+    leave the group together (a barrier, then ``destroy_process_group``):
+    a rank that exits while another still talks to it aborts."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from sup3r_tpu_torch.parallel import init_multihost
+
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    init_multihost(f'file://{store}', world, rank, backend='gloo')
+    results = {}
+    for name, fn in scenarios.items():
+        try:
+            results[name] = fn(rank, world, out_dir)
+        except Exception:  # noqa: BLE001 - reported to the test
+            results[name] = {'error': traceback.format_exc()}
+    with open(os.path.join(out_dir, f'rank{rank}.pkl'), 'wb') as f:
+        pickle.dump(results, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def rank_results(out_dir, world):
+    """Each rank's ``run_rank_scenarios`` results, in rank order."""
+    import pickle
+
+    out = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f'rank{rank}.pkl'), 'rb') as f:
+            out.append(pickle.load(f))
+    return out

@@ -274,7 +274,11 @@ def test_later_slices_raise(tmp_path, saved, kwargs, match, monkeypatch):
     """Options of later slices raise. Feature caching (cachers.py) has
     come with the production-pipeline slice: its case now checks that
     the strategy's handler writes the cache (relative to the working
-    directory) and that a second strategy reads it back."""
+    directory) and that a second strategy reads it back. ``use_mesh``
+    has come with item 9's first half: without a process group its mesh
+    is this process alone, and the pass equals the default one and the
+    JAX package's (tests/test_torch_parallel_fwp.py runs it over
+    ranks)."""
     kw = dict(file_paths=_nc_input(tmp_path, (8, 8, 4)),
               model_kwargs={'model_dir': saved['st'], 'device': 'cpu'},
               fwp_chunk_shape=(8, 8, 4), out_pattern=None)
@@ -288,8 +292,12 @@ def test_later_slices_raise(tmp_path, saved, kwargs, match, monkeypatch):
         np.testing.assert_array_equal(second.input_handler.data.data,
                                       first.input_handler.data.data)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        ForwardPassStrategy(**{**kw, **kwargs})
+    _, meshed = _run_both(
+        tmp_path, saved['st'], file_paths=kw['file_paths'],
+        fwp_chunk_shape=(8, 8, 4), out_pattern=None, **kwargs)
+    default = ForwardPass.run(ForwardPassStrategy(**kw), 0)
+    assert sorted(meshed) == sorted(default) == [0]
+    np.testing.assert_array_equal(meshed[0], default[0])
 
 
 def _factor_file(path, shape, method):

@@ -36,7 +36,10 @@ qdm_bc. A sixth blocked run (click blocked too) drives the command line:
 ``sup3r_tpu_torch/cli.py ... pipeline --monitor`` from a directory
 outside the repo with only the blocker on ``PYTHONPATH``, forward-pass
 on two nodes, data-collect and qa, the blocker active in the parent and
-in every node."""
+in every node. A seventh blocked run drives the mesh slice: two spawned
+gloo ranks, the blocker active in each, take a data-parallel train step
+(the same losses on both) and run a ``use_mesh='spatial'`` forward pass
+equal to the parent's single-process pass."""
 
 import json
 import os
@@ -633,6 +636,92 @@ print('QDM_BC', handler.data['u_100m'].shape)
 '''
 
 
+_RANK_MESH = _BLOCKER + f'''
+import os
+
+from sup3r_tpu_torch.models import Sup3rGan
+from sup3r_tpu_torch.parallel import get_mesh
+from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
+from sup3r_tpu_torch.utilities.test_helpers import run_rank_scenarios
+
+
+def step(rank, world, out):
+    model = Sup3rGan.load(os.path.join(out, 'model'), device='cpu')
+    model.attach_mesh(get_mesh(devices='cpu'))
+    rng = np.random.default_rng(0)
+    lr = rng.random((4, 4, 4, 3, 2)).astype(np.float32)
+    hr = rng.random((4, 12, 12, 12, 2)).astype(np.float32)
+    return model.run_gradient_descent(lr[2 * rank:2 * rank + 2],
+                                      hr[2 * rank:2 * rank + 2],
+                                      train_gen=True, train_disc=True)
+
+
+def spatial(rank, world, out):
+    strategy = ForwardPassStrategy(
+        file_paths=os.path.join(out, 'in.nc'),
+        model_kwargs={{'model_dir': os.path.join(out, 'model'),
+                      'device': 'cpu'}},
+        fwp_chunk_shape=(4, 4, 3), spatial_pad=1, temporal_pad=1,
+        device_batch_size=2, use_mesh='spatial', out_pattern=None)
+    out = ForwardPass.run(strategy, 0)
+    loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+    return out, loaded
+
+
+run_rank_scenarios({{'step': step, 'spatial': spatial}}, *sys.argv[1:])
+'''
+
+_SCRIPT_MESH = _BLOCKER + f'''
+import os
+import tempfile
+
+from sup3r_tpu_torch.configs import generator_st
+from sup3r_tpu_torch.models import Sup3rGan
+from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
+from sup3r_tpu_torch.utilities.test_helpers import (
+    make_fake_nc_file,
+    rank_results,
+    spawn_ranks,
+)
+
+tmp = tempfile.mkdtemp()
+feats = ['u_100m', 'v_100m']
+model = Sup3rGan(generator_st(2, (3,), (2, 2), filters=8, n_resblocks=1),
+                 [{{'class': 'Flatten'}}, {{'class': 'Dense', 'units': 1}}],
+                 meta={{'lr_features': feats, 'hr_out_features': feats}},
+                 means={{f: 0.5 for f in feats}},
+                 stdevs={{f: 0.3 for f in feats}}, device='cpu')
+model.init_weights((1, 4, 4, 3, 2), (1, 12, 12, 12, 2), seed=0)
+model.save(os.path.join(tmp, 'model'))
+inp = make_fake_nc_file(os.path.join(tmp, 'in.nc'), (8, 8, 6), feats)
+with open(os.path.join(tmp, 'rank.py'), 'w') as f:
+    f.write({_RANK_MESH!r})
+spawn_ranks([sys.executable, os.path.join(tmp, 'rank.py'), tmp], 2, tmp,
+            timeout=240)
+ranks = rank_results(tmp, 2)
+for res in ranks:
+    for name in ('step', 'spatial'):
+        assert 'error' not in res[name], res[name]
+steps = [res['step'] for res in ranks]
+assert steps[0] == steps[1] and np.isfinite(list(steps[0].values())).all()
+print('MESH DP STEP', len(steps))
+serial = ForwardPass.run(ForwardPassStrategy(
+    file_paths=inp, model_kwargs={{'model_dir': os.path.join(tmp, 'model'),
+                                  'device': 'cpu'}},
+    fwp_chunk_shape=(4, 4, 3), spatial_pad=1, temporal_pad=1,
+    out_pattern=None), 0)
+for res in ranks:
+    out, blocked = res['spatial']
+    assert not blocked, blocked
+    assert sorted(out) == sorted(serial) and len(out) == 8
+    for key in serial:
+        np.testing.assert_allclose(out[key], serial[key], rtol=0, atol=1e-4)
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not loaded, loaded
+print('MESH SPATIAL PASS', len(serial))
+'''
+
+
 def _run_blocked(script):
     env = dict(os.environ)
     env['PYTHONPATH'] = os.pathsep.join(
@@ -794,6 +883,17 @@ def test_bias_slice_runs_with_jax_and_friends_blocked():
     assert 'QDM CALIBRATED' in proc.stdout
     assert 'CORRECTED FORWARD PASS 8' in proc.stdout
     assert 'QDM_BC (8, 8, 6)' in proc.stdout
+
+
+def test_mesh_slice_runs_with_jax_and_friends_blocked():
+    """``parallel/`` imports and runs with jax, pandas, h5py and PIL
+    blocked, in the parent and in two spawned gloo ranks: a
+    data-parallel step (the same finite losses on both ranks) and a
+    ``use_mesh='spatial'`` pass equal to the single-process pass."""
+    proc = _run_blocked(_SCRIPT_MESH)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'MESH DP STEP 2' in proc.stdout
+    assert 'MESH SPATIAL PASS 8' in proc.stdout
 
 
 def test_no_card_without_explicit_cpu_raises(monkeypatch):

@@ -205,3 +205,36 @@ def test_cli_commands_and_options_match_jax():
         assert hasattr(cli, name.replace('-', '_')), name
     top = {o for a in parser._actions for o in a.option_strings}
     assert click_opts(jax_main) - {'--version'} <= top
+
+
+def test_parallel_exports_match_jax():
+    """``sup3r_tpu_torch.parallel`` exports ``sup3r_tpu.parallel``'s names,
+    and its ``mesh`` module defines every function the JAX module
+    defines, each taking the JAX function's arguments (with the port's
+    meaning: a rank is a host with one device). The byte readers take the
+    mesh whose counters they read where the JAX ones take a compiled
+    program."""
+    import importlib
+    import inspect
+
+    for suffix in ('', '.mesh'):
+        jax_mod = importlib.import_module(f'sup3r_tpu.parallel{suffix}')
+        port_mod = importlib.import_module(
+            f'sup3r_tpu_torch.parallel{suffix}')
+        names = {n for n in dir(jax_mod) if not n.startswith('_') and (
+            not inspect.ismodule(getattr(jax_mod, n))) and (
+            not suffix or getattr(getattr(jax_mod, n), '__module__', None)
+            == jax_mod.__name__)}
+        assert names
+        for name in names:
+            got = getattr(port_mod, name)
+            want = getattr(jax_mod, name)
+            if name.endswith('_from_compiled'):
+                assert list(inspect.signature(got).parameters) == ['mesh']
+                continue
+            assert (list(inspect.signature(got).parameters)[
+                :len(inspect.signature(want).parameters)]
+                == list(inspect.signature(want).parameters)), name
+        if not suffix:
+            assert names == {n for n in dir(port_mod)
+                             if not n.startswith('_')} - {'mesh'}

@@ -21,6 +21,7 @@ from sup3r_tpu_torch.configs import generator_spatial, generator_st
 from sup3r_tpu_torch.models import Sup3rGan
 from sup3r_tpu_torch.models.record import Record
 from sup3r_tpu_torch.models.weights import moments_to_jax, params_to_jax
+from sup3r_tpu_torch.parallel import get_mesh, get_mesh_2d
 from sup3r_tpu_torch.preprocessing import BatchHandler
 from sup3r_tpu_torch.utilities import RANDOM_GENERATOR
 from sup3r_tpu_torch.utilities.test_helpers import make_fake_dset
@@ -198,11 +199,19 @@ def test_not_ported_options_raise():
     model.init_weights((1, 5, 5, 2), (1, 10, 10, 2))
     lr, hr = np.zeros((1, 5, 5, 2)), np.zeros((1, 10, 10, 2))
     model.train_shard_aligned = True
-    with pytest.raises(NotImplementedError, match='item 9'):
+    with pytest.raises(NotImplementedError, match='item 9b'):
         model.run_gradient_descent(lr, hr)
     del model.train_shard_aligned
-    with pytest.raises(NotImplementedError, match='item 9'):
-        model.attach_mesh(None)
+    # data-parallel training has come with item 9's first half (a mesh
+    # of one rank here: tests/test_torch_parallel_train.py runs ranks);
+    # a spatial axis, or a 2D mesh, is item 9b
+    with pytest.raises(NotImplementedError, match='item 9b'):
+        model.attach_mesh(get_mesh(devices='cpu'), spatial_axis='space')
+    with pytest.raises(NotImplementedError, match='item 9b'):
+        model.attach_mesh(get_mesh_2d(1, 1, devices='cpu'))
+    model.attach_mesh(get_mesh(devices='cpu'))
+    details = model.run_gradient_descent(lr, hr)
+    assert np.isfinite(list(details.values())).all()
     # mode='lazy' is taken (laziness lives in the containers); an unknown
     # mode is refused
     assert _handler(2, 1, (10, 10, 1), mode='lazy').n_batches == 2

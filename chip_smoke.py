@@ -323,6 +323,29 @@ exits non-zero:
    10) against the default pass (1e-4), the halo bytes the ranks sent
    against ``estimate_halo_bytes`` (within a factor of 5); step ms, pass
    s and each rank's ``small_reflect_conv`` launches per step and pass.
+18. dp x sp training (``attach_mesh(get_mesh_2d(dp, sp))``; printed
+   before the ``kernels`` line). First ``reflect_conv_halo``'s gradients
+   over blocks of s1 rows of a flagship body block (each block's halo
+   rows its neighbours' rows, so autograd hands their gradients back)
+   against ``reflect_conv_ad``'s (1e-5 of max). Then four ranks share
+   the card over gloo (this script with ``--mesh2d-rank``), on a 2 x 2
+   mesh (8 samples and 18 HR rows a rank) and a 1 x 4 mesh (16 samples
+   and 9 HR rows a rank; the shard-aligned formulation engaged by the
+   width gate). On each,
+   three gated steps ('both', 'gen', 'disc') of the training cell from
+   phase 7's init (Adam epsilon 1) on the rank's block, each held to the
+   unmeshed step on the card from the same start: every rank's losses
+   and updated params at rtol 2e-4, atol 1e-6; the halo and row bytes
+   each rank sent, forward and backward, equal to
+   ``expected_exchange_bytes``; the launches of the JAX package's
+   route: at 2 x 2 (below the gate) each rank gathers the HR tail's
+   input over ``space`` and launches ``small_reflect_conv`` once a step
+   on the whole (8, 8, 36, 36, 48) tensor, as the reference step
+   launches it once, while at 1 x 4 the shard-aligned blocks bypass the
+   kernel and run on cuDNN; every rank issues its exchanges in one
+   order. Printed: the maximum relative errors, a
+   rank's step ms and the gradient all-reduce's ms and bytes (through
+   host memory: one card allows no speed-up claim).
 
 Before the ``kernels`` line, ``phase_seconds`` gives the seconds each
 phase took. The last line is ``{"ok": true, "device": {...}}``.
@@ -336,6 +359,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from collections import Counter
@@ -370,7 +394,13 @@ from sup3r_tpu_torch.ops.output_pack import (
     pack_plan,
     theta_for,
 )
-from sup3r_tpu_torch.parallel import get_mesh, init_multihost
+from sup3r_tpu_torch.parallel import (
+    get_mesh,
+    get_mesh_2d,
+    init_multihost,
+    shard_batch_spatial,
+)
+from sup3r_tpu_torch.parallel import mesh as mesh_module
 from sup3r_tpu_torch.parallel.mesh import all_reduce_
 from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
 from sup3r_tpu_torch.pipeline.memory import estimate_halo_bytes
@@ -380,7 +410,11 @@ from sup3r_tpu_torch.preprocessing import LoaderNC
 from sup3r_tpu_torch.qa import Sup3rQa
 from sup3r_tpu_torch.models.gan import relativistic_disc_loss
 from sup3r_tpu_torch.models.weights import params_from_jax, params_to_jax
-from sup3r_tpu_torch.ops.conv_ad import _fold_reflect_halos, reflect_conv_ad
+from sup3r_tpu_torch.ops.conv_ad import (
+    _fold_reflect_halos,
+    reflect_conv_ad,
+    reflect_conv_halo,
+)
 from sup3r_tpu_torch.models.utilities import TrainingSession
 from sup3r_tpu_torch.preprocessing import (
     BatchHandler,
@@ -399,6 +433,7 @@ from sup3r_tpu_torch.preprocessing import (
 )
 from sup3r_tpu_torch.utilities import RANDOM_GENERATOR, get_dset_attrs
 from sup3r_tpu_torch.utilities.test_helpers import (
+    expected_exchange_bytes,
     make_fake_dset,
     make_fake_nc_file,
     make_fake_topo_nc_file,
@@ -4833,6 +4868,284 @@ def mesh_phase(name):
             os.remove(store)
 
 
+#: phase 18: dp x sp training. Four ranks share the card over gloo (this
+#: script with ``--mesh2d-rank``); on each mesh three gated steps of the
+#: training cell from phase 7's init, held to the unmeshed step on the
+#: card from the same start
+MESH2D_RANKS = 4
+MESH2D_MESHES = ((2, 2), (1, 4))
+MESH2D_TIMED_STEPS = 2
+MESH2D_RANK_TIMEOUT_S = 600
+#: the halo conv's gradient check: a flagship body block's input (LR s1
+#: 12 rows as four ranks hold it)
+HALO_GRAD_SHAPE = (4, 64, 12, 12, 48)
+HALO_GRAD_BLOCKS = (3, 3, 3, 3)
+
+
+def halo_grad_check(name):
+    """Phase 18: ``reflect_conv_halo`` on blocks of s1 rows, each block's
+    halo rows slices of its neighbours' (so autograd hands their
+    gradients back to their owners, as the halo exchange's backward
+    does across ranks): dx, dw and db against ``reflect_conv_ad``'s on
+    the card, within 1e-5 of each gradient's max (phase 7's bar for the
+    unsharded block)."""
+    gen = torch.Generator(device='cuda').manual_seed(18)
+    c = HALO_GRAD_SHAPE[1]
+    x = torch.randn(HALO_GRAD_SHAPE, generator=gen, device='cuda')
+    w = 0.05 * torch.randn((c, c, 3, 3, 3), generator=gen, device='cuda')
+    b = 0.1 * torch.randn(c, generator=gen, device='cuda')
+    dy = torch.randn(HALO_GRAD_SHAPE, generator=gen, device='cuda')
+
+    def grads(fn):
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+        with exact_fp32():
+            (fn(xs, ws, bs) * dy).sum().backward()
+        return [xs.grad, ws.grad, bs.grad]
+
+    def blocks(xs, ws, bs):
+        parts = list(xs.split(list(HALO_GRAD_BLOCKS), dim=2))
+        return torch.cat([reflect_conv_halo(
+            part, ws, bs, 3, 0.2,
+            None if i == 0 else parts[i - 1][:, :, -1:],
+            None if i == len(parts) - 1 else parts[i + 1][:, :, :1])
+            for i, part in enumerate(parts)], dim=2)
+
+    want = grads(lambda xs, ws, bs: reflect_conv_ad(xs, ws, bs, 3, 0.2))
+    errs = {k: float((g - r).abs().max() / r.abs().max())
+            for k, g, r in zip(('dx', 'dw', 'db'), grads(blocks), want)}
+    ok = all(e <= KERNEL_RTOL for e in errs.values())
+    emit(phase='mesh2d_halo_grad_check', shape=list(HALO_GRAD_SHAPE),
+         blocks=list(HALO_GRAD_BLOCKS), rel_err_to_max=errs,
+         tol=KERNEL_RTOL, nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'reflect_conv_halo gradients: {errs}')
+    return errs
+
+
+@contextlib.contextmanager
+def exchange_log():
+    """[(kind, thread name)] of the halo and row exchanges this process
+    issues inside the block, in order (the backward's run in autograd's
+    device thread while the calling thread waits in
+    ``torch.autograd.grad``)."""
+    log, inner = [], mesh_module._exchange
+
+    def exchange(mesh, group, sends, recvs, like, kind):
+        log.append((kind, threading.current_thread().name))
+        return inner(mesh, group, sends, recvs, like, kind)
+
+    mesh_module._exchange = exchange
+    try:
+        yield log
+    finally:
+        mesh_module._exchange = inner
+
+
+def flat_params(model):
+    return torch.cat([p.detach().reshape(-1) for p in (
+        *model.gen_params, *model.disc_params)]).cpu().numpy()
+
+
+def step_errors(model, losses, ref):
+    """(loss rel errors, max param error relative to each param's
+    largest magnitude (at least atol / rtol: a param near 0 everywhere,
+    as the last bias is, has no relative error of its own), the worst
+    |got - want| / (atol + rtol |want|), ok) of a step against the
+    reference's losses and flat params."""
+    loss_err = {k: abs(losses[k] - ref['losses'][k]) / abs(ref['losses'][k])
+                for k in ref['losses']}
+    got, want = flat_params(model), ref['params']
+    diff = np.abs(got - want)
+    bar = float(np.max(diff / (MESH_STEP_ATOL + MESH_STEP_RTOL
+                               * np.abs(want))))
+    rel, start = 0.0, 0
+    for p in (*model.gen_params, *model.disc_params):
+        n = p.numel()
+        rel = max(rel, float(diff[start:start + n].max()
+                             / max(np.abs(want[start:start + n]).max(),
+                                   MESH_STEP_ATOL / MESH_STEP_RTOL)))
+        start += n
+    ok = bar <= 1 and all(
+        np.isclose(losses[k], ref['losses'][k], rtol=MESH_STEP_RTOL,
+                   atol=MESH_STEP_ATOL) for k in ref['losses'])
+    return loss_err, rel, bar, bool(ok)
+
+
+def mesh2d_rank_steps(rank, world, out):
+    """Phase 18, in a rank: on each mesh, the gated steps of the training
+    cell from phase 7's init on this rank's block, each against the
+    unmeshed step (saved by the parent) and its exchanged bytes against
+    the analytic count; then timed steps and the gradient reductions."""
+    lr_np, hr_np = train_batch(TRAIN_BATCH)
+    res = {}
+    for dp, sp in MESH2D_MESHES:
+        mesh = get_mesh_2d(dp, sp)
+        model = train_model('cuda', CHECK_OPT)
+        model.attach_mesh(mesh)
+        lr, hr = shard_batch_spatial(mesh, lr_np, hr_np)
+        steps = {}
+        for gate, (do_gen, do_disc) in GATES.items():
+            mesh.reset_counters()
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with exchange_log() as log:
+                losses = model.run_gradient_descent(lr, hr, W_ADV, do_gen,
+                                                    do_disc)
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = launch_counts()
+            counters = dict(mesh.counters)
+            with open(os.path.join(out, f'ref_{gate}.json')) as f:
+                ref = {'losses': json.load(f),
+                       'params': np.load(os.path.join(out,
+                                                      f'ref_{gate}.npy'))}
+            loss_err, rel, bar, ok = step_errors(model, losses, ref)
+            want = expected_exchange_bytes(
+                model, lr_np.shape, hr_np.shape, dp, sp,
+                mesh.axis_index('space'), do_gen, do_disc)
+            steps[gate] = {
+                'losses': losses, 'loss_rel_err': loss_err,
+                'param_rel_err': rel, 'bar_ratio': bar, 'ok': ok,
+                'ms': ms, 'launches': launches, 'counters': counters,
+                'want_bytes': want, 'order': [k for k, _ in log],
+                'threads': sorted({t for _, t in log})}
+        timed = [mesh_step(model, lr, hr)[2]
+                 for _ in range(MESH2D_TIMED_STEPS)]
+        grads = ([torch.randn_like(p) for p in model.gen_params],
+                 [torch.randn_like(p) for p in model.disc_params])
+        mesh.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model._reduce_grads(grads[0], model.generator)
+        model._reduce_grads(grads[1], model.discriminator)
+        torch.cuda.synchronize()
+        res[f'{dp}x{sp}'] = {
+            'coords': mesh.coords, 'aligned': model._auto_shard_aligned(),
+            'block': [list(lr.shape), list(hr.shape)], 'steps': steps,
+            'step_ms': timed,
+            'allreduce_ms': 1e3 * (time.perf_counter() - t0),
+            'allreduce_bytes': mesh.counters['allreduce_bytes'],
+            'allreduce_ops': mesh.counters['allreduce_ops'],
+            'device': torch.cuda.get_device_name(0)}
+        del model, grads
+        torch.cuda.empty_cache()
+    return res
+
+
+MESH2D_RANK_SCENARIOS = {'steps': mesh2d_rank_steps}
+
+
+def mesh2d_phase(name):
+    """Phase 18: the halo conv's gradient check, the unmeshed reference
+    steps (saved for the ranks), then four ranks on the 2 x 2 and 1 x 4
+    meshes. Returns the launches for the ``kernels`` line."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_mesh2d_')
+    try:
+        halo_grad_check(name)
+        model = train_model('cuda', CHECK_OPT)
+        lr_np, hr_np = train_batch(TRAIN_BATCH)
+        lr, hr = (torch.as_tensor(a, device='cuda') for a in (lr_np, hr_np))
+        ref_launches, ref_ms = {}, {}
+        for gate, (do_gen, do_disc) in GATES.items():
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = model.run_gradient_descent(lr, hr, W_ADV, do_gen,
+                                                do_disc)
+            ref_ms[gate] = 1e3 * (time.perf_counter() - t0)
+            ref_launches[gate] = launch_counts()
+            np.save(os.path.join(tmp, f'ref_{gate}.npy'), flat_params(model))
+            with open(os.path.join(tmp, f'ref_{gate}.json'), 'w') as f:
+                json.dump(losses, f)
+        del model, lr, hr
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        spawn_ranks([sys.executable, os.path.abspath(__file__),
+                     '--mesh2d-rank', tmp], MESH2D_RANKS, tmp,
+                    timeout=MESH2D_RANK_TIMEOUT_S, attempts=1)
+        spawn_s = time.perf_counter() - t0
+        ranks = rank_results(tmp, MESH2D_RANKS)
+        for res in ranks:
+            if 'error' in res['steps']:
+                raise AssertionError(f'mesh2d rank: {res["steps"]["error"]}')
+        launches = {'mesh2d_reference_train_step': ref_launches['both']}
+        failed = []
+        for dp, sp in MESH2D_MESHES:
+            key = f'{dp}x{sp}'
+            per_rank = [res['steps'][key] for res in ranks]
+            checks = {}
+            for gate in GATES:
+                steps = [r['steps'][gate] for r in per_rank]
+                checks[gate] = {
+                    'same_losses': all(s['losses'] == steps[0]['losses']
+                                       for s in steps),
+                    'same_exchange_order': all(
+                        s['order'] == steps[0]['order'] for s in steps),
+                    'exchanges': len(steps[0]['order']),
+                    'threads': steps[0]['threads'],
+                    'within_bar': all(s['ok'] for s in steps),
+                    'bytes': all(
+                        s['counters'].get('halo_bytes', 0)
+                        == s['want_bytes']['halo'] > 0
+                        and s['counters'].get('rows_bytes', 0)
+                        == s['want_bytes']['rows'] for s in steps),
+                    # below the gate the small kernel's launches are
+                    # the reference step's; at it, none on a block
+                    'launches_of_the_route': all(
+                        s['launches'] == (
+                            {k: 0 for k in s['launches']} if sp >= 4
+                            else ref_launches[gate]) for s in steps),
+                    'reference_launches': ref_launches[gate]}
+            ok = all(c['same_losses'] and c['same_exchange_order']
+                     and c['within_bar'] and c['bytes']
+                     and c['launches_of_the_route']
+                     for c in checks.values()) and all(
+                r['aligned'] == (sp >= 4) for r in per_rank) and (
+                ref_launches['both']['small_reflect_conv'] == 1)
+            emit(phase='mesh2d_steps', mesh=key, backend='gloo',
+                 ranks=MESH2D_RANKS,
+                 devices=sorted({r['device'] for r in per_rank}),
+                 shard_aligned=per_rank[0]['aligned'],
+                 rank_block_lr_hr=per_rank[0]['block'],
+                 losses={g: per_rank[0]['steps'][g]['losses']
+                         for g in GATES},
+                 max_loss_rel_err={g: max(max(r['steps'][g][
+                     'loss_rel_err'].values()) for r in per_rank)
+                     for g in GATES},
+                 max_param_rel_err={g: max(r['steps'][g]['param_rel_err']
+                                           for r in per_rank)
+                                    for g in GATES},
+                 max_bar_ratio={g: max(r['steps'][g]['bar_ratio']
+                                       for r in per_rank) for g in GATES},
+                 rtol=MESH_STEP_RTOL, atol=MESH_STEP_ATOL,
+                 exchange_bytes={g: [[r['steps'][g]['counters'].get(
+                     f'{k}_bytes', 0) for k in ('halo', 'rows')]
+                     for r in per_rank] for g in GATES},
+                 expected_exchange_bytes={g: [[r['steps'][g]['want_bytes'][
+                     k] for k in ('halo', 'rows')] for r in per_rank]
+                     for g in GATES},
+                 collective_bytes_both=[r['steps']['both']['counters']
+                                        for r in per_rank],
+                 checked_step_ms={g: [r['steps'][g]['ms'] for r in per_rank]
+                                  for g in GATES},
+                 rank0_step_ms=per_rank[0]['step_ms'],
+                 reference_step_ms=ref_ms,
+                 grad_allreduce_ms=[r['allreduce_ms'] for r in per_rank],
+                 grad_allreduce_bytes=per_rank[0]['allreduce_bytes'],
+                 grad_allreduce_ops=per_rank[0]['allreduce_ops'],
+                 launches_per_rank_step={g: [r['steps'][g]['launches']
+                                             for r in per_rank]
+                                         for g in GATES},
+                 checks=checks, spawn_s=spawn_s, nvidia_smi=name, ok=ok)
+            if not ok:
+                failed.append(key)
+            launches[f'mesh2d_{key}_train_step'] = [
+                r['steps']['both']['launches'] for r in per_rank]
+        if failed:
+            raise AssertionError(f'dp x sp steps failed on {failed}')
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -5196,6 +5509,9 @@ def main():
             c['small_reflect_conv']
             for c in mesh_launches['two_rank_train_step']])
     mark('17_kernel_checks_and_timings')
+    # 18. dp x sp training: four ranks on the 2 x 2 and 1 x 4 meshes
+    mesh_launches.update(mesh2d_phase(smi))
+    mark('18_mesh2d')
     emit(phase='phase_seconds', seconds=seconds,
          total_s=sum(seconds.values()))
 
@@ -5215,7 +5531,8 @@ def main():
                 kname]}
 
     def per_mesh(kname):
-        """Phase 17's launches: per step or pass, per rank in (b)."""
+        """Phases 17 and 18's launches: per step or pass, per rank in
+        17b and 18."""
         return {'launches_in_mesh_paths': {
             path: ([c[kname] for c in counts] if isinstance(counts, list)
                    else counts[kname])
@@ -5315,4 +5632,7 @@ if __name__ == '__main__':
     if sys.argv[1:2] == ['--mesh-rank']:
         # a rank of phase 17b (spawn_ranks: out_dir rank world store)
         sys.exit(run_rank_scenarios(MESH_RANK_SCENARIOS, *sys.argv[2:]))
+    if sys.argv[1:2] == ['--mesh2d-rank']:
+        # a rank of phase 18
+        sys.exit(run_rank_scenarios(MESH2D_RANK_SCENARIOS, *sys.argv[2:]))
     sys.exit(main())

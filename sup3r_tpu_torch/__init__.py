@@ -17,4 +17,11 @@ Entry points run on ``device='cuda'`` unless the caller passes
 
 __version__ = '0.1.0'
 
+import os  # noqa: E402
+
 from sup3r_tpu_torch.utilities.utilities import RANDOM_GENERATOR  # noqa: F401,E402
+
+#: the package's architecture configs (``configs.get_config``)
+CONFIG_DIR = os.path.join(os.path.dirname(__file__), 'configs')
+#: the repo's test data directory, as the JAX package names it
+TEST_DATA_DIR = os.path.join(os.path.dirname(__file__), '..', 'tests', 'data')

@@ -22,3 +22,7 @@ from sup3r_tpu_torch.models.weights import (  # noqa: F401
     params_from_jax,
 )
 from sup3r_tpu_torch.models.with_obs import Sup3rGanWithObs  # noqa: F401
+
+#: chains whose first step is spatial (the forward pass pads them as the
+#: JAX package's ``SPATIAL_FIRST_MODELS`` does)
+SPATIAL_FIRST_MODELS = (MultiStepSurfaceMetGan, SolarMultiStepGan)

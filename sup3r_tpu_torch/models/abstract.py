@@ -26,7 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 import sup3r_tpu_torch
-from sup3r_tpu_torch.models.fuse import fuse_network
+from sup3r_tpu_torch.models.fuse import FusedReflectConv, fuse_network
 from sup3r_tpu_torch.models.network import Network
 from sup3r_tpu_torch.models.record import Record
 from sup3r_tpu_torch.models.utilities import (
@@ -45,8 +45,13 @@ from sup3r_tpu_torch.models.weights import (
     unpackb,
 )
 from sup3r_tpu_torch.names import strip_obs_suffix
+from sup3r_tpu_torch.ops.conv_ad import shard_aligned_worthwhile
 from sup3r_tpu_torch.ops.losses import get_loss_fun
-from sup3r_tpu_torch.parallel.mesh import all_gather_rows, all_reduce_
+from sup3r_tpu_torch.parallel.mesh import (
+    SpatialShard,
+    all_gather_rows,
+    all_reduce_,
+)
 from sup3r_tpu_torch.utilities import safe_serialize
 
 logger = logging.getLogger(__name__)
@@ -266,12 +271,27 @@ class AbstractSingleModel(AbstractInterface):
     #: the generator's conv layers, so gradients land on its params.
     train_fuse = True
 
-    #: the JAX package's shard-aligned s1 formulation for spatially
-    #: sharded training (dp x sp meshes: ROADMAP queue 1 item 9b)
+    #: the JAX package's shard-aligned s1 formulation of the fused
+    #: blocks in the train step: None (default) turns it on when a mesh
+    #: with a ``space`` axis 4 or more ranks wide is attached (the JAX
+    #: package's gate, ``ops.conv_ad.shard_aligned_worthwhile``); True /
+    #: False force it on / off. On a ``space`` axis it picks the route
+    #: of the blocks the ``small_reflect_conv`` kernel takes, as in the
+    #: JAX package, whose shard-aligned blocks bypass Pallas: on, they
+    #: exchange halo rows like every other block; off, they gather
+    #: their input over the axis and run the kernel on the whole tensor
+    #: (``parallel.mesh.SpatialShard.gather_small``). The port's other
+    #: blocks exchange the same one-row halos either way. Without a
+    #: spatial axis the fused blocks that the kernels do not take run
+    #: ``reflect_conv_shard_aligned``. Either way the step is the plain
+    #: step's up to fp32 reassociation.
     train_shard_aligned = None
 
-    #: the 1D mesh of data-parallel training (``Sup3rGan.attach_mesh``)
+    #: the mesh of data-parallel training (``Sup3rGan.attach_mesh``), its
+    #: batch axis and its ``space`` axis (None: data parallel only)
     _mesh = None
+    _mesh_axis = None
+    _mesh_spatial_axis = None
 
     #: mixed-precision training: 'bfloat16' runs both networks' forward
     #: and backward in bf16, while master weights, the gradients (cast
@@ -308,15 +328,39 @@ class AbstractSingleModel(AbstractInterface):
             return None
         return tuple(self._gen.parameters())
 
+    def _auto_shard_aligned(self):
+        """``train_shard_aligned`` resolved: its value when set, else on
+        when the attached mesh's ``space`` axis is 4 or more ranks
+        wide."""
+        if self.train_shard_aligned is not None:
+            return bool(self.train_shard_aligned)
+        axis = self._mesh_spatial_axis
+        if axis is None or self._mesh is None:
+            return False
+        return shard_aligned_worthwhile(self._mesh.shape[axis])
+
     def _train_gen_net(self):
         """The generator network the train step runs: fused (see
-        ``train_fuse``), its blocks reading the generator's own
-        params."""
+        ``train_fuse``), its blocks reading the generator's own params,
+        in the formulation ``train_shard_aligned`` resolves to."""
         if not self.train_fuse:
             return self._gen
         if self._train_net is None:
             self._train_net = Network(fuse_network(list(self._gen.layers)))
+        aligned = self._auto_shard_aligned()
+        for lyr in self._train_net.layers:
+            if isinstance(lyr, FusedReflectConv):
+                lyr.shard_aligned = aligned
         return self._train_net
+
+    def _spatial_shard(self):
+        """The ``SpatialShard`` the train step's networks run on (this
+        rank's block of s1 rows on the attached mesh's ``space`` axis), or
+        None without one."""
+        if self._mesh_spatial_axis is None:
+            return None
+        return SpatialShard(self._mesh, self._mesh_spatial_axis,
+                            gather_small=not self._auto_shard_aligned())
 
     def _split_exo(self, hr):
         """The exo channels of a training HR batch, by feature."""
@@ -329,24 +373,55 @@ class AbstractSingleModel(AbstractInterface):
         """A float32 tensor on the model's device (no copy for one that
         is there already). With a mesh attached, ``arr`` is this rank's
         own rows of the global batch (the JAX package's multi-host
-        convention: a rank is a host with one device)."""
+        convention: a rank is a host with one device), and with a
+        ``space`` axis its block of each sample's s1 rows too, as
+        ``parallel.shard_batch_spatial`` cuts it."""
         return torch.as_tensor(arr, dtype=torch.float32, device=self.device)
 
     def _gather(self, tensor):
-        """``tensor``'s rows of every rank of the attached mesh, in rank
-        order (differentiable; ``parallel.mesh.all_gather_rows``): the
-        losses of a data-parallel step are the global batch's, the same
-        on every rank. The tensor itself without a mesh (or for None)."""
+        """``tensor``'s rows of every rank of the attached mesh's batch
+        axis, in rank order (differentiable;
+        ``parallel.mesh.all_gather_rows``): the losses of a data-parallel
+        step are the global batch's, the same on every rank. The tensor
+        itself without a mesh (or for None)."""
         if self._mesh is None or tensor is None:
             return tensor
         return all_gather_rows(self._mesh, tensor, self._mesh_axis)
 
-    def _reduce_grads(self, grads):
-        """Sum a step's gradients over the ranks of the attached mesh, in
-        place (each rank's backward gives its own rows' share of the
-        global loss's gradient); returns them."""
-        if self._mesh is not None:
+    def _gather_space(self, tensor):
+        """A channels-last (n, s1, ...) tensor's s1 blocks gathered over
+        the ``space`` axis (dim 1; differentiable), the tensor itself
+        without one (or for None)."""
+        if self._mesh_spatial_axis is None or tensor is None:
+            return tensor
+        return all_gather_rows(self._mesh, tensor, self._mesh_spatial_axis,
+                               dim=1)
+
+    def _gather_hr(self, tensor):
+        """A channels-last (n, s1, ...) tensor of the global batch: its
+        s1 blocks gathered over the ``space`` axis, then its rows over
+        the batch axis. ``_gather`` without a ``space`` axis."""
+        return self._gather(self._gather_space(tensor))
+
+    def _reduce_grads(self, grads, network=None):
+        """Sum a step's gradients (of ``network``'s params, in order) over
+        the ranks of the attached mesh, in place, and return them. Each
+        rank's backward gives its own share of the global loss's
+        gradient: over the batch axis, and with a ``space`` axis over
+        both axes, except for the params ``network`` computes whole on
+        every rank of a ``space`` group
+        (``Network.space_replicated_params``), whose gradients are the
+        same there and are summed over the batch axis only."""
+        if self._mesh is None:
+            return grads
+        if self._mesh_spatial_axis is None:
             all_reduce_(self._mesh, grads, self._mesh_axis)
+            return grads
+        whole = {id(p) for p in network.space_replicated_params()}
+        shares = [[g for p, g in zip(network.parameters(), grads)
+                   if (id(p) in whole) == w] for w in (False, True)]
+        all_reduce_(self._mesh, shares[0])
+        all_reduce_(self._mesh, shares[1], self._mesh_axis)
         return grads
 
     @property
@@ -389,8 +464,8 @@ class AbstractSingleModel(AbstractInterface):
         """``gen_apply(x, exo)`` under non-reentrant
         ``torch.utils.checkpoint`` when ``train_remat`` is set (and
         gradients are on): the backward recomputes the forward, kernels
-        included, instead of keeping its activations. Train or dropout
-        kwargs raise: a rematerialized apply would drop them."""
+        included, instead of keeping its activations. Train, dropout or
+        spatial kwargs raise: a rematerialized apply would drop them."""
         if not self.train_remat:
             return gen_apply
 

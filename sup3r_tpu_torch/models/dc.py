@@ -20,6 +20,9 @@ logger = logging.getLogger(__name__)
 class Sup3rGanDC(Sup3rGan):
     """GAN with loss-adaptive spatiotemporal bin sampling."""
 
+    _spatial_refusal = (
+        "its per-bin validation losses are averaged over data-parallel ranks only")
+
     def calc_val_loss_gen(self, batch_handler, weight_gen_advers):
         """Per-bin (total, content) validation losses, each of shape
         (n_space_bins, n_time_bins). Batch ``i`` of the validation queue
@@ -45,7 +48,8 @@ class Sup3rGanDC(Sup3rGan):
         if self._mesh is not None:
             both = [torch.from_numpy(total), torch.from_numpy(content)]
             all_reduce_(self._mesh, both, self._mesh_axis)
-            total, content = (t.numpy() / self._mesh.size for t in both)
+            n = self._mesh.shape[self._mesh_axis]
+            total, content = (t.numpy() / n for t in both)
         return total, content
 
     def calc_val_loss(self, batch_handler, weight_gen_advers):

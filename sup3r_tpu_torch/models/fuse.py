@@ -31,14 +31,25 @@ tensor:
     with the custom backward.
 On a CPU tensor every block runs ``reflect_conv_ad``, the kernels'
 plain version. A block of s1 rows under a spatial mesh
-(``ctx['spatial']``) comes first, on either device, and bypasses the
-kernels (as the JAX package's sharded route bypasses Pallas, which does
-not partition): it exchanges its boundary rows with its neighbours and
-runs ``reflect_conv_halo``. ``shard_aligned`` (the JAX package's
+(``ctx['spatial']``, a ``parallel.mesh.SpatialShard``) comes first, on
+either device. By default it exchanges its boundary rows with its
+neighbours and runs ``reflect_conv_halo`` on cuDNN, differentiably (the
+halo rows' gradients go back to their owners). A shard with
+``gather_small`` (the train step below the shard-aligned gate,
+``Sup3rGan.train_shard_aligned``) sends the blocks the small kernel
+takes the JAX package's way instead: XLA cannot partition a
+``pallas_call``, so it gathers the kernel's input over the axis; here
+the block is gathered over the axis (``SpatialShard.gather``, whose
+backward sends each row's gradient back to its owner), the kernel runs
+on the whole tensor and the rank keeps its rows. At and above the gate
+the JAX package's shard-aligned route bypasses Pallas, and so does the
+port's halo route; sharded serving (``Sup3rGan.generate(mesh=)``) keeps
+the halo route at every width. ``shard_aligned`` (the JAX package's
 formulation for its SPMD partitioner) takes the place of
 ``reflect_conv_ad`` only: on the card the kernels keep the blocks they
-take, and the sharded route does not read it. A block runs in
-its input's dtype: its weight and bias are cast to it (differentiably).
+take, and on a block the port's one-row halo exchange is the same in
+either formulation. A block runs in its input's dtype: its weight and
+bias are cast to it (differentiably).
 A bf16 block is never the small kernel's (it takes float32 only, as the
 JAX package's does), so a bf16 tail runs ``reflect_conv_ad`` on cuDNN;
 ``reflect_conv`` refuses bf16, as the JAX package's Pallas kernel does.
@@ -138,12 +149,18 @@ class FusedReflectConv(Layer):
         on_cuda = x.is_cuda
         weight = self.conv.fused_weight(x.dtype)
         bias = self.bias.to(x.dtype)
+        small = self.small_channel_kernel and self._small_ok(x, weight)
         shard = ctx.get('spatial')
-        if shard is not None:
+        if shard is not None and not (small and shard.gather_small):
             return reflect_conv_halo(x, weight, bias, self.n_spatial,
                                      self.alpha, *shard.halo(x))
-        if (self.small_channel_kernel and on_cuda
-                and self._small_ok(x, weight)):
+        if shard is not None:
+            # the whole tensor through the kernel; this rank's rows out
+            start, count = shard.block(ctx['s1'])
+            y = small_reflect_conv_cf(shard.gather(x, ctx['s1']), weight,
+                                      bias, self.alpha)
+            return y.narrow(2, start, count)
+        if small and on_cuda:
             return small_reflect_conv_cf(x, weight, bias, self.alpha)
         if self.use_pallas and on_cuda and not torch.is_grad_enabled():
             return reflect_conv_cf(x, weight, bias, self.alpha)
@@ -293,6 +310,8 @@ class SubpixelTailConv(Layer):
 
     def forward(self, x, ctx):
         shard = ctx.get('spatial')
+        if shard is not None:
+            ctx['s1'] *= self.m
         return subpixel_tail_conv(
             x, self.tail.conv.fused_weight(x.dtype), self.tail.bias, self.m,
             alpha_prev=self.alpha_prev, alpha=self.alpha,

@@ -35,7 +35,7 @@ and a bf16 body on cuDNN's bf16 convs, the output cast back to float32).
 tensorboard scalars and ``tensorboard_profile=True`` records the first
 epoch with ``torch.profiler`` (``models/utilities.py``).
 
-``attach_mesh`` makes the step data parallel over a 1D mesh of ranks
+``attach_mesh`` makes the step data parallel over a mesh of ranks
 (``sup3r_tpu_torch.parallel``): each rank runs both networks on its own
 rows; the discriminator outputs, the generated and true HR batches (and
 a subclass's loss state) are gathered, so every rank computes the
@@ -44,6 +44,13 @@ loss subtracts batch means and a content loss like ``mmd_loss`` pairs
 every sample with every other); a rank's dropout masks are its rows of
 the global batch's (``Dropout``); the gradients are summed over the
 ranks (one flat all-reduce per network) before the identical updates.
+On a dp x sp mesh (``parallel.get_mesh_2d``) each rank also holds a
+block of each sample's s1 rows: both networks run on the block
+(``models/layers.py`` lists the sharded forms; every exchange between
+ranks is differentiable), the generated and true HR blocks are gathered
+over ``space`` before the batch rows, and the gradients of the params
+a ``space`` group computes whole (the discriminator's head) are summed
+over ``data`` only (``_reduce_grads``).
 ``generate(..., mesh=...)`` serves a block of s1 rows of a spatially
 sharded input.
 """
@@ -76,7 +83,12 @@ from sup3r_tpu_torch.ops.coarsen import (
     temporal_coarsening,
 )
 from sup3r_tpu_torch.ops.losses import apply_loss
-from sup3r_tpu_torch.parallel.mesh import SpatialShard, replicate
+from sup3r_tpu_torch.parallel.mesh import (
+    SpatialShard,
+    all_gather_object,
+    replicate,
+    shard_spatial,
+)
 from sup3r_tpu_torch.utilities import exact_fp32, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -206,11 +218,9 @@ class Sup3rGan(AbstractSingleModel):
 
     # ------------------------------------------------------------------
     # the train step
-    def _check_train_options(self):
-        if self.train_shard_aligned:
-            raise NotImplementedError(
-                'train_shard_aligned is for spatially sharded training on a '
-                'dp x sp mesh: ROADMAP queue 1 item 9b')
+    #: why the class's train step cannot run on a ``space`` axis (None:
+    #: it can)
+    _spatial_refusal = None
 
     def _loss_generator(self):
         """A ``torch.Generator`` for losses that draw random numbers,
@@ -224,7 +234,8 @@ class Sup3rGan(AbstractSingleModel):
         """The ``apply`` kwargs that turn a network's ``Dropout`` layers
         on in a train step: a generator on the model's device seeded with
         the step counter, one stream per network call (``offset``), and
-        with a mesh attached this rank's rows of the global batch's masks;
+        with a mesh attached this rank's rows of the global batch's masks
+        (and on a ``space`` axis its block of their s1 rows: ``Dropout``);
         none for a network without dropout."""
         if not network.has_dropout:
             return {}
@@ -243,6 +254,21 @@ class Sup3rGan(AbstractSingleModel):
         feature; subclasses add observation rasters."""
         return self._split_exo(hr), None
 
+    def _gather_disc(self):
+        """The gather of the discriminator's outputs: over the batch axis
+        after a Flatten -> Dense head (whole on every rank of a ``space``
+        group), else (a fully convolutional D's blocks) as HR tensors."""
+        return self._gather if self._disc.whole_on_space else self._gather_hr
+
+    def _layer_exo(self, exo):
+        """The generator's exo rasters of a step: on a ``space`` axis the
+        HR batch's exo channels are the rank's block, and an exo layer
+        takes its rows of a full-size raster, so they are gathered over
+        ``space`` first."""
+        if self._mesh_spatial_axis is None:
+            return exo
+        return {k: self._gather_space(v) for k, v in exo.items()}
+
     def _extra_gen_loss(self, out, hr, state):
         """(term added to the content loss, extra loss details) of a
         train step; none for a plain GAN."""
@@ -256,30 +282,37 @@ class Sup3rGan(AbstractSingleModel):
         the losses. A network with ``Dropout`` draws its masks from a
         generator seeded with the step counter; then the discriminator's
         loss runs it again with masks of its own, as the JAX step does."""
-        self._check_train_options()
         self._step_counter += 1
         gen_params, disc_params = self.gen_params, self.disc_params
+        shard = self._spatial_shard()
+        if shard is not None and self.train_remat:
+            raise ValueError('train_remat on a space axis: the recomputed '
+                             'forward would repeat its halo exchanges')
         gen_apply = self._maybe_remat(self._train_gen_net().apply)
         cast = self._train_cast()
         names = self.hr_exo_features
         slc = slice(0, -len(names)) if names else slice(None)
         generator = self._loss_generator()
         disc = self._disc
-        gather = self._gather
+        space = {} if shard is None else {'spatial': shard}
+        gather, gather_d = self._gather_hr, self._gather_disc()
         with exact_fp32():
             exo, state = self._train_exo(hr)
             with torch.set_grad_enabled(do_gen):
                 out = gen_apply(cast(lr), {k: cast(v) for k, v in
-                                           exo.items()},
-                                **self._dropout_kwargs(self._gen, 0)).float()
+                                           self._layer_exo(exo).items()},
+                                **self._dropout_kwargs(self._gen, 0),
+                                **space).float()
             full = (torch.cat([out] + [exo[f] for f in names], dim=-1)
                     if names else out)
             with torch.set_grad_enabled(do_gen or do_disc):
                 with torch.set_grad_enabled(do_disc):
-                    d_true = gather(disc.apply(
-                        cast(hr), **self._dropout_kwargs(disc, 1)).float())
-                d_gen = gather(disc.apply(
-                    cast(full), **self._dropout_kwargs(disc, 2)).float())
+                    d_true = gather_d(disc.apply(
+                        cast(hr), **self._dropout_kwargs(disc, 1),
+                        **space).float())
+                d_gen = gather_d(disc.apply(
+                    cast(full), **self._dropout_kwargs(disc, 2),
+                    **space).float())
                 out_all, hr_all = gather(out), gather(hr)
                 content = apply_loss(self.loss_fun, out_all,
                                      hr_all[..., slc], generator=generator)
@@ -289,11 +322,11 @@ class Sup3rGan(AbstractSingleModel):
                 gen_loss = content + extra + weight_gen_advers * advers
                 if disc.has_dropout:
                     with torch.set_grad_enabled(do_disc):
-                        kw = self._dropout_kwargs(disc, 3)
+                        kw = {**self._dropout_kwargs(disc, 3), **space}
                         disc_loss = relativistic_disc_loss(
-                            gather(disc.apply(cast(hr), **kw).float()),
-                            gather(disc.apply(cast(full.detach()),
-                                              **kw).float()))
+                            gather_d(disc.apply(cast(hr), **kw).float()),
+                            gather_d(disc.apply(cast(full.detach()),
+                                                **kw).float()))
                 else:
                     # the discriminator's loss reads the same outputs:
                     # its pre-update params on the generated output's
@@ -301,10 +334,10 @@ class Sup3rGan(AbstractSingleModel):
                     disc_loss = relativistic_disc_loss(d_true, d_gen)
             if do_gen:
                 gen_grads = self._reduce_grads(torch.autograd.grad(
-                    gen_loss, gen_params, retain_graph=do_disc))
+                    gen_loss, gen_params, retain_graph=do_disc), self._gen)
             if do_disc:
                 disc_grads = self._reduce_grads(torch.autograd.grad(
-                    disc_loss, disc_params))
+                    disc_loss, disc_params), disc)
             if do_gen:
                 self._gen_tx.update(gen_params, gen_grads,
                                     self._gen_opt_state)
@@ -320,7 +353,8 @@ class Sup3rGan(AbstractSingleModel):
                              train_disc=False):
         """One gated optimization step on a (lr, hr) batch pair;
         ``train_gen`` / ``train_disc`` gate which updates apply. Returns
-        the loss scalars."""
+        the loss scalars. With a mesh attached the pair is this rank's
+        block (``_place_batch``) and the losses are the global batch's."""
         details = self._train_step(
             self._place_batch(low_res), self._place_batch(hi_res_true),
             float(weight_gen_advers), bool(train_gen), bool(train_disc))
@@ -361,32 +395,69 @@ class Sup3rGan(AbstractSingleModel):
                 {**self._optimizer_disc_config, **kwargs})
 
     def attach_mesh(self, mesh, axis='data', spatial_axis=None):
-        """Train data-parallel over a 1D mesh of ranks
-        (``parallel.get_mesh``, on this model's device): params and
-        optimizer state are broadcast from the mesh's first rank, each
-        rank then passes its OWN rows of every batch (its own batch
-        handler, or its block of a global batch: ``parallel.shard_batch``)
-        and every rank reports the global batch's losses and applies the
-        same update (the module docstring says how). Only the first rank
-        writes checkpoints, history and tensorboard files.
+        """Train data-parallel over a mesh of ranks (``parallel.get_mesh``
+        or ``get_mesh_2d``, on this model's device): params and optimizer
+        state are broadcast from the mesh's first rank, each rank then
+        passes its OWN rows of every batch (its own batch handler, or its
+        block of a global batch: ``parallel.shard_batch``) and every rank
+        reports the global batch's losses and applies the same update
+        (the module docstring says how). Only the first rank writes
+        checkpoints, history and tensorboard files.
 
-        A spatial axis (``spatial_axis``, or a 2D mesh) would split each
-        sample's s1 rows too: dp x sp training is ROADMAP queue 1 item
-        9b, and raises."""
-        if spatial_axis or len(mesh.axis_names) != 1:
-            raise NotImplementedError(
-                'attach_mesh: spatially sharded (dp x sp) training is '
-                'ROADMAP queue 1 item 9b; pass a 1D mesh')
+        ``spatial_axis`` (found on a 2D mesh when None, as the JAX
+        package finds it; ``False`` keeps a 2D mesh data-only) also
+        splits each sample's s1 rows over that axis: a rank passes its
+        block of every batch (``parallel.shard_batch_spatial``), and in
+        ``train`` the ranks of one ``space`` group feed the same samples
+        (their batch handlers seeded alike), each taking its block."""
         if axis not in mesh.axis_names:
             raise ValueError(f'attach_mesh: the mesh has axes '
                              f'{mesh.axis_names}, not {axis!r}')
+        if spatial_axis is None and len(mesh.axis_names) == 2:
+            spatial_axis = next(a for a in mesh.axis_names if a != axis)
+        spatial_axis = spatial_axis or None
+        if spatial_axis is not None:
+            if spatial_axis not in mesh.axis_names or spatial_axis == axis:
+                raise ValueError(
+                    f'attach_mesh: spatial_axis={spatial_axis!r} is not a '
+                    f'second axis of the mesh {mesh.axis_names}')
+            if self._spatial_refusal:
+                raise ValueError(f'attach_mesh: {type(self).__name__} '
+                                 f'cannot train on a space axis: '
+                                 f'{self._spatial_refusal}')
         here = torch.empty(0, device=self.device).device
         if torch.empty(0, device=mesh.device).device != here:
             raise ValueError(f'attach_mesh: the mesh is on {mesh.device}, '
                              f'the model on {here}')
         self._mesh, self._mesh_axis = mesh, axis
+        self._mesh_spatial_axis = spatial_axis
         if self.gen_params is not None:
             self._replicate()
+
+    def _space_block(self, *arrays):
+        """This rank's block of s1 rows (dim 1) of each of a batch's
+        arrays, on the attached mesh's ``space`` axis (the arrays
+        themselves without one). The first batch a ``train`` call takes
+        is checked to be the same on every rank of the ``space`` group:
+        each rank takes its block of the same samples."""
+        axis = self._mesh_spatial_axis
+        if axis is None:
+            return arrays
+        if self._check_space_feed:
+            self._check_space_feed = False
+            sums = [float(torch.as_tensor(a, dtype=torch.float64).sum())
+                    for a in arrays]
+            if any(got != sums for got in all_gather_object(
+                    self._mesh, sums, axis)):
+                raise ValueError(
+                    'train on a space axis: the ranks of a space group fed '
+                    'different samples; seed their batch handlers alike '
+                    '(by their index on the batch axis)')
+        return tuple(shard_spatial(self._mesh, a, axis, dim=1)
+                     for a in arrays)
+
+    #: whether ``_space_block`` checks the next batch (``train`` sets it)
+    _check_space_feed = False
 
     def _replicate(self):
         """Broadcast both networks' params and optimizer states from the
@@ -675,11 +746,12 @@ class Sup3rGan(AbstractSingleModel):
         do_disc = bool(only_disc or (train_disc and not disc_too_good))
         if hasattr(batch, 'sample'):
             details = self.run_gradient_descent_on_sample(
-                batch.sample, weight_gen_advers=weight_gen_advers,
+                *self._space_block(batch.sample),
+                weight_gen_advers=weight_gen_advers,
                 train_gen=do_gen, train_disc=do_disc)
         else:
             details = self.run_gradient_descent(
-                batch.low_res, batch.high_res,
+                *self._space_block(batch.low_res, batch.high_res),
                 weight_gen_advers=weight_gen_advers,
                 train_gen=do_gen, train_disc=do_disc)
         details['gen_train_frac'] = float(do_gen)
@@ -732,14 +804,17 @@ class Sup3rGan(AbstractSingleModel):
         """The losses of one validation batch (no gradients), with the
         train step's extra loss terms; over the global batch, gathered as
         in the train step, when a mesh is attached."""
-        gather = self._gather
+        gather = self._gather_hr
         names = self.hr_exo_features
         slc = slice(0, -len(names)) if names else slice(None)
+        shard = self._spatial_shard()
+        space = {} if shard is None else {'spatial': shard}
+        gather_d = self._gather_disc()
         exo, state = self._val_exo(hr)
-        out = self._train_gen_net().apply(lr, exo)
+        out = self._train_gen_net().apply(lr, self._layer_exo(exo), **space)
         full = self._combine_loss_input(hr, out)
-        d_true = gather(self._disc.apply(hr))
-        d_gen = gather(self._disc.apply(full))
+        d_true = gather_d(self._disc.apply(hr, **space))
+        d_gen = gather_d(self._disc.apply(full, **space))
         full, hr = gather(full), gather(hr)
         out = full[..., :out.shape[-1]]
         content = apply_loss(self.loss_fun, full[..., slc], hr[..., slc])
@@ -791,11 +866,11 @@ class Sup3rGan(AbstractSingleModel):
         with torch.no_grad(), exact_fp32():
             for batch in val_data:
                 if hasattr(batch, 'sample'):
-                    lr, hr = self._split_sample(
-                        self._place_batch(batch.sample))
+                    lr, hr = self._split_sample(self._place_batch(
+                        *self._space_block(batch.sample)))
                 else:
-                    lr = self._place_batch(batch.low_res)
-                    hr = self._place_batch(batch.high_res)
+                    lr, hr = (self._place_batch(a) for a in self._space_block(
+                        batch.low_res, batch.high_res))
                 details = self._val_step(lr, hr, float(weight_gen_advers))
                 record = self.update_loss_details(
                     record, self._fetch_details(details), prefix='val_')
@@ -823,6 +898,7 @@ class Sup3rGan(AbstractSingleModel):
         batches on this model's device (its ``device``, set here when it
         has none)."""
         self._prepare_training(batch_handler, input_resolution)
+        self._check_space_feed = self._mesh_spatial_axis is not None
         transform_config = getattr(batch_handler, 'transform_config',
                                    None)
         if transform_config is not None:

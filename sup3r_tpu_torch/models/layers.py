@@ -27,12 +27,28 @@ the observation layers (``Sup3rConcatObs``, ``Sup3rObsModel``) read
 sparse, NaN-filled observation rasters from ``ctx['exo']``.
 
 Under a spatial mesh ``ctx['spatial']`` holds a
-``parallel.mesh.SpatialShard`` and each rank's tensor is its block of s1
-rows. A layer with ``sharded_form`` runs on the block: the elementwise
-layers, skip connections and expansions (a block of rows expands into
-r times the rows) as they are, the exo layers on their raster's rows at
-the layer's resolution, and stride-1 'same' convs after a halo exchange
-(zero rows at the global edges). ``Network`` refuses the others.
+``parallel.mesh.SpatialShard``, each rank's tensor is its block of s1
+rows and ``ctx['s1']`` the activation's global s1 rows, split over the
+ranks as ``even_split`` splits them. A layer with ``sharded_form`` runs
+on the block, differentiably:
+
+  * the elementwise layers and skip connections as they are; Dropout on
+    its rows of the global batch's mask;
+  * expansions: a block of rows expands into r times the rows (blocks of
+    equal rows only);
+  * the exo layers on their raster's rows at the layer's resolution;
+  * convs: a stride-1 'same' conv after a halo exchange (zero rows at
+    the global edges); any other (strided, 'valid') on the input rows
+    its block of the even split of the OUTPUT rows reads
+    (``redistribute_rows``);
+  * ``Flatten`` then ``Dense``: the flattened block is a contiguous
+    slice of the flattened sample (s1 is outermost), so the ``Dense``
+    is row-parallel: the block times its rows of the kernel, summed over
+    the ranks (``sum_over_ranks``), the bias added once after the sum.
+    From there on the activation is whole on every rank and the layers
+    run as on one device (``Network.space_replicated_params``).
+
+``Network`` refuses the others with a ValueError that says why.
 """
 
 import inspect
@@ -43,6 +59,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sup3r_tpu_torch.parallel.mesh import sum_over_ranks
 
 logger = logging.getLogger(__name__)
 
@@ -127,6 +145,9 @@ class Layer(nn.Module):
     #: (``ctx['spatial']``)
     sharded_form = False
 
+    #: why a layer without ``sharded_form`` has none
+    unsharded_reason = 'it has no spatially sharded form'
+
     def init(self, in_shape, generator):
         """Create parameters for the given input shape; returns the
         output shape."""
@@ -207,7 +228,8 @@ class Dropout(Layer):
     (rank index i of n, each rank holding an equal block of the global
     batch) the mask is drawn for the whole global batch and this rank
     keeps its block i: a data-parallel step masks each sample as one
-    device would."""
+    device would. On a block of s1 rows (``ctx['spatial']``) the mask
+    is drawn for the global s1 rows too and the rank keeps its block."""
 
     sharded_form = True
 
@@ -222,20 +244,36 @@ class Dropout(Layer):
         keep = 1.0 - self.rate
         index, n = ctx.get('dropout_rows') or (0, 1)
         rows = x.shape[0]
-        mask = torch.rand((n * rows, *x.shape[1:]), generator=generator,
+        shape = [n * rows, *x.shape[1:]]
+        shard = ctx.get('spatial')
+        if shard is not None:
+            shape[2] = ctx['s1']
+        mask = torch.rand(shape, generator=generator,
                           device=generator.device)[
-                              index * rows:(index + 1) * rows] < keep
-        return torch.where(mask.to(x.device), x / keep, 0.0)
+                              index * rows:(index + 1) * rows]
+        if shard is not None:
+            mask = mask.narrow(2, *shard.block(ctx['s1']))
+        return torch.where(mask.to(x.device) < keep, x / keep, 0.0)
 
 
 class Flatten(Layer):
     """Collapse all non-batch dims, in the channels-last order the JAX
-    package flattens (so a following Dense sees the same features)."""
+    package flattens (so a following Dense sees the same features). On
+    a block of s1 rows the block's features are a contiguous slice of
+    the sample's (s1 is outermost): ``ctx['row_parallel']`` gets the
+    slice's first feature, for the row-parallel ``Dense`` that must
+    follow."""
+
+    sharded_form = True
 
     def out_shape(self, in_shape):
         return (in_shape[0], int(np.prod(in_shape[1:])))
 
     def forward(self, x, ctx):
+        shard = ctx.get('spatial')
+        if shard is not None:
+            row = int(np.prod(x.shape[3:])) * x.shape[1]
+            ctx['row_parallel'] = shard.block(ctx['s1'])[0] * row
         return x.movedim(1, -1).reshape(x.shape[0], -1)
 
 
@@ -264,12 +302,23 @@ class Dense(Layer):
         return {'kernel': _numpy(tensors['weight'].T),
                 'bias': _numpy(tensors['bias'])}
 
+    sharded_form = True
+
     def forward(self, x, ctx):
         # the params run in the input's dtype (bf16 training casts the
         # input); the cast is differentiable, so the float32 params get
         # float32 gradients
-        y = F.linear(x.movedim(1, -1), self.weight.to(x.dtype),
-                     self.bias.to(x.dtype)).movedim(-1, 1)
+        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        offset = ctx.pop('row_parallel', None)
+        if offset is not None:
+            # row-parallel: this block's features times its rows of the
+            # kernel, summed over the ranks; the bias once, after the sum
+            shard = ctx['spatial']
+            part = F.linear(x, weight.narrow(1, offset, x.shape[1]))
+            y = sum_over_ranks(shard.mesh, part, shard.axis) + bias
+            ctx['spatial'] = None  # whole on every rank from here on
+        else:
+            y = F.linear(x.movedim(1, -1), weight, bias).movedim(-1, 1)
         return self._act(y) if self._act else y
 
 
@@ -295,6 +344,12 @@ class FlexiblePadding(Layer):
     e.g. ``[[0,0],[3,3],[3,3],[0,0]]``. ``F.pad`` has no 'symmetric'
     mode, so reflect and symmetric pads gather along each padded dim by
     index math (``_pad_index``); constant pads go through ``F.pad``."""
+
+    unsharded_reason = (
+        'a pad of s1 (reflect, symmetric or constant) takes rows from or '
+        'adds rows at the global edges only; fuse it with its conv and '
+        'crop (train_fuse / inference_fuse, the defaults) into one '
+        'reflect conv, which has a sharded form')
 
     def __init__(self, paddings, mode='REFLECT', **_):
         super().__init__()
@@ -326,6 +381,9 @@ class _Cropping(Layer):
     same crop both sides of every spatial dim)."""
 
     n_spatial = 2
+    unsharded_reason = (
+        'a crop of s1 drops rows at the global edges only; fuse it with '
+        'its pad and conv (train_fuse / inference_fuse, the defaults)')
 
     def __init__(self, cropping=0, **_):
         super().__init__()
@@ -455,34 +513,75 @@ class _ConvBase(Layer):
         return weight.flip(tuple(range(2, 2 + n))).transpose(
             0, 1).contiguous()
 
-    def _sharded_input(self, x, shard):
-        """A block of s1 rows with the rows its conv reads from the
-        neighbouring blocks above and below (zero rows at a global edge,
-        as 'same' padding has): stride-1 'same' convs (or k = 1 on s1)
-        only."""
+    def _sharded_input(self, x, ctx):
+        """The input rows this rank's block of the conv's output rows
+        reads (the even split of the global output rows), with zero rows
+        for 'same' padding past a global edge; sets ``ctx['s1']`` to the
+        output's global rows. A stride-1 'same' conv whose every input
+        block holds its halo's rows takes them from its neighbours
+        (``halo_exchange``); any other reads them through
+        ``redistribute_rows``."""
+        if self.transpose:
+            raise ValueError(
+                f'{type(self).__name__} has no spatially sharded form: a '
+                'transposed conv spreads each row over strided output rows; '
+                'fuse it with its pad and crop (train_fuse / '
+                'inference_fuse, the defaults) into one reflect conv')
+        shard, n = ctx['spatial'], ctx['s1']
         k, stride = self.kernel_size[0], self.strides[0]
-        if self.transpose or stride != 1 or (
-                self.padding != 'SAME' and k != 1):
-            raise NotImplementedError(
-                f'{type(self).__name__}(kernel_size={self.kernel_size}, '
-                f'strides={self.strides}, padding={self.padding!r}) has no '
-                'spatially sharded form (stride-1 SAME convs only): '
-                'ROADMAP queue 1 item 9b')
-        before, after = _same_pads(x.shape[2], k, 1)
-        top, bottom = shard.halo(x, 2, before, after)
+        if self.padding == 'SAME':
+            n_out = -(-n // stride)
+            before, after = _same_pads(n, k, stride)
+        else:
+            n_out = (n - k) // stride + 1
+            before, after = 0, 0
+        ctx['s1'] = n_out
+        split = shard.split(n)
+        if (stride == 1 and self.padding == 'SAME' and (before or after)
+                and all(c >= max(before, after) for _, c in split)):
+            top, bottom = shard.halo(x, 2, before, after)
 
-        def rows(t, n):
-            return x.new_zeros((*x.shape[:2], n, *x.shape[3:])) if (
-                t is None) else t
+            def rows(t, m):
+                return x.new_zeros((*x.shape[:2], m, *x.shape[3:])) if (
+                    t is None) else t
 
-        return torch.cat([rows(top, before), x, rows(bottom, after)], dim=2)
+            return torch.cat([rows(top, before), x, rows(bottom, after)],
+                             dim=2)
+        needs, pads = [], []
+        for start, count in shard.split(n_out):
+            lo = start * stride - before
+            hi = lo + (count - 1) * stride + k if count else lo
+            needs.append((min(max(lo, 0), n), max(min(hi, n), 0)))
+            pads.append((needs[-1][0] - lo if count else 0,
+                         hi - needs[-1][1] if count else 0))
+        needs = [(lo, max(lo, hi)) for lo, hi in needs]
+        rows = shard.redistribute(x, n, needs)
+        top, bottom = pads[shard.index]
+        if top or bottom:
+            shape = list(rows.shape)
+            rows = torch.cat([rows.new_zeros([*shape[:2], top, *shape[3:]]),
+                              rows,
+                              rows.new_zeros([*shape[:2], bottom,
+                                              *shape[3:]])], dim=2)
+        return rows
+
+    def _conv_rows(self, conv, x, weight, bias):
+        """The conv of a block of input rows (valid on s1). A rank with
+        no output rows runs it on an empty batch: its graph, and so its
+        backward's collectives, stay those of the other ranks."""
+        if x.shape[2]:
+            return conv(x, weight, bias, self.strides)
+        n, c = x.shape[:2]
+        y = conv(x.reshape(0, c, self.kernel_size[0], *x.shape[3:]), weight,
+                 bias, self.strides)
+        return y.reshape(n, y.shape[1], 0, *y.shape[3:])
 
     def forward(self, x, ctx):
         # params in the input's dtype, as the JAX layers cast them
         weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
         shard = ctx.get('spatial')
         if shard is not None:
-            x = self._sharded_input(x, shard)
+            x = self._sharded_input(x, ctx)
         if self.transpose:
             conv = F.conv_transpose3d if self.n_spatial == 3 else (
                 F.conv_transpose2d)
@@ -506,7 +605,8 @@ class _ConvBase(Layer):
                     flat[-2:] = [0, 0]
                 x = F.pad(x, flat)
             conv = F.conv3d if self.n_spatial == 3 else F.conv2d
-            y = conv(x, weight, bias, self.strides)
+            y = (conv(x, weight, bias, self.strides) if shard is None
+                 else self._conv_rows(conv, x, weight, bias))
         return self._act(y) if self._act else y
 
 
@@ -549,6 +649,22 @@ def _depth_to_space(x, r):
     return x.reshape(n, c, h * r, w * r, *rest)
 
 
+def _expand_rows(ctx, layer):
+    """Under a spatial mesh: a block of rows expands into ``spatial_mult``
+    times the rows, which is the even split of the expanded rows only
+    when the blocks hold equal rows (raises otherwise)."""
+    shard = ctx.get('spatial')
+    if shard is None or layer.spatial_mult == 1:
+        return
+    n = ctx['s1']
+    if n % shard.size:
+        raise ValueError(
+            f'{type(layer).__name__} on a spatial mesh: {n} s1 rows over '
+            f'{shard.size} ranks are blocks of unequal rows, whose '
+            'expansions would not be the even split of the expanded rows')
+    ctx['s1'] = n * layer.spatial_mult
+
+
 class SpatialExpansion(Layer):
     """Pixel-shuffle spatial expansion of a 4D tensor.
 
@@ -573,6 +689,7 @@ class SpatialExpansion(Layer):
 
     def forward(self, x, ctx):
         self.out_shape((x.shape[0], *x.shape[2:], x.shape[1]))
+        _expand_rows(ctx, self)
         return _depth_to_space(x, self.spatial_mult)
 
 
@@ -635,6 +752,7 @@ class SpatioTemporalExpansion(Layer):
 
     def forward(self, x, ctx):
         self.out_shape((x.shape[0], *x.shape[2:], x.shape[1]))
+        _expand_rows(ctx, self)
         x = self._expand_time(x)
         if self.spatial_mult == 1:
             return x
@@ -688,7 +806,7 @@ class _ExoLayerBase(Layer):
             t = t[..., None]
         shard = ctx.get('spatial')
         if shard is not None:
-            t = shard.rows(t, 1, x.shape[2])
+            t = shard.rows(t, 1, ctx['s1'])
         # broadcast batch dim if exo was provided unbatched
         if t.ndim == x.ndim and t.shape[0] == 1 and x.shape[0] != 1:
             t = t.expand(x.shape[0], *t.shape[1:])

@@ -16,6 +16,8 @@ from torch import nn
 from sup3r_tpu_torch.models.layers import (
     EXO_LAYERS,
     OBS_LAYERS,
+    Dense,
+    Flatten,
     FlexiblePadding,
     build_layers,
 )
@@ -132,16 +134,27 @@ class Network(nn.Module):
         ``dropout_rows`` (this rank's index, the number of ranks) makes
         their masks the global batch's rows of a data-parallel step. With a
         ``spatial`` shard (``parallel.mesh.SpatialShard``) ``x`` is this
-        rank's block of s1 rows, and a layer without a sharded form
-        raises."""
+        rank's block of s1 rows, every rank's block of equal rows; a
+        layer without a sharded form raises a ValueError that says why
+        (``models/layers.py`` lists the sharded forms)."""
         ctx = {'exo': exo or {}, 'skips': {}, 'train': train,
                'dropout_generator': dropout_generator, 'spatial': spatial,
                'dropout_rows': dropout_rows}
+        if spatial is not None:
+            ctx['s1'] = x.shape[2] * spatial.size
+            head = self.row_parallel_index()
+            if head is not None and not (
+                    head < len(self.layers)
+                    and isinstance(self.layers[head], Dense)):
+                raise ValueError(
+                    'a Flatten on a spatial mesh must be followed by a '
+                    'Dense: a flattened block of s1 rows feeds a '
+                    'row-parallel Dense only')
         for lyr in self.layers:
-            if spatial is not None and not lyr.sharded_form:
-                raise NotImplementedError(
-                    f'{type(lyr).__name__} has no spatially sharded form '
-                    '(use_mesh="spatial"): ROADMAP queue 1 item 9b')
+            if ctx['spatial'] is not None and not lyr.sharded_form:
+                raise ValueError(
+                    f'{type(lyr).__name__} cannot run on a block of s1 rows '
+                    f'of a spatial mesh: {lyr.unsharded_reason}')
             x = lyr(x, ctx)
         if ctx['skips']:
             raise ValueError(
@@ -149,6 +162,38 @@ class Network(nn.Module):
                 f'{sorted(ctx["skips"])} — each SkipConnection name must '
                 'appear exactly twice')
         return x
+
+    def row_parallel_index(self):
+        """Where a run on blocks of s1 rows becomes whole on every rank
+        of a ``space`` group: the index of the row-parallel ``Dense``
+        that follows the first ``Flatten`` (the flattened block's
+        features times its rows of the kernel, summed over the group), or
+        None without a Flatten (the output is then the rank's block)."""
+        for i, lyr in enumerate(self.layers):
+            if isinstance(lyr, Flatten):
+                return i + 1
+        return None
+
+    @property
+    def whole_on_space(self):
+        """Whether a run on blocks of s1 rows gives every rank of a
+        ``space`` group the whole output (a Flatten -> Dense head), not
+        its block."""
+        return self.row_parallel_index() is not None
+
+    def space_replicated_params(self):
+        """The params computed whole on every rank of a ``space`` group
+        when the network runs on blocks of s1 rows: the bias of the
+        row-parallel ``Dense`` (``row_parallel_index``), and every param
+        after it. Their gradients are the same on every rank of the
+        group, so a step sums them over the ``data`` axis only; every
+        other param's gradient is a rank's share, summed over all
+        ranks."""
+        head = self.row_parallel_index()
+        if head is None or head >= len(self.layers):
+            return []
+        return [self.layers[head].bias] + [
+            p for lyr in self.layers[head + 1:] for p in lyr.parameters()]
 
     def apply(self, x, exo=None, train=False, dropout_generator=None,
               spatial=None, dropout_rows=None):

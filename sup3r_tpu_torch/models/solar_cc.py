@@ -57,6 +57,10 @@ def reflect_pad_time(hi_res, t_pad):
 class SolarCC(Sup3rGan):
     """Solar climate-change GAN with daylight-window losses."""
 
+    _spatial_refusal = (
+        "its own train step, whose discriminator sees daylight windows, "
+        "runs on whole samples")
+
     #: zero-indexed hour daylight starts (after t_roll centering)
     STARTING_HOUR = 8
     #: number of daylight hours per day the discriminator sees
@@ -136,7 +140,6 @@ class SolarCC(Sup3rGan):
         solar_cc.py:46-158). The discriminator's loss draws its own
         windows of the generated output, as the JAX step does, and reads
         it without gradients to the generator."""
-        self._check_train_options()
         self._step_counter += 1
         gen_params, disc_params = self.gen_params, self.disc_params
         gen_apply = self._maybe_remat(self._train_gen_net().apply)

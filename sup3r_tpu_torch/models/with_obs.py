@@ -34,6 +34,9 @@ def _masked_mae(a, b, weights):
 class Sup3rGanWithObs(Sup3rGan):
     """GAN with observation fusion layers and an observation loss."""
 
+    _spatial_refusal = (
+        "its observation mask is drawn for whole samples")
+
     def __init__(self, *args, onshore_obs_frac=None, offshore_obs_frac=None,
                  loss_obs=None, loss_obs_weight=0.1, **kwargs):
         """``onshore_obs_frac`` / ``offshore_obs_frac``: dicts with

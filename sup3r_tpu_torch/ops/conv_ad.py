@@ -29,7 +29,9 @@ formulation (zero s1 pad inside the conv, the two boundary rows
 corrected), with the custom backward of its ``_sa_bwd``.
 ``reflect_conv_halo`` is the route of a block of s1 rows under a
 spatial mesh: the neighbours' boundary rows (or the block's own reflect
-row at a global edge) above and below, then a conv that is valid on s1.
+row at a global edge) above and below, then a conv that is valid on s1,
+with the shard-local form of the shard-aligned backward
+(``ReflectConvHalo``).
 """
 
 import torch
@@ -64,9 +66,10 @@ def _conv_weight_grad(n_spatial):
 def shard_aligned_worthwhile(spatial_width):
     """Whether the JAX package's shard-aligned s1 formulation pays off
     on a spatial mesh axis of this width (>= 4: at 2 its XLA partitioner
-    already moves 1-row halos). The port's sharded route exchanges one
-    row each way at any width, so only ROADMAP item 9b's training will
-    ask."""
+    already moves 1-row halos): the gate of ``train_shard_aligned=None``.
+    The port's halo route exchanges one row each way at any width in
+    either formulation; the gate picks the route of the blocks the small
+    kernel takes (``models.fuse.FusedReflectConv``)."""
     return int(spatial_width) >= 4
 
 
@@ -221,24 +224,72 @@ def reflect_conv_shard_aligned(x, weight, bias, n_spatial, alpha):
     return ReflectConvShardAligned.apply(x, weight, bias, n_spatial, alpha)
 
 
+def _halo_rows(x, top, bottom):
+    """The block with its rows above and below: the neighbours' (``top``
+    / ``bottom`` with rows), else at a global edge the block's own
+    reflect row."""
+    return torch.cat([top if top.shape[2] else x[:, :, 1:2], x,
+                      bottom if bottom.shape[2] else x[:, :, -2:-1]], dim=2)
+
+
+class ReflectConvHalo(torch.autograd.Function):
+    """``reflect_conv_ad`` on a block of s1 rows (dim 2) with its halo
+    rows, and its backward: the shard-local form of
+    ``ReflectConvShardAligned``'s. The dgrad conv (full on s2 / t, valid
+    on s1) and the wgrad run on the halo-padded block; the s2 / t halos
+    fold back as in ``reflect_conv_backward``. The halo rows' gradients
+    are returned as ``top`` / ``bottom``'s (the halo exchange's backward
+    sends them to their owners). At a global edge (a 0-row ``top`` /
+    ``bottom``) the reflect row's gradient folds into the block's row 1
+    (or -2)."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, weight, bias, n_spatial, alpha):
+        xp = _pad_st(_halo_rows(x, top, bottom), n_spatial)
+        pre = _conv(n_spatial)(xp, weight, bias)
+        ctx.save_for_backward(x, top, bottom, weight,
+                              None if alpha is None else pre)
+        ctx.n_spatial, ctx.alpha = n_spatial, alpha
+        return _leaky(pre, alpha)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, top, bottom, weight, pre = ctx.saved_tensors
+        n = ctx.n_spatial
+        if ctx.alpha is not None:
+            dy = torch.where(pre >= 0, dy, dy * float(ctx.alpha))
+        db = dy.sum(dim=[0, *range(2, dy.ndim)])
+        kf = weight.flip(list(range(2, 2 + n))).transpose(0, 1)
+        # the gradient of the halo-padded, s2 / t-padded block
+        gh = _fold_reflect_halos(_conv(n)(dy, kf, padding=2), n, start=1)
+        xp = _pad_st(_halo_rows(x, top, bottom), n)
+        dw = _conv_weight_grad(n)(xp, weight.shape, dy)
+        dx = gh[:, :, 1:-1].clone()
+        g_top, g_bottom = gh[:, :, :1], gh[:, :, -1:]
+        if not top.shape[2]:  # the reflect row was x[1]
+            dx[:, :, 1:2] += g_top
+            g_top = top.new_zeros(top.shape)
+        if not bottom.shape[2]:
+            dx[:, :, -2:-1] += g_bottom
+            g_bottom = bottom.new_zeros(bottom.shape)
+        return dx, g_top, g_bottom, dw, db, None, None
+
+
 def reflect_conv_halo(x, weight, bias, n_spatial, alpha, top=None,
                       bottom=None):
-    """``reflect_conv_ad``'s forward on a block of s1 rows (dim 2) of a
-    tensor split over ranks: ``top`` / ``bottom`` are the neighbouring
-    ranks' boundary rows (``halo_exchange``); at a global edge (None)
-    the block's own reflect row stands in. The conv is valid on s1 and
-    reflect-padded on s2 / t, so the rows out equal the unsplit conv's.
-    Forward only: spatially sharded training is ROADMAP item 9b."""
+    """``reflect_conv_ad`` on a block of s1 rows (dim 2) of a tensor
+    split over ranks: ``top`` / ``bottom`` are the neighbouring ranks'
+    boundary rows (``halo_exchange``); at a global edge (None, or a
+    tensor of 0 rows) the block's own reflect row stands in. The conv is valid on s1 and reflect-padded on s2 / t,
+    so the rows out equal the unsplit conv's. Differentiable in ``x``,
+    the halo rows, ``weight`` and ``bias`` (``ReflectConvHalo``)."""
     _check_k3(weight, n_spatial)
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        raise NotImplementedError(
-            'gradients through a spatially sharded conv: spatially sharded '
-            'training is ROADMAP queue 1 item 9b')
     if x.shape[2] < 2:
         raise ValueError(
             f'a spatially sharded reflect conv needs >= 2 s1 rows on each '
             f'rank (its reflect row at a global edge); got {x.shape[2]}')
-    top = x[:, :, 1:2] if top is None else top
-    bottom = x[:, :, -2:-1] if bottom is None else bottom
-    xp = _pad_st(torch.cat([top, x, bottom], dim=2), n_spatial)
-    return _leaky(_conv(n_spatial)(xp, weight, bias), alpha)
+    rows = (*x.shape[:2], 0, *x.shape[3:])
+    top = x.new_empty(rows) if top is None else top
+    bottom = x.new_empty(rows) if bottom is None else bottom
+    return ReflectConvHalo.apply(x, top, bottom, weight, bias, n_spatial,
+                                 alpha)

@@ -11,6 +11,13 @@ convention:
     on gathered tensors (``all_gather_rows``), so every rank reports the
     global batch's losses, and the gradients are summed over the ranks
     (``all_reduce_``) before each update;
+  * dp x sp training (``get_mesh_2d``): each rank also holds a block of
+    each sample's s1 rows, and the networks' exchanges between ranks
+    are differentiable: ``halo_exchange``'s backward sends each halo
+    row's gradient to its owner, ``redistribute_rows`` (a strided or
+    'valid' conv's input rows) has its exact transpose, the ``space``
+    gather's backward is the rank's own block and ``sum_over_ranks``'s
+    (a row-parallel Dense) is the identity;
   * inference, chunk fan-out (``use_mesh=True``): each rank runs its
     share of every device batch of chunks;
   * inference, spatial (``use_mesh='spatial'``): each rank holds a
@@ -171,10 +178,10 @@ def get_mesh(n_devices=None, axis='data', devices=None):
 
 def get_mesh_2d(dp, sp, axes=('data', 'space'), devices=None):
     """A 2D (dp x sp) mesh over the first dp * sp ranks: the layout of
-    data parallelism composed with spatial decomposition. Training on it
-    is ROADMAP queue 1 item 9b; this builds the mesh and its per-axis
-    groups (``shard_batch_spatial`` cuts a rank's block). Raises when the
-    world has fewer than dp * sp ranks."""
+    data parallelism composed with spatial decomposition, with its
+    per-axis groups (``shard_batch_spatial`` cuts a rank's block;
+    ``Sup3rGan.attach_mesh`` trains on it). Raises when the world has
+    fewer than dp * sp ranks."""
     rank, world = _world(devices)
     dp, sp = int(dp), int(sp)
     if dp * sp > world:
@@ -378,49 +385,223 @@ def init_multihost(coordinator_address=None, num_processes=None,
 
 # ----------------------------------------------------------------------
 # collectives (no-ops on a mesh without a process group)
+def even_split(n, parts):
+    """[(start, count)] of ``n`` rows split over ``parts`` ranks: an even
+    split, the first ``n % parts`` ranks taking one row more (a rank may
+    hold none)."""
+    base, extra = divmod(int(n), int(parts))
+    out, start = [], 0
+    for i in range(int(parts)):
+        count = base + (i < extra)
+        out.append((start, count))
+        start += count
+    return out
+
+
+def _exchange(mesh, group, sends, recvs, like, kind):
+    """One ``batch_isend_irecv``: ``sends`` is [(peer, tensor)],
+    ``recvs`` [(peer, shape)]; returns the received tensors (dtype and
+    device of ``like``), in the order of ``recvs``. Empty messages are
+    skipped on both sides (every rank knows every size). The bytes sent
+    are counted under ``kind``."""
+    staged = mesh.staged(like)
+    ops, out = [], []
+    for peer, t in sends:
+        if t.numel():
+            t = t.contiguous()
+            t = t.cpu() if staged else t
+            ops.append(dist.P2POp(dist.isend, t, peer, group))
+            mesh.count(kind, t.numel() * t.element_size())
+    for peer, shape in recvs:
+        buf = torch.empty(shape, dtype=like.dtype,
+                          device='cpu' if staged else like.device)
+        if buf.numel():
+            ops.append(dist.P2POp(dist.irecv, buf, peer, group))
+        out.append(buf)
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return [t.to(like.device) if staged else t for t in out]
+
+
+def _rows_shape(x, dim, n):
+    return (*x.shape[:dim], n, *x.shape[dim + 1:])
+
+
+def _halo_send_recv(mesh, x, dim, before, after, axis, kind='halo'):
+    """(rows above, rows below) this rank's block: the previous rank's
+    last ``before`` rows and the next rank's first ``after`` rows, empty
+    (0 rows) at the global edges."""
+    group, peers = mesh.group(axis), mesh.axis_ranks(axis)
+    i, n = mesh.axis_index(axis), x.shape[dim]
+    sends, recvs = [], []
+    if i > 0:  # my first rows are the previous rank's bottom halo
+        sends.append((peers[i - 1], x.narrow(dim, 0, after)))
+        recvs.append((peers[i - 1], _rows_shape(x, dim, before)))
+    if i < len(peers) - 1:  # my last rows are the next rank's top halo
+        sends.append((peers[i + 1], x.narrow(dim, n - before, before)))
+        recvs.append((peers[i + 1], _rows_shape(x, dim, after)))
+    got = _exchange(mesh, group, sends, recvs, x, kind)
+    top = got.pop(0) if i > 0 else x.new_empty(_rows_shape(x, dim, 0))
+    bottom = got.pop(0) if i < len(peers) - 1 else x.new_empty(
+        _rows_shape(x, dim, 0))
+    return top, bottom
+
+
+class _HaloExchange(torch.autograd.Function):
+    """The halo exchange and its transpose. Forward: the neighbours'
+    boundary rows. Backward: the gradient of each received row goes
+    back to the rank that owns the row, which adds it to that row's
+    gradient (one ``batch_isend_irecv`` each way, counted as 'halo')."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, before, after, axis):
+        ctx.args = (mesh, dim, before, after, axis)
+        ctx.shape = x.shape
+        return _halo_send_recv(mesh, x, dim, before, after, axis)
+
+    @staticmethod
+    def backward(ctx, g_top, g_bottom):
+        mesh, dim, before, after, axis = ctx.args
+        group, peers = mesh.group(axis), mesh.axis_ranks(axis)
+        i = mesh.axis_index(axis)
+        dx = g_top.new_zeros(ctx.shape)
+        n = dx.shape[dim]
+        sends, recvs = [], []
+        if i > 0:  # my top halo's gradient belongs to the previous rank
+            sends.append((peers[i - 1], g_top))
+            recvs.append((peers[i - 1], _rows_shape(dx, dim, after)))
+        if i < len(peers) - 1:
+            sends.append((peers[i + 1], g_bottom))
+            recvs.append((peers[i + 1], _rows_shape(dx, dim, before)))
+        got = _exchange(mesh, group, sends, recvs, dx, 'halo')
+        if i > 0:
+            dx.narrow(dim, 0, after).add_(got.pop(0))
+        if i < len(peers) - 1:
+            dx.narrow(dim, n - before, before).add_(got.pop(0))
+        return dx, None, None, None, None, None
+
+
 def halo_exchange(mesh, x, dim, before=1, after=1, axis=None):
     """The rows of the neighbouring ranks' blocks next to this rank's
     block of ``x`` along ``dim``: (the last ``before`` rows of the
     previous rank along ``axis``, the first ``after`` rows of the next),
     None at the global edges (and on a mesh without a process group).
-    One ``batch_isend_irecv`` for both neighbours."""
+    One ``batch_isend_irecv`` for both neighbours; differentiable
+    (``_HaloExchange``: the backward sends each halo row's gradient to
+    its owner, one ``batch_isend_irecv`` too)."""
     axis = axis or mesh.axis_names[0]
-    group = mesh.group(axis)
-    peers = mesh.axis_ranks(axis)
-    i = mesh.axis_index(axis)
-    if group is None or len(peers) == 1:
+    if mesh.group(axis) is None or mesh.shape[axis] == 1:
         return None, None
-    staged = mesh.staged(x)
-    ops, recvs = [], {}
-
-    def post(rows, width, peer, key):
-        """Send ``rows`` to ``peer`` and receive ``width`` rows from it."""
-        if rows.shape[dim]:
-            send = rows.contiguous()
-            send = send.cpu() if staged else send
-            ops.append(dist.P2POp(dist.isend, send, peer, group))
-            mesh.count('halo', send.numel() * send.element_size())
-        if width:
-            recv = torch.empty((*x.shape[:dim], width, *x.shape[dim + 1:]),
-                               dtype=x.dtype,
-                               device='cpu' if staged else x.device)
-            ops.append(dist.P2POp(dist.irecv, recv, peer, group))
-            recvs[key] = recv
-
-    n = x.shape[dim]
-    if i > 0:  # my first rows are the previous rank's bottom halo
-        post(x.narrow(dim, 0, after), before, peers[i - 1], 'top')
-    if i < len(peers) - 1:  # my last rows are the next rank's top halo
-        post(x.narrow(dim, n - before, before), after, peers[i + 1],
-             'bottom')
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    out = [recvs.get(k) for k in ('top', 'bottom')]
-    return tuple(t.to(x.device) if t is not None and staged else t
-                 for t in out)
+    if torch.is_grad_enabled() and x.requires_grad:
+        top, bottom = _HaloExchange.apply(x, mesh, dim, before, after, axis)
+    else:
+        top, bottom = _halo_send_recv(mesh, x, dim, before, after, axis)
+    i = mesh.axis_index(axis)
+    return (top if i > 0 else None,
+            bottom if i < mesh.shape[axis] - 1 else None)
 
 
-def _all_gather_cat(mesh, x, axis):
+def _redistribute(mesh, x, dim, axis, owned, needs, kind='rows'):
+    """Rows [lo, hi) of the global tensor for this rank (``needs[i]``),
+    from the ranks that own them (``owned``: [(start, count)] per rank);
+    the received pieces and the rank's own are concatenated in row
+    order."""
+    group, peers = mesh.group(axis), mesh.axis_ranks(axis)
+    i = mesh.axis_index(axis)
+    start, count = owned[i]
+    sends, recvs, pieces = [], [], []
+    for j, peer in enumerate(peers):
+        lo, hi = needs[j]
+        a, b = max(lo, start), min(hi, start + count)
+        if j != i and b > a:
+            sends.append((peer, x.narrow(dim, a - start, b - a)))
+    lo, hi = needs[i]
+    for j, peer in enumerate(peers):
+        s, c = owned[j]
+        a, b = max(lo, s), min(hi, s + c)
+        if b > a:
+            pieces.append((j, a, b))
+            if j != i:
+                recvs.append((peer, _rows_shape(x, dim, b - a)))
+    got = iter(_exchange(mesh, group, sends, recvs, x, kind))
+    parts = [x.narrow(dim, a - start, b - a) if j == i else next(got)
+             for j, a, b in pieces]
+    if not parts:
+        return x.new_empty(_rows_shape(x, dim, 0))
+    return torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
+
+
+def _redistribute_grad(mesh, g, dim, axis, owned, needs, shape,
+                       kind='rows'):
+    """The transpose of ``_redistribute``: each received row's gradient
+    goes back to its owner, which adds it to the row's gradient."""
+    group, peers = mesh.group(axis), mesh.axis_ranks(axis)
+    i = mesh.axis_index(axis)
+    start, count = owned[i]
+    lo, hi = needs[i]
+    dx = g.new_zeros(shape)
+    sends, recvs, mine = [], [], []
+    for j, peer in enumerate(peers):
+        s, c = owned[j]
+        a, b = max(lo, s), min(hi, s + c)
+        if b <= a:
+            continue
+        piece = g.narrow(dim, a - lo, b - a)
+        if j == i:
+            mine.append((a, piece))
+        else:
+            sends.append((peer, piece))
+    for j, peer in enumerate(peers):
+        a, b = max(needs[j][0], start), min(needs[j][1], start + count)
+        if j != i and b > a:
+            recvs.append((peer, a, _rows_shape(g, dim, b - a)))
+    got = _exchange(mesh, group, sends, [(p, s) for p, _, s in recvs], g,
+                    kind)
+    for a, piece in mine:
+        dx.narrow(dim, a - start, piece.shape[dim]).add_(piece)
+    for (_, a, _), piece in zip(recvs, got):
+        dx.narrow(dim, a - start, piece.shape[dim]).add_(piece)
+    return dx
+
+
+class _Redistribute(torch.autograd.Function):
+    """``redistribute_rows`` and its exact transpose."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis, owned, needs):
+        ctx.args = (mesh, dim, axis, owned, needs)
+        ctx.shape = x.shape
+        return _redistribute(mesh, x, dim, axis, owned, needs)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim, axis, owned, needs = ctx.args
+        return (_redistribute_grad(mesh, g, dim, axis, owned, needs,
+                                   ctx.shape), None, None, None, None, None)
+
+
+def redistribute_rows(mesh, x, n_rows, needs, dim=2, axis=None):
+    """This rank's rows ``needs[i] = (lo, hi)`` of a tensor of ``n_rows``
+    global rows along ``dim`` held over the ranks of ``axis`` in the even
+    split (``even_split``), each rank holding its block ``x``: every rank
+    passes every rank's ``needs`` (they follow from the shapes), sends
+    the rows others need and receives the rows it needs, one
+    ``batch_isend_irecv`` (counted as 'rows'). The rows a strided or
+    'valid' conv's output block reads. Differentiable: the backward
+    sends each received row's gradient back to its owner."""
+    axis = axis or mesh.axis_names[0]
+    owned = even_split(n_rows, mesh.shape[axis])
+    needs = [(int(lo), int(hi)) for lo, hi in needs]
+    if mesh.group(axis) is None or mesh.shape[axis] == 1:
+        lo, hi = needs[0]
+        return x.narrow(dim, lo, hi - lo)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Redistribute.apply(x, mesh, dim, axis, owned, needs)
+    return _redistribute(mesh, x, dim, axis, owned, needs)
+
+
+def _all_gather_cat(mesh, x, axis, dim=0):
     group = mesh.group(axis)
     if group is None:
         return x
@@ -430,46 +611,86 @@ def _all_gather_cat(mesh, x, axis):
     parts = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, src, group=group)
     mesh.count('gather', src.numel() * src.element_size())
-    out = torch.cat(parts)
+    out = torch.cat(parts, dim=dim)
     return out.to(x.device) if staged else out
 
 
 class _GatherRows(torch.autograd.Function):
-    """Differentiable all-gather along the leading dim. Every rank
-    computes the SAME loss from the gathered tensor, so the gradient of
-    this rank's rows is its own slice of its own gradient (the sum over
-    ranks that ``torch.distributed.nn.functional.all_gather``'s backward
-    forms would be the mesh size times it); the parameter gradients are
-    then summed over the ranks once, by ``all_reduce_``."""
+    """Differentiable all-gather along ``dim``. Every rank computes the
+    SAME loss from the gathered tensor, so the gradient of this rank's
+    block is its own slice of its own gradient (the sum over ranks that
+    ``torch.distributed.nn.functional.all_gather``'s backward forms
+    would be the axis size times it); the parameter gradients are then
+    summed over the ranks once, by ``all_reduce_``."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.index, ctx.rows = mesh.axis_index(axis), x.shape[0]
-        return _all_gather_cat(mesh, x, axis)
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.index, ctx.rows, ctx.dim = (mesh.axis_index(axis), x.shape[dim],
+                                        dim)
+        return _all_gather_cat(mesh, x, axis, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.narrow(0, ctx.index * ctx.rows, ctx.rows), None, None
+        return (grad.narrow(ctx.dim, ctx.index * ctx.rows, ctx.rows), None,
+                None, None)
 
 
-def all_gather_rows(mesh, x, axis=None):
-    """The rows of ``x`` of every rank along ``axis``, stacked in rank
-    order on the leading dim (differentiable; see ``_GatherRows``). The
-    tensor itself on a mesh without a process group."""
+def all_gather_rows(mesh, x, axis=None, dim=0):
+    """The blocks of ``x`` of every rank along ``axis``, stacked in rank
+    order on ``dim`` (the batch rows on dim 0; a sample's s1 blocks of a
+    channels-last tensor on dim 1): every block the same size
+    (differentiable; see ``_GatherRows``). The tensor itself on a mesh
+    without a process group."""
     axis = axis or mesh.axis_names[0]
     if mesh.group(axis) is None:
         return x
     if torch.is_grad_enabled() and x.requires_grad:
-        return _GatherRows.apply(x, mesh, axis)
-    return _all_gather_cat(mesh, x, axis)
+        return _GatherRows.apply(x, mesh, axis, dim)
+    return _all_gather_cat(mesh, x, axis, dim)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of a tensor over the ranks of an axis, when every rank
+    then computes the SAME loss from the sum: the gradient of this
+    rank's term is the sum's gradient itself (the backward is the
+    identity, no collective)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _psum(mesh, x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def _psum(mesh, x, axis):
+    out = x.detach().clone()
+    buf = out.cpu() if mesh.staged(out) else out
+    dist.all_reduce(buf, group=mesh.group(axis))
+    mesh.count('psum', buf.numel() * buf.element_size())
+    return buf.to(out.device)
+
+
+def sum_over_ranks(mesh, x, axis=None):
+    """``x`` summed over the ranks along ``axis`` (a row-parallel
+    ``Dense``'s partial products), the same on every rank of the axis;
+    differentiable for a loss that every rank computes alike
+    (``_SumOverRanks``). Counted as 'psum'."""
+    axis = axis or mesh.axis_names[0]
+    if mesh.group(axis) is None or mesh.shape[axis] == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SumOverRanks.apply(x, mesh, axis)
+    return _psum(mesh, x, axis)
 
 
 @torch.no_grad()
 def all_reduce_(mesh, tensors, axis=None):
-    """Sum ``tensors`` over the ranks along ``axis``, in place, as ONE
-    flat buffer per dtype (one collective per dtype, not per tensor).
-    Returns ``tensors``."""
-    axis = axis or mesh.axis_names[0]
+    """Sum ``tensors`` over the ranks along ``axis`` (over all of the
+    mesh's ranks for ``axis=None``), in place, as ONE flat buffer per
+    dtype (one collective per dtype, not per tensor). Returns
+    ``tensors``."""
     group = mesh.group(axis)
     tensors = list(tensors)
     if group is None or not tensors:
@@ -525,12 +746,13 @@ def broadcast_object(mesh, obj):
     return box[0]
 
 
-def all_gather_object(mesh, obj):
-    """Every rank's ``obj``, in rank order, on every rank."""
-    group = mesh.group()
+def all_gather_object(mesh, obj, axis=None):
+    """Every rank's ``obj`` (of the ranks along ``axis``; of all the
+    mesh's ranks for None), in rank order, on every rank."""
+    group = mesh.group(axis)
     if group is None:
         return [obj]
-    out = [None] * mesh.size
+    out = [None] * (mesh.size if axis is None else mesh.shape[axis])
     dist.all_gather_object(out, obj, group=group)
     return out
 
@@ -538,14 +760,21 @@ def all_gather_object(mesh, obj):
 class SpatialShard:
     """The spatial context of a network run on a block of s1 rows (the
     ``spatial`` entry of a layer's ``ctx``): this rank's position on the
-    mesh's ``axis``, its neighbours' boundary rows (``halo``) and its
-    block of a full-size raster (``rows``)."""
+    mesh's ``axis``, its neighbours' boundary rows (``halo``), the
+    split of a tensor's global s1 rows over the axis (``block``: the
+    even split of ``even_split``, which a rank's input block of equal
+    rows is too) and its rows of a full-size raster (``rows``). With
+    ``gather_small`` the fused blocks that the ``small_reflect_conv``
+    kernel takes gather their input over the axis (``gather``) and run
+    the kernel on the whole tensor (``models.fuse.FusedReflectConv``);
+    without, every fused block exchanges halo rows."""
 
-    def __init__(self, mesh, axis=None):
+    def __init__(self, mesh, axis=None, gather_small=False):
         self.mesh = mesh
         self.axis = axis or mesh.axis_names[0]
         self.index = mesh.axis_index(self.axis)
         self.size = mesh.shape[self.axis]
+        self.gather_small = bool(gather_small)
 
     @property
     def first(self):
@@ -557,16 +786,41 @@ class SpatialShard:
 
     def halo(self, x, dim=2, before=1, after=1):
         """(rows above, rows below) this rank's block of ``x`` on
-        ``dim``; None at the global edges."""
+        ``dim``; None at the global edges. Differentiable."""
         return halo_exchange(self.mesh, x, dim, before, after, self.axis)
 
-    def rows(self, full, dim, n):
-        """This rank's ``n`` rows of a full-size tensor along ``dim``."""
-        if full.shape[dim] != n * self.size:
+    def split(self, n_rows):
+        """[(start, count)] of every rank's rows of ``n_rows`` global
+        rows."""
+        return even_split(n_rows, self.size)
+
+    def block(self, n_rows):
+        """(start, count) of this rank's rows of ``n_rows`` global
+        rows."""
+        return self.split(n_rows)[self.index]
+
+    def redistribute(self, x, n_rows, needs, dim=2):
+        """This rank's rows ``needs[self.index]`` of a tensor split as
+        ``split(n_rows)`` (``redistribute_rows``)."""
+        return redistribute_rows(self.mesh, x, n_rows, needs, dim,
+                                 self.axis)
+
+    def gather(self, x, n_rows, dim=2):
+        """The whole tensor of ``n_rows`` global rows along ``dim`` on
+        every rank of the axis, from every rank's block
+        (``redistribute_rows``, counted as 'rows'): the backward sends
+        each row's gradient back to its owner, which sums them."""
+        return self.redistribute(x, n_rows, [(0, n_rows)] * self.size, dim)
+
+    def rows(self, full, dim, n_rows):
+        """This rank's rows of a full-size tensor of ``n_rows`` rows
+        along ``dim``."""
+        if full.shape[dim] != n_rows:
             raise ValueError(
-                f'a raster of {full.shape[dim]} rows on dim {dim} does not '
-                f'split into {self.size} blocks of {n} rows')
-        return full.narrow(dim, self.index * n, n)
+                f'a raster of {full.shape[dim]} rows on dim {dim} is not '
+                f'the {n_rows} global rows of the activation it joins')
+        start, count = self.block(n_rows)
+        return full.narrow(dim, start, count)
 
 
 def halo_bytes_from_compiled(mesh):

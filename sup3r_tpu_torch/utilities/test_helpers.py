@@ -3,8 +3,10 @@ of ``make_fake_dset`` and ``make_fake_nc_file`` in
 ``sup3r_tpu/utilities/test_helpers.py``): an in-memory GridDataset,
 NetCDF3 input through scipy, a NetCDF3 topography source and the NetCDF3
 form of a bias factor file, without pandas or h5py, so a machine without
-them can make its own input; and ``spawn_ranks``, which starts a group
-of rank processes for the multi-rank tests and runs."""
+them can make its own input; ``spawn_ranks``, which starts a group of
+rank processes for the multi-rank tests and runs; and
+``expected_exchange_bytes``, the analytic count of the rows a dp x sp
+train step's sharded layers exchange."""
 
 import os
 import subprocess
@@ -246,3 +248,132 @@ def rank_results(out_dir, world):
         with open(os.path.join(out_dir, f'rank{rank}.pkl'), 'rb') as f:
             out.append(pickle.load(f))
     return out
+
+
+def _exchanges(layers, in_shape, gather_small=False):
+    """[(kind, geometry, channels-last input shape, whether the input
+    needs a gradient)] of a network's layers (a fused layer list, as
+    ``train_fuse`` runs the generator) that move rows between ranks on a
+    block of s1 rows: 'halo' ((before, after) rows) for a fused reflect
+    block or a stride-1 'same' conv, 'rows' ((k, stride, padding)) for
+    any other conv, and ('rows', 'whole') for a fused block that the
+    small kernel takes under ``gather_small`` (the gather of
+    ``SpatialShard.gather``). Stops at the row-parallel head
+    (``Network.row_parallel_index``): the layers from it on run whole."""
+    from sup3r_tpu_torch.models.fuse import FusedReflectConv
+    from sup3r_tpu_torch.models.layers import Conv2D, Conv3D
+    from sup3r_tpu_torch.models.network import Network
+
+    head = Network(layers).row_parallel_index()
+    out, shape, grad = [], tuple(in_shape), False
+    for lyr in layers[:None if head is None else head - 1]:
+        if isinstance(lyr, FusedReflectConv):
+            small = (gather_small and lyr.small_channel_kernel
+                     and lyr.n_spatial == 3 and len(shape) == 5
+                     and shape[-1] * lyr.conv.filters <= 32)
+            out.append(('rows', 'whole', shape, grad) if small
+                       else ('halo', (1, 1), shape, grad))
+            nxt = (*shape[:-1], lyr.conv.filters)
+        else:
+            if isinstance(lyr, (Conv2D, Conv3D)):
+                k, stride = lyr.kernel_size[0], lyr.strides[0]
+                if stride == 1 and lyr.padding == 'SAME':
+                    out.append(('halo', ((k - 1) // 2, k // 2), shape,
+                                grad))
+                else:
+                    out.append(('rows', (k, stride, lyr.padding), shape,
+                                grad))
+            nxt = lyr.out_shape(shape)
+        # a layer with params (made at init) makes its output need a
+        # gradient
+        grad = grad or isinstance(lyr, FusedReflectConv) or any(
+            hasattr(lyr, a) for a in ('filters', 'units'))
+        shape = nxt
+    return out
+
+
+def _split(n, parts):
+    base, extra = divmod(n, parts)
+    starts = np.cumsum([0] + [base + (i < extra) for i in range(parts)])
+    return [(int(starts[i]), int(starts[i + 1] - starts[i]))
+            for i in range(parts)]
+
+
+def _sent_rows(kind, geometry, n, sp, i, backward):
+    """Rows rank ``i`` of ``sp`` sends in one exchange of a tensor of
+    ``n`` global s1 rows (forward, or the backward's transpose)."""
+    if kind == 'halo':
+        before, after = geometry
+        if backward:  # the halo rows' gradients go back to their owners
+            return before * (i > 0) + after * (i < sp - 1)
+        return after * (i > 0) + before * (i < sp - 1)
+    if geometry == 'whole':  # every block to every rank, and the transpose
+        count = _split(n, sp)[i][1]
+        return n - count if backward else count * (sp - 1)
+    k, stride, padding = geometry
+    if padding == 'SAME':
+        n_out = -(-n // stride)
+        before = max((n_out - 1) * stride + k - n, 0) // 2
+    else:
+        n_out, before = (n - k) // stride + 1, 0
+    needs = []
+    for start, count in _split(n_out, sp):
+        lo = start * stride - before
+        hi = lo + (count - 1) * stride + k if count else lo
+        needs.append((min(max(lo, 0), n), max(min(hi, n), 0)))
+    owned = _split(n, sp)
+    pairs = ([(owned[i], needs[j]) for j in range(sp) if j != i]
+             if not backward else
+             [(owned[j], needs[i]) for j in range(sp) if j != i])
+    return sum(max(0, min(a + c, hi) - max(a, lo))
+               for (a, c), (lo, hi) in pairs)
+
+
+def expected_exchange_bytes(model, lr_shape, hr_shape, dp, sp, index,
+                            do_gen=True, do_disc=True, itemsize=4):
+    """{'halo': bytes, 'rows': bytes} that rank ``index`` of a ``space``
+    axis ``sp`` wide sends in one ``run_gradient_descent`` of a
+    ``Sup3rGan`` on a dp x sp mesh, counted from the layer configs and
+    the global channels-last shapes alone: every exchange of the
+    generator (fused, as ``train_fuse`` runs it) and of the
+    discriminator's layers before its Flatten, once in each forward, and
+    once more in each backward that needs the gradient of the layer's
+    input. The generator's forward and the discriminator's on the true
+    and the generated batch run once each; the generator's loss
+    differentiates the discriminator on the generated batch through to
+    its input, and the discriminator's loss differentiates both of its
+    calls down to its first layer with params. Below the shard-aligned
+    gate (``Sup3rGan.train_shard_aligned``) the generator's blocks that
+    the small kernel takes gather their input instead of exchanging
+    halo rows. Networks with Dropout run the discriminator more often:
+    they are not counted here."""
+    if model.generator.has_dropout or model.discriminator.has_dropout:
+        raise ValueError('expected_exchange_bytes counts networks without '
+                         'Dropout')
+    lr_shape, hr_shape = (dp * (lr_shape[0] // dp), *lr_shape[1:]), (
+        dp * (hr_shape[0] // dp), *hr_shape[1:])
+    from sup3r_tpu_torch.models.fuse import fuse_network
+    from sup3r_tpu_torch.ops.conv_ad import shard_aligned_worthwhile
+
+    aligned = model.train_shard_aligned
+    if aligned is None:
+        aligned = shard_aligned_worthwhile(sp)
+    gen_layers = list(model.generator.layers)
+    gen = _exchanges(fuse_network(gen_layers) if model.train_fuse
+                     else gen_layers, lr_shape,
+                     gather_small=not aligned and itemsize == 4)
+    disc = _exchanges(model.discriminator.layers, hr_shape)
+    calls = [  # (exchanges, backward passes through each one's input)
+        (gen, lambda e: int(do_gen and e[3])),
+        (disc, lambda e: int(do_disc and e[3])),  # on the true batch
+        (disc, lambda e: int(do_gen) + int(do_disc and e[3])),  # generated
+    ]
+    total = {'halo': 0, 'rows': 0}
+    for exchanges, backward in calls:
+        for e in exchanges:
+            kind, geometry, shape, _ = e
+            row = (shape[0] // dp) * int(np.prod(shape[2:])) * itemsize
+            rows = _sent_rows(kind, geometry, shape[1], sp, index, False)
+            back = _sent_rows(kind, geometry, shape[1], sp, index, True)
+            total[kind] += row * (rows + int(backward(e)) * back)
+    return total

@@ -213,10 +213,23 @@ def test_dual_batch_handler_batches_match_jax():
             assert _rel(np.asarray(a), np.asarray(b)) <= 1e-6
 
 
+def _fixed_val_batches(handler):
+    """Draw the handler's validation batches now, in this thread, and
+    make them its validation data: the training and validation producers
+    of both packages draw from one RANDOM_GENERATOR, so with both threads
+    running the draws would follow the threads' interleaving (ROADMAP
+    queue 3, reference behaviour 4); with the validation batches fixed
+    before training starts, the training producer draws alone."""
+    queue = handler.val_data
+    handler.val_data = [queue.post_proc(queue.sample_batch())
+                        for _ in range(len(queue))]
+
+
 def test_train_over_dual_batch_handler_matches_jax():
     """Two epochs of ``Sup3rGan.train`` over a DualBatchHandler (batches
     staged on the model's device by the handler) give the JAX package's
-    losses from the same weights and the same batches."""
+    losses from the same weights and the same batches (the validation
+    batches drawn before training, ``_fixed_val_batches``)."""
     gen = generator_st(2, (2,), (2,), filters=8, n_resblocks=1)
     disc = {'hidden_layers': [
         {'class': 'Conv3D', 'filters': 8, 'kernel_size': 3, 'strides': 2,
@@ -228,6 +241,7 @@ def test_train_over_dual_batch_handler_matches_jax():
     for package in ('jax', 'port'):
         handler = _handlers(package)
         _reseed(15)
+        _fixed_val_batches(handler)
         if package == 'jax':
             model = JaxGan(gen, disc, optimizer=STEP_OPT)
             model.init_weights((1, 4, 4, 2, 2), (1, 8, 8, 4, 2))

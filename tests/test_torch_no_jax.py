@@ -38,7 +38,9 @@ outside the repo with only the blocker on ``PYTHONPATH``, forward-pass
 on two nodes, data-collect and qa, the blocker active in the parent and
 in every node. A seventh blocked run drives the mesh slice: two spawned
 gloo ranks, the blocker active in each, take a data-parallel train step
-(the same losses on both) and run a ``use_mesh='spatial'`` forward pass
+(the same losses on both), a dp x sp step on a 1 x 2 mesh (halo
+exchanges, a row-parallel Dense and their backwards; the single-process
+step's losses) and run a ``use_mesh='spatial'`` forward pass
 equal to the parent's single-process pass."""
 
 import json
@@ -640,7 +642,7 @@ _RANK_MESH = _BLOCKER + f'''
 import os
 
 from sup3r_tpu_torch.models import Sup3rGan
-from sup3r_tpu_torch.parallel import get_mesh
+from sup3r_tpu_torch.parallel import get_mesh, get_mesh_2d, shard_batch_spatial
 from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
 from sup3r_tpu_torch.utilities.test_helpers import run_rank_scenarios
 
@@ -656,6 +658,17 @@ def step(rank, world, out):
                                       train_gen=True, train_disc=True)
 
 
+def step_2d(rank, world, out):
+    model = Sup3rGan.load(os.path.join(out, 'model'), device='cpu')
+    mesh = get_mesh_2d(1, 2, devices='cpu')
+    model.attach_mesh(mesh)
+    rng = np.random.default_rng(0)
+    lr = rng.random((4, 4, 4, 3, 2)).astype(np.float32)
+    hr = rng.random((4, 12, 12, 12, 2)).astype(np.float32)
+    return model.run_gradient_descent(*shard_batch_spatial(mesh, lr, hr),
+                                      train_gen=True, train_disc=True)
+
+
 def spatial(rank, world, out):
     strategy = ForwardPassStrategy(
         file_paths=os.path.join(out, 'in.nc'),
@@ -668,7 +681,8 @@ def spatial(rank, world, out):
     return out, loaded
 
 
-run_rank_scenarios({{'step': step, 'spatial': spatial}}, *sys.argv[1:])
+run_rank_scenarios({{'step': step, 'step_2d': step_2d,
+                    'spatial': spatial}}, *sys.argv[1:])
 '''
 
 _SCRIPT_MESH = _BLOCKER + f'''
@@ -700,11 +714,22 @@ spawn_ranks([sys.executable, os.path.join(tmp, 'rank.py'), tmp], 2, tmp,
             timeout=240)
 ranks = rank_results(tmp, 2)
 for res in ranks:
-    for name in ('step', 'spatial'):
+    for name in ('step', 'step_2d', 'spatial'):
         assert 'error' not in res[name], res[name]
 steps = [res['step'] for res in ranks]
 assert steps[0] == steps[1] and np.isfinite(list(steps[0].values())).all()
 print('MESH DP STEP', len(steps))
+steps_2d = [res['step_2d'] for res in ranks]
+rng = np.random.default_rng(0)
+one = Sup3rGan.load(os.path.join(tmp, 'model'), device='cpu')
+want = one.run_gradient_descent(
+    rng.random((4, 4, 4, 3, 2)).astype(np.float32),
+    rng.random((4, 12, 12, 12, 2)).astype(np.float32), train_gen=True,
+    train_disc=True)
+assert steps_2d[0] == steps_2d[1]
+for key, value in want.items():
+    np.testing.assert_allclose(steps_2d[0][key], value, rtol=2e-4, atol=1e-6)
+print('MESH DPxSP STEP', len(steps_2d))
 serial = ForwardPass.run(ForwardPassStrategy(
     file_paths=inp, model_kwargs={{'model_dir': os.path.join(tmp, 'model'),
                                   'device': 'cpu'}},
@@ -888,11 +913,13 @@ def test_bias_slice_runs_with_jax_and_friends_blocked():
 def test_mesh_slice_runs_with_jax_and_friends_blocked():
     """``parallel/`` imports and runs with jax, pandas, h5py and PIL
     blocked, in the parent and in two spawned gloo ranks: a
-    data-parallel step (the same finite losses on both ranks) and a
+    data-parallel step (the same finite losses on both ranks), a 1 x 2
+    dp x sp step (the single-process step's losses) and a
     ``use_mesh='spatial'`` pass equal to the single-process pass."""
     proc = _run_blocked(_SCRIPT_MESH)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'MESH DP STEP 2' in proc.stdout
+    assert 'MESH DPxSP STEP 2' in proc.stdout
     assert 'MESH SPATIAL PASS 8' in proc.stdout
 
 

@@ -394,16 +394,20 @@ def test_mesh_packed_drain_files(run, name, quanta):
 
 
 def test_layer_without_sharded_form_raises():
-    """Under a spatial mesh a layer with no sharded form (here a strided
-    conv and a Dense) raises, naming itself and item 9b."""
+    """Under a spatial mesh a layer with no sharded form (here a
+    transposed conv, and a reflect pad that is not fused with a conv)
+    raises a ValueError naming itself and saying why."""
     mesh = get_mesh(devices='cpu')
-    for gen in ([{'class': 'Conv2D', 'filters': 2, 'kernel_size': 3,
-                  'strides': 2, 'padding': 'same'}],
-                [{'class': 'Flatten'}, {'class': 'Dense', 'units': 2}]):
+    for gen, why in (
+            ([{'class': 'Conv2DTranspose', 'filters': 2, 'kernel_size': 3,
+               'strides': 2, 'padding': 'same'}], 'transposed conv'),
+            ([{'class': 'FlexiblePadding',
+               'paddings': [[0, 0], [1, 1], [1, 1], [0, 0]],
+               'mode': 'REFLECT'}], 'pad of s1')):
         model = Sup3rGan(gen, [{'class': 'Flatten'},
                                {'class': 'Dense', 'units': 1}],
                          device='cpu')
-        with pytest.raises(NotImplementedError, match='item 9b') as err:
+        with pytest.raises(ValueError, match=why) as err:
             model.generate(np.zeros((1, 4, 4, 2), np.float32), mesh=mesh)
         assert gen[0]['class'] in str(err.value)
 

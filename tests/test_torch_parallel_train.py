@@ -335,7 +335,8 @@ def _feeds(rank, world, out):
 def _layout(rank, world, out):
     """shard_batch_spatial on a 2 x 2 mesh: dim 0 over 'data', dim 1 over
     'space'; uneven splits raise; a per-sample vector splits on the
-    batch only; training on the 2D mesh is item 9b."""
+    batch only; ``attach_mesh`` finds the 2D mesh's space axis
+    (tests/test_torch_parallel_2d.py trains on it)."""
     mesh = get_mesh_2d(2, 2, devices='cpu')
     arr = np.arange(4 * 8 * 6 * 2, dtype=np.float32).reshape(4, 8, 6, 2)
     block = shard_batch_spatial(mesh, arr)
@@ -348,14 +349,10 @@ def _layout(rank, world, out):
     full, weights = shard_batch_spatial(mesh, arr,
                                         np.arange(4, dtype=np.float32))
     model = Sup3rGan.load(os.path.join(out, 'small'), device='cpu')
-    try:
-        model.attach_mesh(mesh)
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
+    model.attach_mesh(mesh)
     return {'coords': mesh.coords, 'block': block.numpy(),
             'full': full.numpy(), 'weights': weights.numpy(),
-            'errors': errors, 'refused': refused}
+            'errors': errors, 'axis': model._mesh_spatial_axis}
 
 
 SCENARIOS = {'steps': _steps, 'random': _random_steps, 'solar': _solar,
@@ -614,7 +611,7 @@ def test_mesh_2d_sharding_layout(run):
                                       np.arange(2 * i, 2 * i + 2))
         assert len(res['errors']) == 2
         assert all('not divisible' in e for e in res['errors'])
-        assert 'item 9b' in res['refused']
+        assert res['axis'] == 'space'
 
 
 if __name__ == '__main__':

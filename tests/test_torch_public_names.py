@@ -1,6 +1,8 @@
 """Names the JAX package exports at its package and subpackage level that
-the port now exports too: ``RANDOM_GENERATOR`` at the top, the array ops
-re-exported from ``ops``, ``utilities.load_reference_gan`` and
+the port now exports too: ``RANDOM_GENERATOR``, ``CONFIG_DIR`` and
+``TEST_DATA_DIR`` at the top, ``models.SPATIAL_FIRST_MODELS``,
+``postprocessing.Cacher`` / ``load_cached``, the array ops re-exported
+from ``ops``, ``utilities.load_reference_gan`` and
 ``OutputHandler.write_output``. Each is held to its JAX counterpart on
 the same numpy inputs (bit-equal draws, ops at rtol 1e-6, the written
 file's variables within 1e-4 of their largest magnitude)."""
@@ -36,6 +38,43 @@ def test_random_generator_at_the_package_top():
             4).bit_generator.state
     np.testing.assert_array_equal(sup3r_tpu_torch.RANDOM_GENERATOR.random(5),
                                   sup3r_tpu.RANDOM_GENERATOR.random(5))
+
+
+@pytest.mark.parametrize('module', ['', 'models', 'postprocessing'])
+def test_package_level_names_match_jax(module):
+    """The package top, ``models`` and ``postprocessing`` export every
+    public name their JAX counterparts export: ``CONFIG_DIR`` and
+    ``TEST_DATA_DIR`` (the same layout under each package),
+    ``SPATIAL_FIRST_MODELS`` (the port's chain classes of the same
+    names), and ``Cacher`` / ``load_cached`` (the cachers module's)."""
+    import importlib
+    import os
+
+    suffix = f'.{module}' if module else ''
+    jax_mod = importlib.import_module(f'sup3r_tpu{suffix}')
+    port_mod = importlib.import_module(f'sup3r_tpu_torch{suffix}')
+    names = {n for n in dir(jax_mod) if not n.startswith('_')
+             and not isinstance(getattr(jax_mod, n), type(os))}
+    missing = {n for n in names if not hasattr(port_mod, n)}
+    assert not missing, missing
+    if not module:
+        for name in ('CONFIG_DIR', 'TEST_DATA_DIR'):
+            want = os.path.relpath(getattr(jax_mod, name),
+                                   os.path.dirname(jax_mod.__file__))
+            got = os.path.relpath(getattr(port_mod, name),
+                                  os.path.dirname(port_mod.__file__))
+            assert got == want, name
+        assert os.path.isdir(port_mod.CONFIG_DIR)
+    elif module == 'models':
+        assert [c.__name__ for c in port_mod.SPATIAL_FIRST_MODELS] == [
+            c.__name__ for c in jax_mod.SPATIAL_FIRST_MODELS]
+        assert all(c.__module__.startswith('sup3r_tpu_torch.')
+                   for c in port_mod.SPATIAL_FIRST_MODELS)
+    else:
+        from sup3r_tpu_torch.postprocessing import cachers
+
+        assert port_mod.Cacher is cachers.Cacher
+        assert port_mod.load_cached is cachers.load_cached
 
 
 def _ops_cases():

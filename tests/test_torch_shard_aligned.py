@@ -117,8 +117,8 @@ def test_shard_aligned_custom_vjp_grads(n_spatial, shape, alpha):
 def test_halo_conv_blocks_equal_the_unsplit_conv(n_spatial, shape, blocks):
     """``reflect_conv_halo`` on each block of s1 rows, with its
     neighbours' boundary rows (its own reflect row at a global edge),
-    gives the unsplit conv's rows; gradients through it raise (item
-    9b)."""
+    gives the unsplit conv's rows, and takes gradients
+    (tests/test_torch_halo_grad.py holds them)."""
     x, k, b, _ = _inputs(n_spatial, shape, 3)
     x = np.concatenate([x] * blocks, axis=1)[:, :2 * blocks * 2]
     xt, w, bt = _cf(x), _weight(k, n_spatial), torch.from_numpy(b)
@@ -131,9 +131,10 @@ def test_halo_conv_blocks_equal_the_unsplit_conv(n_spatial, shape, blocks):
         for i, part in enumerate(parts)]
     torch.testing.assert_close(torch.cat(outs, dim=2), want, rtol=1e-6,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match='item 9b'):
-        reflect_conv_halo(parts[0], w.requires_grad_(True), bt, n_spatial,
-                          None)
+    reflect_conv_halo(parts[0], w.requires_grad_(True), bt, n_spatial,
+                      None).sum().backward()
+    assert w.grad is not None and float(w.grad.abs().sum()) > 0
+    w.requires_grad_(False)
     with pytest.raises(ValueError, match='>= 2 s1 rows'):
         with torch.no_grad():
             reflect_conv_halo(parts[0][:, :, :1], w, bt, n_spatial, None)

@@ -198,17 +198,19 @@ def test_not_ported_options_raise():
                      device='cpu')
     model.init_weights((1, 5, 5, 2), (1, 10, 10, 2))
     lr, hr = np.zeros((1, 5, 5, 2)), np.zeros((1, 10, 10, 2))
+    # train_shard_aligned and dp x sp meshes have come with item 9b
+    # (tests/test_torch_halo_grad.py and tests/test_torch_parallel_2d.py
+    # hold them); a spatial axis the mesh lacks is refused
     model.train_shard_aligned = True
-    with pytest.raises(NotImplementedError, match='item 9b'):
-        model.run_gradient_descent(lr, hr)
+    assert np.isfinite(list(model.run_gradient_descent(lr, hr).values())
+                       ).all()
     del model.train_shard_aligned
-    # data-parallel training has come with item 9's first half (a mesh
-    # of one rank here: tests/test_torch_parallel_train.py runs ranks);
-    # a spatial axis, or a 2D mesh, is item 9b
-    with pytest.raises(NotImplementedError, match='item 9b'):
+    with pytest.raises(ValueError, match='second axis'):
         model.attach_mesh(get_mesh(devices='cpu'), spatial_axis='space')
-    with pytest.raises(NotImplementedError, match='item 9b'):
-        model.attach_mesh(get_mesh_2d(1, 1, devices='cpu'))
+    model.attach_mesh(get_mesh_2d(1, 1, devices='cpu'))
+    assert model._mesh_spatial_axis == 'space'
+    assert np.isfinite(list(model.run_gradient_descent(lr, hr).values())
+                       ).all()
     model.attach_mesh(get_mesh(devices='cpu'))
     details = model.run_gradient_descent(lr, hr)
     assert np.isfinite(list(details.values())).all()

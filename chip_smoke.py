@@ -10,7 +10,9 @@ exits non-zero:
 
 1. environment and build: the card's name and power limit (as
    ``nvidia-smi`` gives them), then every CUDA kernel built from
-   ``sup3r_tpu_torch/csrc/`` (into ``build/kernels/``);
+   ``sup3r_tpu_torch/csrc/`` (into ``build/kernels/``) and the native
+   host helpers from ``sup3r_tpu_torch/_native/chunk_prep.cpp`` (into
+   ``build/native/``; whether this run built them, and in how many s);
 2. each kernel against its plain PyTorch version on the card (TF32 off),
    at every shape the flagship's serving path gives it and at ragged
    ones; tolerance max|kernel - plain| <= 1e-5 * max|plain| (fp32
@@ -236,7 +238,10 @@ exits non-zero:
    timer's prep s per chunk, launches as phase 6 counts them), the
    ``chunked_io`` output equal to the eager one within 1e-6 of max, one
    profiled ``chunked_io`` pass (idle share); a chunk of the card's pass
-   against the port's CPU pass (1e-4 of max). The same geometry through
+   against the port's CPU pass (1e-4 of max); the native pad
+   (``_native.reflect_pad_4d``, the pass's ``pad_source_data``) bit-equal
+   to ``np.pad`` on every chunk of the cell, with the chunk prep's ms a
+   chunk (read + pad) with each pad (``native_pad``). The same geometry through
    ``DataHandlerNCforCCwithPowerLaw`` (hourly NetCDF3 uas / vas, u_100m /
    v_100m by the power law) with ``chunked_io`` on the default route: 3
    timed passes and a chunk against the CPU. Phase 7's training cell fed
@@ -312,8 +317,10 @@ exits non-zero:
    within 1e-6 relative, then the step ms each way; the all-reduce of
    both networks' gradients by CUDA events; phase 14's cell by default,
    with ``use_mesh=True`` (equal) and ``use_mesh='spatial'`` (within
-   1e-4), the pass seconds and launches of each (the sharded convs run
-   on cuDNN, as the JAX package's bypass Pallas). (b) Two ranks on the
+   1e-4), the pass seconds and launches of each (the sharded body convs
+   run on cuDNN; below the shard-aligned gate, as a world of one is, the
+   tail gathers its input and launches ``small_reflect_conv`` once a
+   dispatch, the JAX package's route). (b) Two ranks on the
    card over gloo, each a process of its own (this script with
    ``--mesh-rank``; NCCL cannot put two ranks on one device, so gloo
    takes the collectives' tensors through host memory): the DP step on
@@ -321,8 +328,13 @@ exits non-zero:
    the JAX package's bar), the same losses on both ranks; phase 14's
    cell with ``use_mesh='spatial'`` (a chunk's 20 padded rows split 10 /
    10) against the default pass (1e-4), the halo bytes the ranks sent
-   against ``estimate_halo_bytes`` (within a factor of 5); step ms, pass
-   s and each rank's ``small_reflect_conv`` launches per step and pass.
+   against ``estimate_halo_bytes`` (within a factor of 5), and each rank
+   gathering the tail's input over the two ranks and launching
+   ``small_reflect_conv`` on the whole (8, 8, 60 or 36, ., 96) tensor once
+   a dispatch (its wrapper's calls recorded by shape); step ms, pass s
+   and each rank's launches per step and pass. After the phase the
+   kernel is held to its plain version at every gathered shape and timed
+   at the most-called one (``mesh_spatial_gathered_shape``).
 18. dp x sp training (``attach_mesh(get_mesh_2d(dp, sp))``; printed
    before the ``kernels`` line). First ``reflect_conv_halo``'s gradients
    over blocks of s1 rows of a flagship body block (each block's halo
@@ -346,6 +358,18 @@ exits non-zero:
    order. Printed: the maximum relative errors, a
    rank's step ms and the gradient all-reduce's ms and bytes (through
    host memory: one card allows no speed-up claim).
+19. a forward-pass CLI node as a group of ranks (printed before the
+   ``kernels`` line): phase 16's cell through ``sup3r_tpu_torch/cli.py
+   -c config_pipeline.json pipeline --monitor`` from a run directory
+   outside the repo, its forward-pass node two ranks sharing the card
+   over gloo (``execution_control``: ``ranks_per_node`` 2), once with
+   ``use_mesh=True`` and once with 'spatial': one status entry for the
+   node, successful; the launcher's log and each rank's of their own;
+   each rank's ``Node summary`` (start-up s, run s, launches:
+   ``small_reflect_conv`` once a dispatch of its share, the gathered
+   tail under 'spatial'); the group's wall s; the chunk files against
+   phase 16's collected one-process output (1e-6 of max under True, 1e-4
+   under 'spatial'); after the True run, a rerun that starts nothing.
 
 Before the ``kernels`` line, ``phase_seconds`` gives the seconds each
 phase took. The last line is ``{"ok": true, "device": {...}}``.
@@ -386,6 +410,8 @@ from sup3r_tpu_torch.models import (
     Sup3rGanWithObs,
     SurfaceSpatialMetModel,
 )
+from sup3r_tpu_torch import _native
+from sup3r_tpu_torch.models import fuse as fuse_module
 from sup3r_tpu_torch.models.fuse import FusedReflectConv
 from sup3r_tpu_torch.ops import build
 from sup3r_tpu_torch.ops.output_pack import (
@@ -3675,7 +3701,7 @@ def stream_cpu_chunk_check(make_strategy, what, index=0,
                              f'CPU {err} > {tol}')
 
 
-def stream_passes(name, tmp, model_dir):
+def stream_passes(name, tmp, model_dir, native):
     """Phase 14a: the cell's eager and chunked_io passes on both routes
     (3 timed each after a warm-up), chunked_io equal to eager (1e-6 of
     max), one profiled chunked_io pass per route, a chunk against the
@@ -3745,7 +3771,49 @@ def stream_passes(name, tmp, model_dir):
         lambda device: stream_strategy(input_file, model_dir, None,
                                        device=device, chunked_io=True),
         'chunked_io pass')
+    native_pad_check(name, eager, native)
     return out
+
+
+def native_pad_check(name, strategy, native, repeats=5):
+    """Phase 14: every chunk of the cell read (``init_chunk``) and padded
+    by ``_native.reflect_pad_4d`` and by ``np.pad`` (the median of
+    ``repeats`` each): bit-equal, with the prep ms a chunk (read + pad)
+    each way, beside phase 1's build of the library (``native``)."""
+    read_ms, native_ms, numpy_ms, equal = [], [], [], True
+    for i in range(strategy.fwp_slicer.n_chunks):
+        t0 = time.perf_counter()
+        chunk = strategy.init_chunk(i)
+        read_ms.append(1e3 * (time.perf_counter() - t0))
+        arr, pads = chunk.input_data, chunk.pad_width
+        for fn, times in (
+                (_native.reflect_pad_4d, native_ms),
+                (lambda a, p: np.pad(a, (*p, (0, 0)), mode='reflect'),
+                 numpy_ms)):
+            runs = []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                out = fn(arr, pads)
+                runs.append(1e3 * (time.perf_counter() - t0))
+            times.append(float(np.median(runs)))
+            if fn is _native.reflect_pad_4d:
+                padded = out
+        equal = equal and bool(padded.dtype == out.dtype and np.array_equal(
+            padded, out))
+    read = float(np.median(read_ms))
+    emit(phase='native_pad', io=STREAM_IO, chunks=len(read_ms),
+         chunk_dtype=str(arr.dtype), padded_shape=list(padded.shape),
+         read_ms_per_chunk=read,
+         native_pad_ms_per_chunk=float(np.median(native_ms)),
+         numpy_pad_ms_per_chunk=float(np.median(numpy_ms)),
+         prep_ms_per_chunk_native=read + float(np.median(native_ms)),
+         prep_ms_per_chunk_numpy=read + float(np.median(numpy_ms)),
+         native_built=native['built'], native_build_s=native['build_s'],
+         bit_equal=equal,
+         nvidia_smi=name, ok=equal)
+    if not equal:
+        raise AssertionError('native pad: differs from np.pad on a chunk of '
+                             'the cell')
 
 
 def gcm_pass(name, tmp, model_dir):
@@ -3875,7 +3943,7 @@ def lazy_train_loops(name, tmp):
     return out
 
 
-def streaming_phase(name):
+def streaming_phase(name, native):
     """Phase 14: streaming input (chunked_io, mode='lazy') and the GCM
     handler on the flagship at full width. Returns the launches and
     fused calls per route of the chunked_io pass and the GCM pass's
@@ -3888,7 +3956,7 @@ def streaming_phase(name):
         model_dir = os.path.join(tmp, 'model')
         model.save(model_dir)
         del model
-        per_route = stream_passes(name, tmp, model_dir)
+        per_route = stream_passes(name, tmp, model_dir, native)
         gcm = gcm_pass(name, tmp, model_dir)
         lazy_train_loops(name, tmp)
         return per_route, gcm
@@ -4528,7 +4596,8 @@ def pipeline_phase(name, stream_routes, request_ms):
                 f'CPU {cpu_err} > {cpu_tol}, QA {qa_errs} or steps {walls}')
         flops = pipeline_flops(name, request_ms)
         return {'nodes': [n['launches'] for n in nodes],
-                'in_process': launches, 'flops': flops}
+                'in_process': launches, 'flops': flops,
+                'collected': collected}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4550,6 +4619,10 @@ MESH_STEP_RTOL, MESH_STEP_ATOL = 2e-4, 1e-6
 MESH_SPATIAL_ATOL = 1e-4
 #: the HR tail's input in a rank's step of (b): 8 of the cell's 16 rows
 MESH_TAIL_SHAPE = (TRAIN_BATCH // MESH_RANKS, 8) + TRAIN_HR[:3]
+#: the padded LR rows of phase 14's chunks (interior 16 + 4, edge 8 + 4):
+#: the spatial pass's gathered tail holds 3 x one of them
+MESH_GATHERED_ROWS = (STREAM_CHUNK[0] + 2 * STREAM_PAD,
+                      STREAM_DOMAIN[0] % STREAM_CHUNK[0] + 2 * STREAM_PAD)
 
 
 def mesh_step(model, lr, hr):
@@ -4701,7 +4774,9 @@ def mesh_world_of_one_passes(name, tmp, model_dir, input_file):
             walls.append(wall)
         rec[mode] = dict(wall_s=walls, launches=launches,
                          full=stitched(strategy, out_dir))
-    want = {False: n_dispatch, True: n_dispatch, 'spatial': 0}
+    # a world of one is below the shard-aligned gate: the spatial pass
+    # gathers the tail's input over its one rank and launches the kernel
+    want = {False: n_dispatch, True: n_dispatch, 'spatial': n_dispatch}
     errs = {str(mode): float(np.abs(rec[mode]['full']
                                     - rec[False]['full']).max())
             for mode in (True, 'spatial')}
@@ -4743,17 +4818,33 @@ def mesh_rank_step(rank, world, out):
 def mesh_rank_pass(rank, world, out):
     """Phase 17b, in a rank: phase 14's cell with use_mesh='spatial' over
     the ranks (a warm-up, then timed passes to a directory every rank
-    writes its chunks to); the launches and halo counters of the last."""
+    writes its chunks to); the launches and halo counters of the last,
+    and the shapes the kernel's wrapper took in it (the gathered tail:
+    below the shard-aligned gate)."""
     with open(os.path.join(out, 'cell.json')) as f:
         cell = json.load(f)
+    calls = Counter()
+    launch = fuse_module.small_reflect_conv_cf
+
+    def recorded(x, weight, bias, alpha=None):
+        calls[(tuple(x.shape), weight.shape[0], alpha)] += 1
+        return launch(x, weight, bias, alpha)
+
+    fuse_module.small_reflect_conv_cf = recorded
     walls = []
-    for i in range(1 + MESH_TIMED_PASSES):
-        wall, launches, _, counters = mesh_pass(
-            lambda o: stream_strategy(cell['input_file'], cell['model_dir'],
-                                      o, use_mesh='spatial'),
-            os.path.join(out, f'spatial_{i}'))
-        walls.append(wall)
-    return {'wall_s': walls[1:], 'launches': launches, 'counters': counters}
+    try:
+        for i in range(1 + MESH_TIMED_PASSES):
+            calls.clear()
+            wall, launches, _, counters = mesh_pass(
+                lambda o: stream_strategy(cell['input_file'],
+                                          cell['model_dir'], o,
+                                          use_mesh='spatial'),
+                os.path.join(out, f'spatial_{i}'))
+            walls.append(wall)
+    finally:
+        fuse_module.small_reflect_conv_cf = launch
+    return {'wall_s': walls[1:], 'launches': launches, 'counters': counters,
+            'calls': dict(calls)}
 
 
 MESH_RANK_SCENARIOS = {'step': mesh_rank_step, 'pass': mesh_rank_pass}
@@ -4808,13 +4899,23 @@ def mesh_two_ranks(name, tmp, cell, ref_step, default_full):
     passes = [res['pass'] for res in ranks]
     strategy = stream_strategy(input_file, model_dir, os.path.join(
         run_dir, f'spatial_{MESH_TIMED_PASSES}', 'chunk_{file_id}.nc'))
+    n_dispatch = stream_dispatches(strategy)
     full = stitched(strategy, os.path.dirname(strategy.out_pattern))
     err = float(np.abs(full - default_full).max())
     sent = [p['counters'].get('halo_bytes', 0) for p in passes]
     estimate = mesh_halo_estimate(model, strategy, MESH_RANKS)
     ratio = sum(sent) / estimate
+    # below the shard-aligned gate every rank gathers the tail's input
+    # (all the HR rows: 3 x the padded LR rows) and launches the small
+    # kernel on it once a dispatch
+    whole = [3 * rows for rows in MESH_GATHERED_ROWS]
+    route_ok = all(
+        p['launches']['small_reflect_conv'] == n_dispatch
+        and sum(p['calls'].values()) == n_dispatch
+        and all(x_shape[2] in whole for x_shape, _, _ in p['calls'])
+        for p in passes)
     pass_ok = bool(err <= MESH_SPATIAL_ATOL and 0.2 < ratio < 5 and all(
-        p['launches']['reflect_conv'] == 0 for p in passes))
+        p['launches']['reflect_conv'] == 0 for p in passes) and route_ok)
     emit(phase='mesh_two_ranks_pass', io=STREAM_IO, backend='gloo',
          ranks=MESH_RANKS, use_mesh='spatial',
          padded_rows_per_rank=(STREAM_CHUNK[0] + 2 * STREAM_PAD)
@@ -4825,17 +4926,25 @@ def mesh_two_ranks(name, tmp, cell, ref_step, default_full):
          gather_bytes=[p['counters'].get('gather_bytes', 0)
                        for p in passes],
          halo_bytes_estimate=estimate, halo_ratio=ratio,
+         rows_bytes=[p['counters'].get('rows_bytes', 0) for p in passes],
+         dispatches=n_dispatch,
+         gathered_tail_calls=[[[list(k[0]), k[1], k[2], v]
+                               for k, v in p['calls'].items()]
+                              for p in passes],
          max_abs_err_vs_default=err, tol=MESH_SPATIAL_ATOL,
          nvidia_smi=name, ok=pass_ok)
     if not pass_ok:
-        raise AssertionError(f'two-rank spatial pass: error {err}, halo '
-                             f'ratio {ratio}')
+        raise AssertionError(
+            f'two-rank spatial pass: error {err}, halo ratio {ratio}, '
+            f'launches {[p["launches"] for p in passes]} and wrapper calls '
+            f'{[p["calls"] for p in passes]} for {n_dispatch} dispatches')
     return steps, passes
 
 
 def mesh_phase(name):
     """Phase 17: the mesh slice, (a) then (b). Returns the launches of
-    the meshed paths for the ``kernels`` line."""
+    the meshed paths for the ``kernels`` line and the small kernel's
+    calls by shape in each rank's spatial pass of (b)."""
     tmp = tempfile.mkdtemp(prefix='chip_smoke_mesh_')
     store = os.path.join(ROOT, 'build', f'mesh_store_{os.getpid()}')
     os.makedirs(os.path.dirname(store), exist_ok=True)
@@ -4859,7 +4968,7 @@ def mesh_phase(name):
                                        rec[False]['full'])
         launches['two_rank_train_step'] = [s['launches'] for s in steps]
         launches['two_rank_spatial_pass'] = [p['launches'] for p in passes]
-        return launches
+        return launches, [p['calls'] for p in passes]
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -5148,6 +5257,165 @@ def mesh2d_phase(name):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: phase 19: phase 16's pipeline from outside the repo with its
+#: forward-pass node run as a group of ranks (``ranks_per_node``): two
+#: ranks sharing the card over gloo, under use_mesh True and 'spatial'
+GROUP_RANKS = 2
+GROUP_TIMEOUT_S = 300
+GROUP_TOL = {True: 1e-6, 'spatial': 1e-4}
+
+
+def group_dispatches(strategy, use_mesh):
+    """Each rank's device batches in the group's pass: its share of the
+    chunks (every n-th) in batches of ``STREAM_BATCH / n`` under True,
+    every chunk in batches of ``STREAM_BATCH`` under 'spatial'."""
+    fwp = ForwardPass(strategy, 0)
+    shapes = [fwp.get_input_chunk(int(i)).input_data.shape
+              for i in strategy.node_chunks[0]]
+    if use_mesh == 'spatial':
+        counts = Counter(shapes)
+        return [sum(-(-n // STREAM_BATCH) for n in counts.values())] * (
+            GROUP_RANKS)
+    batch = -(-STREAM_BATCH // GROUP_RANKS)
+    return [sum(-(-n // batch) for n in Counter(
+        shapes[r::GROUP_RANKS]).values()) for r in range(GROUP_RANKS)]
+
+
+def pipeline_group_run(tmp, input_file, model_dir, use_mesh, rerun):
+    """One group pipeline, and with ``rerun`` a second run that must
+    start nothing (see ``pipeline_group_phase``). Returns the run
+    directory and what the phase prints."""
+    run_dir = os.path.join(tmp, f'run_{use_mesh}')
+    os.makedirs(run_dir)
+    cfg = {'file_paths': input_file, 'model_kwargs': {'model_dir': model_dir},
+           'fwp_chunk_shape': list(STREAM_CHUNK), 'spatial_pad': STREAM_PAD,
+           'temporal_pad': STREAM_PAD, 'device_batch_size': STREAM_BATCH,
+           'chunked_io': True, 'use_mesh': use_mesh,
+           'out_pattern': './out/chunk_{file_id}.nc',
+           'log_file': './logs/fwp_{node_index}.log',
+           'execution_control': {'option': 'local',
+                                 'ranks_per_node': GROUP_RANKS,
+                                 'ranks_timeout': GROUP_TIMEOUT_S}}
+    with open(os.path.join(run_dir, 'config_fwp.json'), 'w') as f:
+        json.dump(cfg, f)
+    pipe_fp = os.path.join(run_dir, 'config_pipeline.json')
+    with open(pipe_fp, 'w') as f:
+        json.dump({'pipeline': [{'forward-pass': 'config_fwp.json'}]}, f)
+    wall_s, stderr = run_cli(run_dir, '-c', pipe_fp, 'pipeline',
+                             '--monitor')
+    step_s = step_walls(stderr).get('forward-pass')
+    status_fp = os.path.join(run_dir, '.status.json')
+    with open(status_fp) as f:
+        status = json.load(f)
+    entries = {k: {j: r['job_status'] for j, r in v.items()}
+               for k, v in status.items() if not k.startswith('__')}
+    status_ok = len(entries) == 1 and [
+        list(v.values()) for v in entries.values()] == [['successful']]
+    logs = sorted(glob.glob(os.path.join(run_dir, 'logs', '*')))
+    with open(os.path.join(run_dir, 'logs', 'fwp_0.log')) as f:
+        group = json.loads(next(x for x in f if 'Group summary' in x).split(
+            'Group summary: ', 1)[1])
+    ranks = []
+    for r in range(GROUP_RANKS):
+        with open(os.path.join(run_dir, 'logs', f'fwp_0_rank{r}.log')) as f:
+            ranks.append(json.loads(next(
+                x for x in f if 'Node summary' in x).split(
+                    'Node summary: ', 1)[1]))
+    rerun_s = rerun_ok = None
+    if rerun:
+        stamps = {p: os.path.getmtime(p) for p in logs}
+        rerun_s, rerun_err = run_cli(run_dir, '-c', pipe_fp, 'pipeline',
+                                     '--monitor')
+        with open(status_fp) as f:
+            rerun_ok = (json.load(f) == status
+                        and rerun_err.count('already successful') == 1
+                        and {p: os.path.getmtime(p) for p in glob.glob(
+                            os.path.join(run_dir, 'logs', '*'))} == stamps)
+    return run_dir, {
+        'wall_s': wall_s, 'step_s': step_s, 'rerun_s': rerun_s,
+        'status': entries, 'status_ok': status_ok, 'rerun_ok': rerun_ok,
+        'logs': [os.path.basename(p) for p in logs], 'group': group,
+        'ranks': ranks}
+
+
+def pipeline_group_phase(name, one_process):
+    """Phase 19: phase 14's cell through ``sup3r_tpu_torch/cli.py ...
+    pipeline --monitor`` from a run directory outside the repo, its
+    forward-pass node a group of two ranks sharing the card over gloo
+    (``execution_control``: ``ranks_per_node`` 2), under use_mesh True and
+    'spatial': one status entry for the node, successful; the launcher's
+    and each rank's log files of their own; each rank's ``Node summary``
+    (start-up s, run s, launches: the small kernel once a dispatch of its
+    share); the chunk files stitched against phase 16's collected
+    one-process output (1e-6 of max under True, 1e-4 under 'spatial');
+    after the True run a rerun that starts nothing. Returns each rank's
+    launches for the ``kernels`` line."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_group_')
+    try:
+        rng = np.random.default_rng(0)
+        s1, s2, t = STREAM_DOMAIN
+        input_file = make_fake_nc_file(
+            os.path.join(tmp, 'stream.nc'), STREAM_DOMAIN, FWP_FEATURES,
+            data={f: rng.standard_normal((t, s1, s2)) * 0.3 + 0.5
+                  for f in FWP_FEATURES})
+        model = flagship('cuda')
+        model.meta.update(
+            input_resolution={'spatial': '12km', 'temporal': '60min'})
+        model_dir = os.path.join(tmp, 'model')
+        model.save(model_dir)
+        del model
+        torch.cuda.empty_cache()
+        launches = {}
+        for use_mesh in (True, 'spatial'):
+            plan = stream_strategy(input_file, model_dir, None,
+                                   chunked_io=True)
+            want = group_dispatches(plan, use_mesh)
+            run_dir, rec = pipeline_group_run(tmp, input_file, model_dir,
+                                              use_mesh, rerun=use_mesh is True)
+            strategy = stream_strategy(
+                input_file, model_dir,
+                os.path.join(run_dir, 'out', 'chunk_{file_id}.nc'),
+                chunked_io=True)
+            full = stitched(strategy, os.path.join(run_dir, 'out'))
+            err = float(np.abs(full - one_process).max())
+            tol = GROUP_TOL[use_mesh] * float(np.abs(one_process).max())
+            got = [r['launches'] for r in rec['ranks']]
+            launches_ok = got == [{'small_reflect_conv': n, 'reflect_conv': 0}
+                                  for n in want]
+            ok = bool(
+                err <= tol and launches_ok and rec['status_ok']
+                and rec['rerun_ok'] is not False
+                and rec['group']['exit_codes'] == [0] * GROUP_RANKS
+                and [r['backend'] for r in rec['ranks']] == [
+                    'gloo'] * GROUP_RANKS
+                and [(r['rank'], r['ranks']) for r in rec['ranks']] == [
+                    (i, GROUP_RANKS) for i in range(GROUP_RANKS)]
+                and rec['logs'] == ['fwp_0.log'] + [
+                    f'fwp_0_rank{i}.log' for i in range(GROUP_RANKS)])
+            emit(phase='pipeline_group', io=STREAM_IO, use_mesh=use_mesh,
+                 ranks=GROUP_RANKS,
+                 backend=[r['backend'] for r in rec['ranks']],
+                 pipeline_wall_s=rec['wall_s'], step_wall_s=rec['step_s'],
+                 group_wall_s=rec['group']['wall_s'],
+                 rerun_wall_s=rec['rerun_s'],
+                 rank_startup_s=[r['startup_s'] for r in rec['ranks']],
+                 rank_import_s=[r['import_s'] for r in rec['ranks']],
+                 rank_run_s=[r['run_s'] for r in rec['ranks']],
+                 rank_launches=got, rank_dispatches=want,
+                 status_entries=rec['status'], log_files=rec['logs'],
+                 rerun_started_nothing=rec['rerun_ok'],
+                 max_abs_err_vs_one_process=err, tol=tol,
+                 nvidia_smi=name, ok=ok)
+            if not ok:
+                raise AssertionError(
+                    f'pipeline group ({use_mesh}): error {err} > {tol}, '
+                    f'launches {got} vs {want}, record {rec}')
+            launches[f'cli_group_{use_mesh}_node'] = got
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device: '
@@ -5170,9 +5438,13 @@ def main():
     timer = Timer()
     with timer:
         build.build_all()
+    native = {'built': not os.path.exists(_native.library_path())}
+    t0 = time.perf_counter()
+    native['lib'] = _native.build()
+    native['build_s'] = time.perf_counter() - t0
     emit(phase='build', device=name, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=timer.elapsed,
-         build_dir=str(build.build_dir()))
+         build_dir=str(build.build_dir()), native=native)
 
     mark('1_build')
     # 2. kernel vs plain
@@ -5415,7 +5687,7 @@ def main():
             (COND_FWP_TAIL_SHAPE, 2, None)])
     mark('13_kernel_checks_and_timings')
     # 14. streaming input (chunked_io, mode='lazy') and the GCM handler
-    stream_routes, gcm_launches = streaming_phase(smi)
+    stream_routes, gcm_launches = streaming_phase(smi, native)
     mark('14_streaming')
     # the kernels at the shapes the chunked_io pass gave them (read from
     # the hooks of its last timed pass on each route): each distinct
@@ -5496,7 +5768,7 @@ def main():
     pipe = pipeline_phase(smi, stream_routes, float(np.median(times)))
     mark('16_pipeline')
     # 17. the mesh slice: a world of one over NCCL, two ranks over gloo
-    mesh_launches = mesh_phase(smi)
+    mesh_launches, gathered_calls = mesh_phase(smi)
     mark('17_mesh')
     # the small kernel at the tail shape of a rank's step in (b)
     mesh_inputs = conv_inputs(gen, MESH_TAIL_SHAPE, 2)
@@ -5508,10 +5780,35 @@ def main():
         launches_per_rank_train_step=[
             c['small_reflect_conv']
             for c in mesh_launches['two_rank_train_step']])
+    # the small kernel at the gathered tail shapes of (b)'s spatial pass,
+    # each held to its plain version
+    by_shape = Counter()
+    for calls in gathered_calls:
+        by_shape.update(calls)
+    gathered_checked = [
+        [list(x_shape), co, alpha, check_kernel(
+            'small_reflect_conv', small_reflect_conv_cf,
+            *conv_inputs(gen, x_shape, co), alpha), n]
+        for (x_shape, co, alpha), n in by_shape.items()]
+    # the most-called shape, the largest of a tie
+    (x_shape, co, alpha), _ = max(
+        by_shape.items(), key=lambda kv: (kv[1], int(np.prod(kv[0][0]))))
+    mesh_gathered = dict(
+        timing('small_reflect_conv', small_reflect_conv_cf,
+               *conv_inputs(gen, x_shape, co), alpha),
+        max_abs_err=max(c[3] for c in gathered_checked),
+        launches_per_rank_spatial_pass=[
+            c['small_reflect_conv']
+            for c in mesh_launches['two_rank_spatial_pass']],
+        shapes_checked=gathered_checked)
     mark('17_kernel_checks_and_timings')
     # 18. dp x sp training: four ranks on the 2 x 2 and 1 x 4 meshes
     mesh_launches.update(mesh2d_phase(smi))
     mark('18_mesh2d')
+    # 19. phase 16's pipeline with its forward-pass node run as a group of
+    # ranks
+    mesh_launches.update(pipeline_group_phase(smi, pipe['collected']))
+    mark('19_pipeline_group')
     emit(phase='phase_seconds', seconds=seconds,
          total_s=sum(seconds.values()))
 
@@ -5581,6 +5878,7 @@ def main():
                       **per_cli_pipeline('small_reflect_conv'),
                       **per_mesh('small_reflect_conv'),
                       mesh_rank_train_shape=mesh_tail,
+                      mesh_spatial_gathered_shape=mesh_gathered,
                       obs_shape=obs_tail,
                       obs_train_check_rel_err=obs['train_check_rel_err'],
                       train_shape=dict(

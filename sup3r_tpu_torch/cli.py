@@ -16,7 +16,11 @@ module command writes one JSON config per node and runs the node as
 its own process (``utilities.cli.node_command``): this interpreter with
 the port on its ``PYTHONPATH``. A node's device comes from its config
 (``model_kwargs['device']`` for forward-pass, ``device`` for qa and
-bias-calc): the card by default, and a node with no card raises.
+bias-calc): the card by default, and a node with no card raises. A
+forward-pass node with ``use_mesh`` (or ``device_batch_size='auto'``)
+runs as a group of ranks, one process a device
+(``execution_control['ranks_per_node']``, default the card count;
+``utilities.cli.run_node_group``), with one status entry for the node.
 """
 
 import os
@@ -46,8 +50,10 @@ from sup3r_tpu_torch.utilities.cli import (  # noqa: E402
     PACKAGE_ROOT,
     BaseCLI,
     Status,
+    group_command,
     init_node_logger,
     load_config,
+    model_device,
     node_command,
 )
 
@@ -66,24 +72,59 @@ def _cfg_tag(run_cfg):
     return hashlib.md5(blob.encode()).hexdigest()[:6]
 
 
+def _group_node(config, ranks_per_node):
+    """Whether a forward-pass node may run as a group of ranks (one
+    process a device, ``utilities.cli.run_node_group``): its chunks are
+    shared out with ``use_mesh`` (``True``: rank i of n takes every n-th
+    chunk; ``'spatial'``: every rank its s1 rows of every chunk), and with
+    ``device_batch_size='auto'`` the ranks take the first rank's plan
+    (``ForwardPass._resolve_auto_batch``). Raises when
+    ``ranks_per_node`` asks for more than one rank and neither holds:
+    each rank would run every chunk."""
+    shared = (bool(config.get('use_mesh'))
+              or config.get('device_batch_size') == 'auto')
+    if ranks_per_node is not None:
+        if int(ranks_per_node) < 1:
+            raise ValueError(f'ranks_per_node={ranks_per_node} must be '
+                             '>= 1')
+        if int(ranks_per_node) > 1 and not shared:
+            raise ValueError(
+                f'ranks_per_node={ranks_per_node} without use_mesh: each '
+                "of the node's ranks would run every chunk. Set use_mesh "
+                '(True or "spatial") or device_batch_size="auto", or drop '
+                'ranks_per_node')
+    return shared
+
+
 def _node_cmd(module, config, node_index, run_dir,
-              status_module=None):
+              status_module=None, execution_control=None):
     """Shell command running one node of a module, reading its config
     from a file (robust to shell quoting; analogous to the reference's
     get_node_cmd strings, reference:
     sup3r/pipeline/forward_pass.py:339-382). ``status_module``
     disambiguates node-config file names when the same module appears
-    multiple times in one pipeline."""
+    multiple times in one pipeline. A forward-pass node whose chunks are
+    shared out (``_group_node``) runs as a group of ranks
+    (``utilities.cli.run_node_group``):
+    ``execution_control['ranks_per_node']`` of them (default: the node's
+    card count, 1 on the CPU), stopped after
+    ``execution_control['ranks_timeout']`` s where that is set."""
+    exec_ctrl = execution_control or {}
     cfg = dict(config)
     cfg['node_index'] = node_index
     cfg.pop('execution_control', None)
     cfg.pop('run_dir', None)
+    ranks = exec_ctrl.get('ranks_per_node')
+    group = module == 'forward-pass' and _group_node(cfg, ranks)
     os.makedirs(run_dir, exist_ok=True)
     name = (status_module or module).replace('#', '-')
     cfg_fp = os.path.join(
         run_dir, f'.{name}_{_cfg_tag(config)}_node{node_index}.json')
     with open(cfg_fp, 'w') as f:
         json.dump(cfg, f)
+    if group:
+        return group_command(module, cfg_fp, ranks,
+                             exec_ctrl.get('ranks_timeout'))
     # the clock starts before the imports, so the node's start-up time
     # covers them
     payload = ('import time; t0 = time.time(); '
@@ -92,20 +133,53 @@ def _node_cmd(module, config, node_index, run_dir,
     return node_command(payload)
 
 
-def run_node(module, cfg_fp, t0=None):
+def run_node(module, cfg_fp, t0=None, group=None):
     """One node of ``module`` on the config ``_node_cmd`` wrote. The
     ``log_file`` / ``log_level`` keys go to the node's logger (the
-    pattern may contain ``{node_index}``), never to the module classes.
-    A forward-pass node logs a ``Node summary`` JSON line: its start-up
-    seconds (process start to the strategy ready on its device; of them,
-    ``import_s`` to the port's pipeline imported), run seconds and the
-    hand kernels' launches."""
+    pattern may contain ``{node_index}`` and ``{rank}``), never to the
+    module classes. A forward-pass node logs a ``Node summary`` JSON
+    line: its rank, start-up seconds (process start to the strategy
+    ready on its device; of them, ``import_s`` to the port's pipeline
+    imported), run seconds and the hand kernels' launches.
+
+    ``group`` (the rendezvous's init method) makes this process one rank
+    of a node's group (``utilities.cli.run_node_group``; ``RANK`` /
+    ``WORLD_SIZE`` / ``LOCAL_RANK`` in the environment): it joins the
+    process group before the strategy loads the model, on the card
+    ``LOCAL_RANK`` names modulo the card count, over NCCL when every
+    rank has a card of its own and gloo when ranks share one or run on
+    the CPU, and leaves it with the other ranks."""
     t0 = time.time() if t0 is None else t0
     with open(cfg_fp) as f:
         cfg = json.load(f)
     node = cfg.pop('node_index')
+    rank = world = None
+    if group is not None:
+        rank, world = int(os.environ['RANK']), int(os.environ['WORLD_SIZE'])
     init_node_logger(cfg.pop('log_file', None),
-                     cfg.pop('log_level', 'INFO'), node)
+                     cfg.pop('log_level', 'INFO'), node, rank=rank)
+    if group is None:
+        return _run_module(module, cfg, node, t0, rank, world)
+    import torch
+    import torch.distributed as dist
+
+    from sup3r_tpu_torch.parallel.mesh import init_multihost
+
+    on_cpu = model_device(cfg) == 'cpu'
+    cards = 0 if on_cpu else torch.cuda.device_count()
+    init_multihost(group, world, rank,
+                   backend='nccl' if 0 < world <= cards else 'gloo',
+                   local_device_ids=None if on_cpu
+                   else [int(os.environ.get('LOCAL_RANK', rank))])
+    _run_module(module, cfg, node, t0, rank, world)
+    # the ranks leave together: one that exits while another still
+    # talks to it aborts that one
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _run_module(module, cfg, node, t0, rank=None, world=None):
+    """Run ``module`` on a node's config (``run_node``)."""
     if module == 'forward-pass':
         from sup3r_tpu_torch.ops.kernels import (
             reflect_conv_cf,
@@ -116,12 +190,17 @@ def run_node(module, cfg_fp, t0=None):
             ForwardPassStrategy,
         )
 
+        import torch.distributed
+
         import_s = time.time() - t0
         strategy = ForwardPassStrategy(**cfg)
         startup_s = time.time() - t0
         ForwardPass.run(strategy, node)
         logger.info('Node summary: %s', json.dumps({
-            'node_index': node, 'startup_s': startup_s,
+            'node_index': node, 'rank': rank, 'ranks': world,
+            'backend': (torch.distributed.get_backend()
+                        if torch.distributed.is_initialized() else None),
+            'startup_s': startup_s,
             'import_s': import_s,
             'run_s': time.time() - t0 - startup_s,
             'launches': {
@@ -182,7 +261,8 @@ def _run_cfg(config, *drop):
 
 def _kickoff(module, status_module, run_cfg, config, n_nodes, what):
     cmds = [_node_cmd(module, run_cfg, i, config['run_dir'],
-                      status_module=status_module)
+                      status_module=status_module,
+                      execution_control=config.get('execution_control'))
             for i in range(n_nodes)]
     codes = BaseCLI.kickoff_jobs(status_module, cmds, config,
                                  job_tag=_cfg_tag(run_cfg))

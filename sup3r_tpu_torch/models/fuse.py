@@ -36,15 +36,15 @@ either device. By default it exchanges its boundary rows with its
 neighbours and runs ``reflect_conv_halo`` on cuDNN, differentiably (the
 halo rows' gradients go back to their owners). A shard with
 ``gather_small`` (the train step below the shard-aligned gate,
-``Sup3rGan.train_shard_aligned``) sends the blocks the small kernel
-takes the JAX package's way instead: XLA cannot partition a
+``Sup3rGan.train_shard_aligned``, and sharded serving while
+``Sup3rGan.inference_shard_aligned`` is off) sends the blocks the small
+kernel takes the JAX package's way instead: XLA cannot partition a
 ``pallas_call``, so it gathers the kernel's input over the axis; here
 the block is gathered over the axis (``SpatialShard.gather``, whose
 backward sends each row's gradient back to its owner), the kernel runs
 on the whole tensor and the rank keeps its rows. At and above the gate
 the JAX package's shard-aligned route bypasses Pallas, and so does the
-port's halo route; sharded serving (``Sup3rGan.generate(mesh=)``) keeps
-the halo route at every width. ``shard_aligned`` (the JAX package's
+port's halo route. ``shard_aligned`` (the JAX package's
 formulation for its SPMD partitioner) takes the place of
 ``reflect_conv_ad`` only: on the card the kernels keep the blocks they
 take, and on a block the port's one-row halo exchange is the same in

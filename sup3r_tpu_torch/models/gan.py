@@ -486,11 +486,15 @@ class Sup3rGan(AbstractSingleModel):
     #: rasters and (in each layer) the params at the network boundary and
     #: the output back to float32; None serves float32
     inference_dtype = None
-    #: the fused blocks' plain route in the JAX package's shard-aligned
-    #: s1 formulation (``ops/conv_ad.py::reflect_conv_shard_aligned``, on
-    #: cuDNN), for API parity: the kernels keep their blocks, and the
-    #: port's sharded route (``generate(..., mesh=)``) and its forward
-    #: pass neither read nor set it
+    #: the JAX package's shard-aligned s1 formulation for spatially
+    #: sharded serving. Off (the default, and what the strategy resets it
+    #: to), ``generate(..., mesh=)`` gathers the input of each block the
+    #: ``small_reflect_conv`` kernel takes over the mesh's axis and runs
+    #: the kernel on the whole tensor (the JAX route below its gate); on
+    #: (the ForwardPass sets it on spatial meshes 4 or more wide,
+    #: ``ops.conv_ad.shard_aligned_worthwhile``) every sharded block
+    #: exchanges halo rows on cuDNN, and the unsharded blocks' plain route
+    #: is ``ops/conv_ad.py::reflect_conv_shard_aligned``
     inference_shard_aligned = False
 
     @property
@@ -598,8 +602,11 @@ class Sup3rGan(AbstractSingleModel):
         rank's block of s1 rows of the input (``parallel.shard_spatial``)
         and the output is its block of the HR rows: every rank of the
         mesh calls this together, and each conv exchanges boundary rows
-        with the neighbouring ranks. Layer exo rasters stay full-size
-        (each layer takes its rows)."""
+        with the neighbouring ranks, except the blocks the small kernel
+        takes while ``inference_shard_aligned`` is off: those gather
+        their input over the axis and keep this rank's rows of the
+        kernel's output. Layer exo rasters stay full-size (each layer
+        takes its rows)."""
         low_res = torch.as_tensor(low_res, dtype=torch.float32,
                                   device=self.device)
         low_res = self._combine_fwp_input(low_res, exogenous_data)
@@ -630,7 +637,12 @@ class Sup3rGan(AbstractSingleModel):
         net = self._get_fused_apply() if self.inference_fuse else self._gen
         un_norm = self.un_norm_tensors(self.device) if un_norm_out else None
         dtype = compute_dtype(self.inference_dtype) or torch.float32
-        spatial = None if mesh is None else SpatialShard(mesh)
+        # below the shard-aligned gate the small kernel's blocks gather
+        # their input over the axis, as XLA gathers a pallas_call's
+        # operands; with the flag set every block exchanges halo rows, as
+        # the JAX package's shard-aligned route bypasses Pallas
+        spatial = None if mesh is None else SpatialShard(
+            mesh, gather_small=not self.inference_shard_aligned)
         with torch.inference_mode(), exact_fp32():
             out = net.apply(low_res.to(dtype), {
                 k: v.to(dtype) for k, v in fixed_exo.items()},

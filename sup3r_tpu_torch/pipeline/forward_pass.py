@@ -33,8 +33,11 @@ from warnings import warn
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from sup3r_tpu_torch._native import reflect_pad_4d
 from sup3r_tpu_torch.models.abstract import supports_fetch
+from sup3r_tpu_torch.ops.conv_ad import shard_aligned_worthwhile
 from sup3r_tpu_torch.parallel.mesh import (
     all_gather_object,
     broadcast_object,
@@ -111,7 +114,12 @@ class ForwardPass:
         estimate of one padded chunk (see pipeline/memory.py). When one
         padded chunk alone does not fit the card, switch on spatial
         sharding over the ranks of the process group; raise when there
-        is no other rank to share it with."""
+        is no other rank to share it with. In a group of ranks (a CLI
+        node run as one, ``utilities.cli.run_node_group``) the ranks take
+        the first rank's plan (ranks sharing a card see different free
+        memory), and a plan that needs no sharding fans the chunks out
+        over them (``use_mesh=True``, the one-process output) rather than
+        running every chunk on every rank."""
         strategy = self.strategy
         if getattr(strategy, 'device_batch_size', 1) != 'auto':
             return
@@ -128,9 +136,14 @@ class ForwardPass:
         n_feats = len(self.model.lr_features)
         batch, use_spatial = resolve_device_batch_size(
             self.model, padded, n_feats)
+        group = dist.is_initialized() and dist.get_world_size() > 1
+        if group:
+            self.mesh = get_mesh(devices=self.model.device)
+            batch, use_spatial = broadcast_object(self.mesh,
+                                                  (batch, use_spatial))
         strategy.device_batch_size = batch
         if use_spatial and not strategy.use_mesh:
-            self.mesh = get_mesh(devices=self.model.device)
+            self.mesh = self.mesh or get_mesh(devices=self.model.device)
             n_dev = self.mesh.size
             if n_dev == 1:
                 raise ValueError(
@@ -138,13 +151,18 @@ class ForwardPass:
                     'use_mesh="spatial" needs more than one rank to share '
                     'it (this process is a world of one): use a smaller '
                     'fwp_chunk_shape, or run the pass on more ranks (one '
-                    'process per card, e.g. under torchrun)')
+                    'process per card, e.g. a CLI node with '
+                    'execution_control.ranks_per_node, or torchrun)')
             strategy.use_mesh = 'spatial'
             halo = estimate_halo_bytes(self.model, (*padded, n_feats), n_dev)
             logger.info(
                 'auto batching -> use_mesh="spatial" over %d rank(s); '
                 'estimated halo exchange ~%.2f MB per generator '
                 'application', n_dev, halo / 1024 ** 2)
+        elif group and not strategy.use_mesh:
+            strategy.use_mesh = True
+            logger.info('auto batching in a group of %d ranks -> '
+                        'use_mesh=True (chunk fan-out)', self.mesh.size)
 
     @property
     def meta(self):
@@ -177,12 +195,16 @@ class ForwardPass:
 
     def pad_source_data(self, input_data, pad_width, exo_data,
                         mode='reflect'):
-        """Reflect-pad the (s1, s2, t, f) input (``np.pad``; the JAX
-        package's multithreaded C++ copy of it waits for a later slice,
-        ROADMAP queue 1 item 5) and each exo raster by the pads scaled
-        with its step's enhancement. A time-invariant (s1, s2, 1) raster
-        is first repeated over t_enhance x the unpadded time length."""
-        out = np.pad(input_data, (*pad_width, (0, 0)), mode=mode)
+        """Reflect-pad the (s1, s2, t, f) input (``_native.reflect_pad_4d``,
+        multithreaded C++, as float32; ``np.pad`` for another mode or
+        rank, as in the JAX package) and each exo raster by the pads
+        scaled with its step's enhancement. A time-invariant (s1, s2, 1)
+        raster is first repeated over t_enhance x the unpadded time
+        length."""
+        if mode == 'reflect' and np.ndim(input_data) == 4:
+            out = reflect_pad_4d(input_data, pad_width)
+        else:
+            out = np.pad(input_data, (*pad_width, (0, 0)), mode=mode)
         for entry in (exo_data or {}).values():
             for step in entry['steps']:
                 s_en, t_en = self._get_step_enhance(step)
@@ -484,8 +506,15 @@ class ForwardPass:
         gather each real chunk's output blocks to the rank that writes it,
         j mod n for the j-th (one gather a chunk, in this thread: every
         rank must issue the collectives in one order). Returns (this
-        rank's chunks' outputs stacked, those chunks)."""
+        rank's chunks' outputs stacked, those chunks). On a mesh 4 or
+        more wide the model takes the shard-aligned route
+        (``inference_shard_aligned``, the JAX package's gate); below it
+        the small kernel's blocks gather their input over the ranks, in
+        ``generate`` (this thread, like every collective of the pass)."""
         mesh = self.mesh
+        if (shard_aligned_worthwhile(mesh.size)
+                and hasattr(type(self.model), 'inference_shard_aligned')):
+            self.model.inference_shard_aligned = True
         if not getattr(self, '_sp_halo_logged', False):
             from sup3r_tpu_torch.pipeline.memory import estimate_halo_bytes
 

@@ -2,9 +2,10 @@
 ``device_batch_size`` automatically from an activation-memory model of
 the generator. The port of ``sup3r_tpu/pipeline/memory.py``, sized for
 the card: the budget is the free memory ``torch.cuda.mem_get_info``
-reports for the model's device, unless ``hbm_bytes`` is given (it must
-be on the CPU). One padded chunk that alone exceeds the budget is
-sharded over a mesh of ranks instead (``use_mesh='spatial'``), and
+reports for the model's device, unless ``hbm_bytes`` is given or
+``SUP3R_TPU_HBM_GB`` set (one of them must be on the CPU). One padded
+chunk that alone exceeds the budget is sharded over a mesh of ranks
+instead (``use_mesh='spatial'``), and
 ``estimate_halo_bytes`` gives the bytes its halo exchanges move.
 
 The analytic model walks the network's layer shapes: peak residency
@@ -16,6 +17,7 @@ that stay on the device while the later groups run.
 """
 
 import logging
+import os
 
 import numpy as np
 import torch
@@ -148,15 +150,20 @@ def resolve_device_batch_size(model, padded_lr_shape, n_features,
     batch_size >= 1 chunks fit per dispatch; use_spatial=True means
     one padded chunk alone exceeds the memory budget and the chunk
     should be sharded over a mesh instead. ``hbm_bytes`` defaults to
-    the free memory of the model's CUDA device; on the CPU it must be
+    ``SUP3R_TPU_HBM_GB`` GiB where that variable is set (the JAX
+    package's override, which reaches node processes), else to the free
+    memory of the model's CUDA device; on the CPU one of them must be
     given."""
+    env = os.environ.get('SUP3R_TPU_HBM_GB')
+    if hbm_bytes is None and env:
+        hbm_bytes = float(env) * 1024 ** 3
     if hbm_bytes is None:
         device = getattr(model, 'device', torch.device('cpu'))
         if device.type != 'cuda':
             raise ValueError(
                 'device_batch_size="auto" sizes batches from the free '
                 f'memory of a CUDA device; the model is on {device}, so '
-                'pass hbm_bytes')
+                'pass hbm_bytes or set SUP3R_TPU_HBM_GB')
         hbm_bytes = torch.cuda.mem_get_info(device)[0]
     budget = hbm_bytes * SAFETY
     lr_shape = (*padded_lr_shape, n_features)

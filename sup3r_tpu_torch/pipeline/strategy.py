@@ -346,10 +346,12 @@ class ForwardPassStrategy:
                 type(model), 'inference_mode'):
             raise ValueError(f'{self.model_class} does not support '
                              f'inference_mode={self.inference_mode!r}')
-        # reset the mode unconditionally: a cached instance may carry
-        # another strategy's setting
+        # reset the mutable inference flags unconditionally: a cached
+        # instance may carry another strategy's mode or shard setting
         if hasattr(type(model), 'inference_mode'):
             model.inference_mode = self.inference_mode
+        if hasattr(type(model), 'inference_shard_aligned'):
+            model.inference_shard_aligned = False
         return model
 
     def load_exo_data(self, model):

@@ -15,6 +15,7 @@ from warnings import warn
 import numpy as np
 from scipy.spatial import cKDTree
 
+from sup3r_tpu_torch._native import idw_apply
 from sup3r_tpu_torch.ops.coarsen import spatial_coarsening
 from sup3r_tpu_torch.preprocessing.grid import GridDataset, PairedDataset
 from sup3r_tpu_torch.preprocessing.loaders import (
@@ -308,15 +309,6 @@ class Rasterizer:
               if self.loader.time_index is not None else None)
         return RawDataset(data_vars, var_dims, self.lat_lon,
                           time_index=ti)
-
-
-def idw_apply(src, idx, weights):
-    """``out[n] = sum_k weights[n, k] * src[idx[n, k]]`` over the trailing
-    dims; src (n_src, ...), idx / weights (n_out, k). The numpy form of
-    the JAX package's ``_native.idw_apply``."""
-    weights = np.asarray(weights, np.float32)
-    return np.einsum('nk,nk...->n...', weights,
-                     np.asarray(src, np.float32)[idx]).astype(np.float32)
 
 
 class DualRasterizer:

@@ -34,23 +34,33 @@ STATUS_FILE = '.status.json'
 STATUS_VERSION = 2
 
 
-def init_node_logger(log_file=None, log_level='INFO', node_index=None):
+def init_node_logger(log_file=None, log_level='INFO', node_index=None,
+                     rank=None):
     """Per-node log initialization for module subprocesses: attach a
-    FileHandler (pattern may contain ``{node_index}``) + console
-    handler on the sup3r_tpu_torch logger tree (replaces the
-    reference's gaps ``init_logger`` per-node log files, reference:
-    sup3r/utilities/cli.py:38-120)."""
+    FileHandler + console handler on the sup3r_tpu_torch logger tree
+    (replaces the reference's gaps ``init_logger`` per-node log files,
+    reference: sup3r/utilities/cli.py:38-120). The pattern may contain
+    ``{node_index}`` (else ``_node<i>`` is appended) and ``{rank}``: a
+    rank of a node run as a group of ranks (``run_rank_group``) logs to
+    its own file, the pattern's ``{rank}`` or an appended ``_rank<r>``,
+    so no two processes write one file (the group's launcher passes
+    ``rank='group'``, which only fills a ``{rank}``)."""
     level = getattr(logging, str(log_level).upper(), logging.INFO)
     root = logging.getLogger('sup3r_tpu_torch')
     root.setLevel(level)
     logging.basicConfig(level=level)
     if not log_file:
         return None
-    if '{node_index}' in log_file:
-        log_file = log_file.format(node_index=node_index)
-    elif node_index is not None:
-        base, ext = os.path.splitext(log_file)
-        log_file = f'{base}_node{node_index}{ext or ".log"}'
+    base, ext = os.path.splitext(log_file)
+    suffix = ''
+    if node_index is not None and '{node_index}' not in log_file:
+        suffix += f'_node{node_index}'
+    if rank not in (None, 'group') and '{rank}' not in log_file:
+        suffix += f'_rank{rank}'
+    if suffix:
+        log_file = base + suffix + (ext or '.log')
+    log_file = log_file.replace('{node_index}', str(node_index)).replace(
+        '{rank}', str(0 if rank is None else rank))
     os.makedirs(os.path.dirname(os.path.abspath(log_file)),
                 exist_ok=True)
     handler = logging.FileHandler(log_file)
@@ -79,6 +89,138 @@ def node_command(payload):
     return (f'PYTHONPATH={shlex.quote(PACKAGE_ROOT)}'
             '"${PYTHONPATH:+:$PYTHONPATH}" '
             f'{shlex.quote(sys.executable)} -c {shlex.quote(payload)}')
+
+
+def run_rank_group(argv, n_ranks, timeout=None, poll_s=0.05):
+    """Run ``n_ranks`` processes of ``argv``, the ranks of one node, and
+    wait for all of them. Each gets torchrun's ``RANK``, ``WORLD_SIZE``
+    and ``LOCAL_RANK`` (its index) in its environment, with the loopback
+    for gloo's and NCCL's sockets unless set (the ranks share a host),
+    and writes its output to a file of its own. When a rank fails the
+    others are killed at once (by handle): a rank that dies before the
+    rendezvous cannot leave the others waiting at it. After ``timeout``
+    seconds every rank still running is killed. Returns (exit codes,
+    each rank's output tail, wall s, whether the timeout stopped the
+    group); a killed rank's code is negative (the signal)."""
+    import tempfile
+
+    env = dict(os.environ, WORLD_SIZE=str(n_ranks))
+    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    env.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    t0 = time.perf_counter()
+    procs, outs, timed_out = [], [], False
+    try:
+        for rank in range(n_ranks):
+            outs.append(tempfile.TemporaryFile())
+            procs.append(subprocess.Popen(
+                argv, stdout=outs[-1], stderr=subprocess.STDOUT,
+                env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank))))
+        while True:
+            codes = [p.poll() for p in procs]
+            if any(codes) or all(c == 0 for c in codes):
+                break
+            if timeout is not None and time.perf_counter() - t0 > timeout:
+                timed_out = True
+                break
+            time.sleep(poll_s)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        codes = [p.wait() for p in procs]
+        tails = []
+        for out in outs:
+            out.seek(0)
+            tails.append(out.read()[-4000:].decode(errors='replace'))
+            out.close()
+    return codes, tails, time.perf_counter() - t0, timed_out
+
+
+def model_device(cfg):
+    """'cpu' or 'cuda': where a forward-pass node's model goes."""
+    kwargs = cfg.get('model_kwargs')
+    device = kwargs.get('device') if isinstance(kwargs, dict) else None
+    return str(device or 'cuda').split(':')[0]
+
+
+def group_command(module, cfg_fp, ranks=None, timeout=None):
+    """Shell command running one node as a group of ranks: this file run
+    as a script (``run_node_group``), with ``PACKAGE_ROOT`` in front of
+    ``PYTHONPATH`` for the ranks. It imports the standard library only
+    (torch only to count the cards when ``ranks`` is None), so the
+    launcher starts at once; each rank imports the port."""
+    args = [module, cfg_fp, '' if ranks is None else str(int(ranks)),
+            '' if timeout is None else str(float(timeout))]
+    return (f'PYTHONPATH={shlex.quote(PACKAGE_ROOT)}'
+            '"${PYTHONPATH:+:$PYTHONPATH}" '
+            f'{shlex.quote(sys.executable)} '
+            f'{shlex.quote(os.path.abspath(__file__))} '
+            + ' '.join(shlex.quote(a) for a in args))
+
+
+def run_node_group(module, cfg_fp, ranks=None, timeout=None, t0=None):
+    """One node as a group of ``ranks`` processes, one a device (default:
+    the card count, 1 on the CPU), each running ``cli.run_node`` as one
+    rank of a process group: the counterpart of a JAX node's local
+    devices. ``ranks`` changes which processes run, never what is
+    computed: the group's collected output is the one-process node's.
+    The rendezvous is a FileStore beside the node's config, removed
+    after; each rank picks the backend (``cli.run_node``). This process
+    imports torch only to count the cards when ``ranks`` is None. It
+    waits for the ranks (``run_rank_group``), logs a ``Group summary``
+    line to the
+    node's log (a ``{rank}`` in the pattern reads 'group') and raises,
+    with the failed rank's output tail, when a rank fails or ``timeout``
+    s pass: the node is then recorded as failed. A group of one is one
+    rank-less process, as a node without a group."""
+    import signal
+
+    t0 = time.time() if t0 is None else t0
+    with open(cfg_fp) as f:
+        cfg = json.load(f)
+    node = cfg['node_index']
+    if ranks is None:
+        ranks = 1
+        if model_device(cfg) == 'cuda':
+            import torch
+
+            ranks = max(torch.cuda.device_count(), 1)
+    if ranks == 1:
+        from sup3r_tpu_torch.cli import run_node
+
+        run_node(module, cfg_fp, t0)
+        return 0
+    # a terminated launcher still stops its ranks (run_rank_group's
+    # finally)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    init_node_logger(cfg.get('log_file'), cfg.get('log_level', 'INFO'),
+                     node, rank='group')
+    store = f'{os.path.abspath(cfg_fp)}.store.{os.getpid()}'
+    payload = ('import time; t0 = time.time(); '
+               'from sup3r_tpu_torch.cli import run_node; '
+               f'run_node({module!r}, {cfg_fp!r}, t0, '
+               f'group={"file://" + store!r})')
+    try:
+        codes, tails, wall_s, timed_out = run_rank_group(
+            [sys.executable, '-c', payload], ranks, timeout=timeout)
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+    logger.info('Group summary: %s', json.dumps({
+        'node_index': node, 'ranks': ranks, 'wall_s': wall_s,
+        'exit_codes': codes, 'timed_out': timed_out}))
+    if timed_out:
+        raise RuntimeError(f'node {node}: its {ranks} ranks did not finish '
+                           f'within {timeout} s and were stopped')
+    failed = [r for r, c in enumerate(codes) if c]
+    if failed:
+        # the rank that failed first exited by itself; the others were
+        # killed after it
+        first = next((r for r in failed if codes[r] > 0), failed[0])
+        raise RuntimeError(
+            f'node {node}: rank {first} of {ranks} exited {codes[first]} '
+            f'(exit codes {codes}); its output ends:\n{tails[first]}')
+    return 0
 
 
 def _legacy_module_keys(status, module):
@@ -431,3 +573,15 @@ def load_config(config_file):
     """Read a JSON config file."""
     with open(config_file) as f:
         return json.load(f)
+
+
+if __name__ == '__main__':
+    # a node run as a group of ranks (``group_command``): module, config
+    # file, ranks and timeout ('' for the defaults). The package, not
+    # this file's directory, goes on the path.
+    _t0 = time.time()
+    sys.path[0] = PACKAGE_ROOT
+    _module, _cfg_fp, _ranks, _timeout = sys.argv[1:5]
+    sys.exit(run_node_group(_module, _cfg_fp,
+                            int(_ranks) if _ranks else None,
+                            float(_timeout) if _timeout else None, _t0))

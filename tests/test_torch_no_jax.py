@@ -36,7 +36,10 @@ qdm_bc. A sixth blocked run (click blocked too) drives the command line:
 ``sup3r_tpu_torch/cli.py ... pipeline --monitor`` from a directory
 outside the repo with only the blocker on ``PYTHONPATH``, forward-pass
 on two nodes, data-collect and qa, the blocker active in the parent and
-in every node. A seventh blocked run drives the mesh slice: two spawned
+in every node; and a forward-pass node run as a group of two ranks, the
+blocker active in its launcher and both ranks. The first blocked run
+also drives the native host helpers (``_native``). A seventh blocked run
+drives the mesh slice: two spawned
 gloo ranks, the blocker active in each, take a data-parallel train step
 (the same losses on both), a dp x sp step on a 1 x 2 mesh (halo
 exchanges, a row-parallel Dense and their backwards; the single-process
@@ -103,6 +106,24 @@ lr = np.random.default_rng(0).standard_normal((1, 4, 4, 3, 2))
 out = model.generate(lr.astype(np.float32))
 assert out.shape == (1, 12, 12, 12, 2) and np.isfinite(out).all()
 print('SERVED', out.shape)
+
+from sup3r_tpu_torch import _native
+
+assert _native.available()
+arr = np.random.default_rng(1).random((5, 6, 7, 2)).astype(np.float32)
+pads = ((1, 2), (2, 1), (1, 1))
+np.testing.assert_array_equal(_native.reflect_pad_4d(arr, pads),
+                              _native.reflect_pad_4d_numpy(arr, pads))
+src = np.random.default_rng(2).random((9, 4)).astype(np.float32)
+idx = np.random.default_rng(3).integers(0, 9, (5, 3))
+w = np.full((5, 3), 1 / 3, np.float32)
+np.testing.assert_allclose(_native.idw_apply(src, idx, w),
+                           _native.idw_apply_numpy(src, idx, w), rtol=1e-6)
+gids = np.arange(4)
+np.testing.assert_allclose(
+    _native.gather_scale_transpose(src, gids, 2.0),
+    _native.gather_scale_transpose_numpy(src, gids, 2.0), rtol=1e-6)
+print('NATIVE HELPERS 3')
 
 import os
 import tempfile
@@ -854,6 +875,55 @@ def test_cli_pipeline_runs_with_jax_click_and_friends_blocked(tmp_path):
     assert all(r.read_text() == '[]' for r in reports)
 
 
+def test_rank_group_node_runs_with_jax_click_and_friends_blocked(tmp_path):
+    """A forward-pass node run as a group of two gloo ranks
+    (``ranks_per_node``, ``use_mesh=True``) from a directory outside the
+    repo, with the same ``sitecustomize`` blocker as the only entry of
+    ``PYTHONPATH``: the command, the group's launcher and both ranks load
+    the blocker and import no blocked module, and the ranks pad their
+    chunks with the native helpers."""
+    from sup3r_tpu_torch.utilities.test_helpers import make_fake_nc_file
+
+    block_dir, report_dir, run_dir = (tmp_path / d for d in (
+        'block', 'report', 'run'))
+    for d in (block_dir, report_dir, run_dir):
+        d.mkdir()
+    (block_dir / 'sitecustomize.py').write_text(_SITECUSTOMIZE)
+    feats = ['u_100m', 'v_100m']
+    model = Sup3rGan(generator_st(2, (3,), (2, 2), filters=8, n_resblocks=1),
+                     [{'class': 'Flatten'}, {'class': 'Dense', 'units': 1}],
+                     meta={'lr_features': feats, 'hr_out_features': feats},
+                     means={f: 0.5 for f in feats},
+                     stdevs={f: 0.3 for f in feats}, device='cpu')
+    model.save(str(run_dir / 'model'))
+    inp = make_fake_nc_file(str(run_dir / 'in.nc'), (8, 8, 6), feats)
+    (run_dir / 'config_fwp.json').write_text(json.dumps({
+        'file_paths': inp, 'fwp_chunk_shape': [4, 4, 3],
+        'model_kwargs': {'model_dir': str(run_dir / 'model'),
+                         'device': 'cpu'},
+        'spatial_pad': 1, 'temporal_pad': 1, 'device_batch_size': 2,
+        'use_mesh': True, 'out_pattern': './out/chunk_{file_id}.nc',
+        'log_file': './logs/fwp_{node_index}.log',
+        'execution_control': {'option': 'local', 'ranks_per_node': 2}}))
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    env.update(PYTHONPATH=str(block_dir), OMP_NUM_THREADS='1',
+               BLOCKED_REPORT_DIR=str(report_dir))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, 'sup3r_tpu_torch', 'cli.py'),
+         '-c', 'config_fwp.json', 'forward-pass'],
+        cwd=str(run_dir), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert len(os.listdir(run_dir / 'out')) == 8
+    for r in range(2):
+        text = (run_dir / 'logs' / f'fwp_0_rank{r}.log').read_text()
+        assert 'Node summary' in text
+    reports = sorted(report_dir.iterdir())
+    # the command, the launcher and its two ranks
+    assert len(reports) == 4, reports
+    assert all(r.read_text() == '[]' for r in reports)
+
+
 def test_trh_chain_obs_and_dc_run_with_jax_and_friends_blocked():
     proc = _run_blocked(_SCRIPT_TRH_OBS_DC)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -876,6 +946,7 @@ def test_port_serves_with_jax_and_friends_blocked():
     proc = _run_blocked(_SCRIPT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'SERVED (1, 12, 12, 12, 2)' in proc.stdout
+    assert 'NATIVE HELPERS 3' in proc.stdout
     assert 'FORWARD PASS 8' in proc.stdout
     assert 'CHAIN WITH EXO 8' in proc.stdout
     assert 'TRAINED 1' in proc.stdout

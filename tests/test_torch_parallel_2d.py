@@ -426,10 +426,17 @@ def _wide(rank, world, out):
     mesh = get_mesh(8, devices='cpu')
     model = Sup3rGan.load(os.path.join(out, 'wide'), device='cpu')
     model.attach_mesh(mesh)
-    mesh.reset_counters()
-    res['sp'] = model.generate(shard_spatial(mesh, WIDE_ONE), norm_in=False,
-                               un_norm_out=False, mesh=mesh)
-    res['sp_halo'] = mesh.counters['halo_bytes']
+    # at sp 8 the spatial ForwardPass takes the shard-aligned route (the
+    # width gate); with the flag off the blocks the small kernel takes
+    # (both of this generator's) gather their input instead
+    for aligned, key in ((True, 'sp'), (False, 'sp_gathered')):
+        model.inference_shard_aligned = aligned
+        mesh.reset_counters()
+        res[key] = model.generate(shard_spatial(mesh, WIDE_ONE),
+                                  norm_in=False, un_norm_out=False, mesh=mesh)
+        res[f'{key}_bytes'] = (mesh.counters['halo_bytes'],
+                               mesh.counters['rows_bytes'])
+    model.inference_shard_aligned = False
     res['dp'] = model.run_gradient_descent(
         *shard_batch(mesh, WIDE_LR, WIDE_HR), train_gen=True,
         train_disc=True)
@@ -867,8 +874,10 @@ def test_wide_mesh(run):
     """tests/training/test_wide_mesh.py at 8 ranks: the 8-rank
     data-parallel step and the dp 2 x sp 4 step (shard-aligned by the
     width gate) against the JAX package's single-device steps, the
-    8-rank spatially sharded forward against the unsharded one (halo
-    rows sent), and uneven splits refused on either axis."""
+    8-rank spatially sharded forward against the unsharded one on the
+    shard-aligned route (halo rows sent, none gathered) and with the
+    flag off (the small kernel's blocks gathered, no halo rows), and
+    uneven splits refused on either axis."""
     ranks, refs = run
     want_sp = refs['wide_sp']
     rows = want_sp.shape[1] // WORLD
@@ -877,10 +886,14 @@ def test_wide_mesh(run):
         for k, v in refs['wide'][0].items():
             np.testing.assert_allclose(res['dp'][k], v, rtol=2e-4,
                                        atol=1e-6, err_msg=k)
-        np.testing.assert_allclose(res['sp'],
-                                   want_sp[:, rows * r:rows * (r + 1)],
-                                   rtol=1e-5, atol=1e-5)
-        assert res['sp_halo'] > 0
+        for key in ('sp', 'sp_gathered'):
+            np.testing.assert_allclose(res[key],
+                                       want_sp[:, rows * r:rows * (r + 1)],
+                                       rtol=1e-5, atol=1e-5)
+        halo, gathered = res['sp_bytes']
+        assert halo > 0 and gathered == 0
+        halo, gathered = res['sp_gathered_bytes']
+        assert halo == 0 and gathered > 0
         assert res['axis'] == 'space' and res['aligned'] is True
         _check_step((res['2d'], res['2d_params']), refs['wide2'])
         assert len(res['errors']) == 2

@@ -187,14 +187,14 @@ def test_bias_exports_match_jax(module):
 
 SLICE_MODULES = ('utilities.cli', 'postprocessing.collectors',
                  'postprocessing.cachers', 'qa', 'qa.qa', 'qa.utilities',
-                 'utilities.flops', 'utilities.era_downloader')
+                 'utilities.flops', 'utilities.era_downloader', '_native')
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)
 def test_pipeline_slice_exports_match_jax(module):
-    """Each module of the production-pipeline slice defines every public
-    function, class (with its public methods) and constant that its JAX
-    counterpart defines."""
+    """Each module of the production-pipeline slice, and the native host
+    helpers, defines every public function, class (with its public
+    methods) and constant that its JAX counterpart defines."""
     import importlib
 
     jax_mod = importlib.import_module(f'sup3r_tpu.{module}')

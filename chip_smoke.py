@@ -370,6 +370,19 @@ exits non-zero:
    tail under 'spatial'); the group's wall s; the chunk files against
    phase 16's collected one-process output (1e-6 of max under True, 1e-4
    under 'spatial'); after the True run, a rerun that starts nothing.
+20. the last names of the port (printed before the ``kernels`` line):
+   phase 14's cell with ``device_batch_size='auto'`` under a memory
+   budget too small for one padded chunk (``SUP3R_TPU_HBM_GB``) in this
+   process, a world of one: the plan (1, 'spatial') as the JAX package's
+   fallback; ``small_reflect_conv`` on each dispatch's gathered tail, every
+   launch of a first, checked pass held to its plain version on its own
+   inputs; then the default pass and the 'auto' pass timed warm, the
+   latter held to the former (1e-4, phase 17a's bar), next to the card's
+   name and power limit. ``ops.interp.bilinear_resize`` on
+   the card against its CPU result (1e-6 of max), and the flagship
+   generator through ``save_network_params`` -> ``load_network_params``
+   into a model drawn from another seed: parameters bit-equal, the
+   generator's output unchanged.
 
 Before the ``kernels`` line, ``phase_seconds`` gives the seconds each
 phase took. The last line is ``{"ok": true, "device": {...}}``.
@@ -435,7 +448,9 @@ from sup3r_tpu_torch.postprocessing.writers import write_nc_file
 from sup3r_tpu_torch.preprocessing import LoaderNC
 from sup3r_tpu_torch.qa import Sup3rQa
 from sup3r_tpu_torch.models.gan import relativistic_disc_loss
+from sup3r_tpu_torch.models.abstract import AbstractSingleModel
 from sup3r_tpu_torch.models.weights import params_from_jax, params_to_jax
+from sup3r_tpu_torch.ops.interp import bilinear_resize
 from sup3r_tpu_torch.ops.conv_ad import (
     _fold_reflect_halos,
     reflect_conv_ad,
@@ -5416,6 +5431,172 @@ def pipeline_group_phase(name, one_process):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: phase 20: a memory budget (GiB) too small for one padded chunk of
+#: phase 14's cell, the bilinear resize's input and output grid, and the
+#: small input the reloaded generator serves
+AUTO_HBM_GB = '0.02'
+RESIZE_SHAPE = STREAM_DOMAIN + (2,)
+RESIZE_OUT = (120, 120)
+RESIZE_RTOL = 1e-6
+RELOAD_LR = (2,) + LR_SHAPE[1:]
+
+
+@contextlib.contextmanager
+def checked_small_launches():
+    """Hold each call the fused blocks make of ``small_reflect_conv_cf``
+    to ``reflect_conv_reference`` on the same inputs (the reference is
+    plain PyTorch and counts no launch); yields the list of ((x shape,
+    co, alpha), max abs err, max abs plain) per call."""
+    from sup3r_tpu_torch.models import fuse
+
+    original = fuse.small_reflect_conv_cf
+    errs = []
+
+    def call(x, weight, bias, alpha=None):
+        got = original(x, weight, bias, alpha)
+        with exact_fp32():
+            want = reflect_conv_reference(x, weight, bias, alpha)
+        errs.append(((tuple(x.shape), weight.shape[0], alpha),
+                     (got - want).abs().max().item(),
+                     want.abs().max().item()))
+        return got
+
+    fuse.small_reflect_conv_cf = call
+    try:
+        yield errs
+    finally:
+        fuse.small_reflect_conv_cf = original
+
+
+@contextlib.contextmanager
+def hbm_budget(gb):
+    """``SUP3R_TPU_HBM_GB`` set to ``gb`` for the block."""
+    old = os.environ.get('SUP3R_TPU_HBM_GB')
+    os.environ['SUP3R_TPU_HBM_GB'] = gb
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop('SUP3R_TPU_HBM_GB')
+        else:
+            os.environ['SUP3R_TPU_HBM_GB'] = old
+
+
+def auto_fallback_pass(name, tmp, model_dir, input_file):
+    """Phase 20a: the 'auto' pass of phase 14's cell under
+    ``AUTO_HBM_GB``, first checked (each small-kernel launch against its
+    plain version; the model's first pass), then the default pass and
+    the 'auto' pass again, both timed warm. Returns the timed 'auto'
+    pass's launches and, per (x shape, co, alpha), the checked pass's
+    calls and largest error."""
+    def make(out):
+        return stream_strategy(input_file, model_dir, out,
+                               device_batch_size='auto')
+
+    with hbm_budget(AUTO_HBM_GB), checked_small_launches() as errs:
+        checked_wall, checked, _, _ = mesh_pass(
+            make, os.path.join(tmp, 'auto_checked'))
+    default_dir = os.path.join(tmp, 'default')
+    wall_default, _, strategy, _ = mesh_pass(
+        lambda out: stream_strategy(input_file, model_dir, out),
+        default_dir)
+    default_full = stitched(strategy, default_dir)
+    out_dir = os.path.join(tmp, 'auto')
+    with hbm_budget(AUTO_HBM_GB):
+        wall, launches, strategy, counters = mesh_pass(make, out_dir)
+    plan = (strategy.device_batch_size, strategy.use_mesh)
+    n_dispatch = strategy.fwp_slicer.n_chunks
+    err = float(np.abs(stitched(strategy, out_dir) - default_full).max())
+    kernel_err = max(e for _, e, _ in errs)
+    kernel_ok = all(e <= KERNEL_RTOL * scale for _, e, scale in errs)
+    by_shape = {}
+    for key, e, _ in errs:
+        n, worst = by_shape.get(key, (0, 0.0))
+        by_shape[key] = (n + 1, max(worst, e))
+    want = {'small_reflect_conv': n_dispatch, 'reflect_conv': 0}
+    ok = bool(plan == (1, 'spatial') and launches == want
+              and checked == want and len(errs) == n_dispatch
+              and kernel_ok and err <= MESH_SPATIAL_ATOL)
+    emit(phase='auto_fallback_pass', io=STREAM_IO, hbm_gb=AUTO_HBM_GB,
+         plan=list(plan), mesh_size=RecordedForwardPass.last.mesh.size,
+         dispatches=n_dispatch, wall_s=wall, default_wall_s=wall_default,
+         checked_pass_wall_s=checked_wall, launches=launches,
+         checked_launches=len(errs),
+         launches_by_shape=[[list(x), co, a, n, e]
+                            for (x, co, a), (n, e) in by_shape.items()],
+         kernel_max_abs_err=kernel_err, kernel_rtol=KERNEL_RTOL,
+         max_abs_err_vs_default=err, tol=MESH_SPATIAL_ATOL,
+         mesh_counters=counters, nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(
+            f'auto fallback: plan {plan}, launches {launches} / {checked} '
+            f'vs {want}, kernel errors {errs}, error {err}')
+    return launches, by_shape
+
+
+def resize_check(name):
+    """Phase 20b: ``bilinear_resize`` on the card against the CPU."""
+    arr = torch.as_tensor(np.random.default_rng(4).random(
+        RESIZE_SHAPE, dtype=np.float32))
+    got = bilinear_resize(arr.to('cuda'), *RESIZE_OUT)
+    torch.cuda.synchronize()
+    want = bilinear_resize(arr, *RESIZE_OUT)
+    err = (got.cpu() - want).abs().max().item()
+    tol = RESIZE_RTOL * want.abs().max().item()
+    ok = bool(got.is_cuda and tuple(got.shape) == tuple(want.shape)
+              and err <= tol)
+    emit(phase='bilinear_resize_check', shape=list(RESIZE_SHAPE),
+         out_shape=list(got.shape), max_abs_err=err, tol=tol,
+         nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'bilinear_resize on the card: {err} > {tol}')
+
+
+def network_params_round_trip(name, model, tmp):
+    """Phase 20c: the flagship generator through ``save_network_params``
+    and ``load_network_params`` into a model drawn from another seed."""
+    fp = os.path.join(tmp, 'model_gen.msgpack')
+    AbstractSingleModel.save_network_params(model.generator, fp)
+    fresh = flagship('cuda')
+    fresh.init_weights((1,) + LR_SHAPE[1:], (1,) + HR_SHAPE[1:], seed=1)
+    lr = np.random.default_rng(2).standard_normal(RELOAD_LR).astype(
+        np.float32) * 0.3 + 0.5
+    want = model.generate(lr)
+    before = float(np.abs(fresh.generate(lr) - want).max())
+    params_from_jax(fresh.generator, AbstractSingleModel.load_network_params(
+        fresh.generator, fp))
+    same = all(torch.equal(a, b) for a, b in zip(
+        fresh.generator_weights, model.generator_weights))
+    err = float(np.abs(fresh.generate(lr) - want).max())
+    ok = bool(same and err == 0.0 and before > 0.0
+              and all(p.is_cuda for p in fresh.generator_weights))
+    emit(phase='network_params_round_trip', file_bytes=os.path.getsize(fp),
+         tensors=len(model.generator_weights), bit_equal=same,
+         lr_shape=list(RELOAD_LR), max_abs_err_before_load=before,
+         max_abs_err=err, nvidia_smi=name, ok=ok)
+    if not ok:
+        raise AssertionError(f'network params round trip: bit-equal {same}, '
+                             f'output error {err} (before the load '
+                             f'{before})')
+
+
+def last_names_phase(name):
+    """Phase 20: the 'auto' fallback in a world of one,
+    ``bilinear_resize`` and the network params round trip. Returns the
+    fallback pass's launches and its kernel shapes for the ``kernels``
+    line."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_last_')
+    try:
+        model, model_dir, input_file = mesh_cell(tmp)
+        launches, by_shape = auto_fallback_pass(name, tmp, model_dir,
+                                                input_file)
+        resize_check(name)
+        network_params_round_trip(name, model, tmp)
+        return launches, by_shape
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device: '
@@ -5809,6 +5990,18 @@ def main():
     # ranks
     mesh_launches.update(pipeline_group_phase(smi, pipe['collected']))
     mark('19_pipeline_group')
+    # 20. the world-of-one 'auto' fallback, bilinear_resize, the network
+    # params round trip
+    mesh_launches['world_of_one_auto_fallback_pass'], auto_shapes = (
+        last_names_phase(smi))
+    mark('20_last_names')
+    # the small kernel at each of the fallback pass's batch-1 tail shapes
+    auto_fallback = [
+        dict(timing('small_reflect_conv', small_reflect_conv_cf,
+                    *conv_inputs(gen, x_shape, co), alpha),
+             max_abs_err=err, launches_per_pass=n)
+        for (x_shape, co, alpha), (n, err) in auto_shapes.items()]
+    mark('20_kernel_timings')
     emit(phase='phase_seconds', seconds=seconds,
          total_s=sum(seconds.values()))
 
@@ -5828,8 +6021,8 @@ def main():
                 kname]}
 
     def per_mesh(kname):
-        """Phases 17 and 18's launches: per step or pass, per rank in
-        17b and 18."""
+        """Phases 17 to 20's launches: per step or pass, per rank in
+        17b, 18 and 19."""
         return {'launches_in_mesh_paths': {
             path: ([c[kname] for c in counts] if isinstance(counts, list)
                    else counts[kname])
@@ -5879,6 +6072,7 @@ def main():
                       **per_mesh('small_reflect_conv'),
                       mesh_rank_train_shape=mesh_tail,
                       mesh_spatial_gathered_shape=mesh_gathered,
+                      auto_fallback_shapes=auto_fallback,
                       obs_shape=obs_tail,
                       obs_train_check_rel_err=obs['train_check_rel_err'],
                       train_shape=dict(

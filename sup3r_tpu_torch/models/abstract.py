@@ -41,6 +41,7 @@ from sup3r_tpu_torch.models.weights import (
     packb,
     params_from_jax,
     params_to_jax,
+    restore_state_dict,
     save_jax_checkpoint,
     unpackb,
 )
@@ -90,6 +91,17 @@ def _as_exo_data(exogenous_data):
     return ExoData(exogenous_data)
 
 
+def _has_kernel_out(tree):
+    """Whether a params tree's outermost dicts (a per-layer list's
+    entries) include one with a ``kernel_out`` key (a two-stage
+    ``Sup3rObsModel``)."""
+    if isinstance(tree, dict):
+        return 'kernel_out' in tree
+    if isinstance(tree, (list, tuple)):
+        return any(_has_kernel_out(v) for v in tree)
+    return False
+
+
 @functools.lru_cache(maxsize=None)
 def supports_fetch(model_cls):
     """Whether a model class's ``generate`` takes ``fetch=`` (the
@@ -105,7 +117,7 @@ class AbstractInterface:
     meta: dict
 
     @classmethod
-    def load(cls, model_dir, device='cuda', verbose=True):
+    def load(cls, model_dir, verbose=True, device='cuda'):
         """Load a model from a save directory."""
         raise NotImplementedError
 
@@ -640,6 +652,44 @@ class AbstractSingleModel(AbstractInterface):
             hi_res = np.concatenate([hi_res, np.asarray(exo_output)],
                                     axis=-1)
         return hi_res
+
+    # ------------------------------------------------------------------
+    # parameter (de)serialization
+    @staticmethod
+    def save_network_params(params, fp):
+        """Serialize a params tree to a msgpack file, byte for byte as the
+        JAX package's ``save_network_params`` writes the same params.
+        ``params``: the JAX package's layout (e.g. a per-layer list of
+        dicts of arrays or tensors), or a ``Network``, saved as
+        ``params_to_jax`` gives it."""
+        if isinstance(params, Network):
+            params = params_to_jax(params)
+        save_jax_checkpoint(params, fp)
+
+    @staticmethod
+    def load_network_params(template, fp):
+        """Deserialize a params tree (numpy leaves) using ``template``
+        (a params tree or a ``Network``) for structure; a file from an
+        older two-stage ``Sup3rObsModel`` raises the JAX package's
+        ValueError."""
+        if isinstance(template, Network):
+            template = params_to_jax(template)
+        with open(fp, 'rb') as f:
+            raw = f.read()
+        try:
+            return restore_state_dict(template, unpackb(raw))
+        except (KeyError, ValueError) as e:
+            if _has_kernel_out(template):
+                raise ValueError(
+                    f'Could not restore {fp}: the checkpoint does not '
+                    'match the current network structure. Note that '
+                    'Sup3rObsModel layers with ``filters`` set now '
+                    'train a two-stage projection (kernel/kernel_out); '
+                    'checkpoints saved by the earlier single-kernel '
+                    'form must be re-saved (or drop ``filters`` from '
+                    'the layer config to restore the old shape). '
+                    f'Original error: {e}') from e
+            raise
 
     # ------------------------------------------------------------------
     # save directory

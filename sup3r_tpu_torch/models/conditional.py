@@ -214,7 +214,7 @@ class Sup3rCondMom(AbstractSingleModel):
         return params
 
     @classmethod
-    def load(cls, model_dir, device='cuda', verbose=True):
+    def load(cls, model_dir, verbose=True, device='cuda'):
         """Load a conditional model that ``save`` here or the JAX
         package's ``Sup3rCondMom.save`` wrote: ``model_params.json``,
         ``model_gen.msgpack``, and ``opt_state.msgpack`` /

@@ -216,6 +216,23 @@ class Sup3rGan(AbstractSingleModel):
             return None
         return tuple(self._disc.parameters())
 
+    @property
+    def generator_weights(self):
+        """The generator's parameter tensors (``gen_params``)."""
+        return self.gen_params
+
+    @property
+    def discriminator_weights(self):
+        """The discriminator's parameter tensors (``disc_params``)."""
+        return self.disc_params
+
+    @property
+    def weights(self):
+        """All trainable params: {'generator': ..., 'discriminator':
+        ...}."""
+        return {'generator': self.gen_params,
+                'discriminator': self.disc_params}
+
     # ------------------------------------------------------------------
     # the train step
     #: why the class's train step cannot run on a ``space`` axis (None:
@@ -703,7 +720,7 @@ class Sup3rGan(AbstractSingleModel):
         return {}
 
     @classmethod
-    def load(cls, model_dir, device='cuda', verbose=True):
+    def load(cls, model_dir, verbose=True, device='cuda'):
         """Load a GAN that ``save`` here or the JAX package's
         ``Sup3rGan.save`` wrote: ``model_params.json``, the weights, and
         ``opt_state.msgpack`` / ``history.csv`` where present."""

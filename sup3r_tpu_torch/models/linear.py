@@ -32,7 +32,7 @@ class LinearInterp(AbstractInterface):
         self.device = resolve_device(device)
 
     @classmethod
-    def load(cls, model_dir, device='cuda', verbose=False):
+    def load(cls, model_dir, verbose=False, device='cuda'):
         """Load from a directory holding ``model_params.json``."""
         with open(os.path.join(model_dir, 'model_params.json')) as f:
             meta = json.load(f)['meta']

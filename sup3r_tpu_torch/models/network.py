@@ -126,7 +126,7 @@ class Network(nn.Module):
         return shape
 
     def forward(self, x, exo=None, train=False, dropout_generator=None,
-                spatial=None, dropout_rows=None):
+                spatial=None, dropout_rows=None, allow_pending_skips=False):
         """Run the layers on a channels-first tensor. ``exo`` maps
         feature name -> channels-last raster for the injection layers
         (exo and observations alike); ``train`` with a
@@ -136,7 +136,9 @@ class Network(nn.Module):
         ``spatial`` shard (``parallel.mesh.SpatialShard``) ``x`` is this
         rank's block of s1 rows, every rank's block of equal rows; a
         layer without a sharded form raises a ValueError that says why
-        (``models/layers.py`` lists the sharded forms)."""
+        (``models/layers.py`` lists the sharded forms).
+        ``allow_pending_skips`` lets a layer-list prefix end inside a
+        residual span (profiling tooling only)."""
         ctx = {'exo': exo or {}, 'skips': {}, 'train': train,
                'dropout_generator': dropout_generator, 'spatial': spatial,
                'dropout_rows': dropout_rows}
@@ -156,7 +158,7 @@ class Network(nn.Module):
                     f'{type(lyr).__name__} cannot run on a block of s1 rows '
                     f'of a spatial mesh: {lyr.unsharded_reason}')
             x = lyr(x, ctx)
-        if ctx['skips']:
+        if ctx['skips'] and not allow_pending_skips:
             raise ValueError(
                 'Unclosed skip connections: '
                 f'{sorted(ctx["skips"])} — each SkipConnection name must '
@@ -196,13 +198,14 @@ class Network(nn.Module):
             p for lyr in self.layers[head + 1:] for p in lyr.parameters()]
 
     def apply(self, x, exo=None, train=False, dropout_generator=None,
-              spatial=None, dropout_rows=None):
+              spatial=None, dropout_rows=None, allow_pending_skips=False):
         """Run the network on a channels-last tensor; returns the
         channels-last output (a view of the channels-first result).
         Shadows ``nn.Module.apply(fn)``, as the JAX package's
         ``Network.apply`` runs the network."""
         x = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1)).contiguous()
-        out = self(x, exo, train, dropout_generator, spatial, dropout_rows)
+        out = self(x, exo, train, dropout_generator, spatial, dropout_rows,
+                   allow_pending_skips)
         return out.permute(0, *range(2, out.ndim), 1)
 
     def out_shape(self, in_shape):
@@ -211,6 +214,25 @@ class Network(nn.Module):
         for lyr in self.layers:
             shape = lyr.out_shape(shape)
         return shape
+
+    @staticmethod
+    def dtype_cast(params, dtype):
+        """Cast every floating tensor of a params tree (e.g.
+        ``gen_params``, or the per-layer list of ``params_to_jax`` as
+        tensors) to ``dtype`` (a torch dtype or its name, e.g.
+        'bfloat16'); other leaves pass through. Dicts come back with
+        sorted keys, as ``jax.tree.map`` rebuilds them."""
+        if not isinstance(dtype, torch.dtype):
+            dtype = getattr(torch, str(dtype))
+        if isinstance(params, dict):
+            return {k: Network.dtype_cast(params[k], dtype)
+                    for k in sorted(params)}
+        if isinstance(params, (list, tuple)):
+            return type(params)(Network.dtype_cast(v, dtype)
+                                for v in params)
+        if isinstance(params, torch.Tensor) and params.is_floating_point():
+            return params.to(dtype)
+        return params
 
     def __len__(self):
         return len(self.layers)

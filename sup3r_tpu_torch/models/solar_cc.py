@@ -251,7 +251,8 @@ class SolarCC(Sup3rGan):
         return out
 
     @classmethod
-    def load(cls, model_dir, t_enhance=None, device='cuda', verbose=True):
+    def load(cls, model_dir, t_enhance=None, verbose=True,
+             device='cuda'):
         """Load, with an optional ``t_enhance`` override (the serving
         factor of a chain: 24 on an 8x network)."""
         model = super().load(model_dir, device=device, verbose=verbose)

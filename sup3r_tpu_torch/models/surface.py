@@ -80,7 +80,7 @@ class SurfaceSpatialMetModel(AbstractInterface):
 
     # ------------------------------------------------------------------
     @classmethod
-    def load(cls, model_dir, device='cuda', verbose=False):
+    def load(cls, model_dir, verbose=False, device='cuda'):
         """Load from the ``model_params.json`` that either package's
         ``save`` writes."""
         with open(os.path.join(model_dir, 'model_params.json')) as f:

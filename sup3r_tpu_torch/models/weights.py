@@ -6,7 +6,9 @@ port's layer modules; ``params_to_jax`` gives that list back;
 ``chain_params_from_jax`` does it per member of a ``MultiStepGan``.
 ``load_jax_checkpoint`` / ``save_jax_checkpoint`` read and write a
 ``model_gen.msgpack`` / ``model_disc.msgpack`` as the JAX package's
-``Sup3rGan.save`` does, so save directories are interchangeable.
+``Sup3rGan.save`` does, so save directories are interchangeable;
+``restore_state_dict`` fills a template params tree from such a file,
+as flax does (``AbstractSingleModel.load_network_params``).
 ``opt_state_to_jax`` / ``opt_state_from_jax`` carry one network's
 optimizer state (optax's chain state: Adam's ``count``, ``mu`` and
 ``nu``, the momentum ``trace``, RMSprop's ``nu``) to and from flax's
@@ -384,9 +386,53 @@ def load_jax_checkpoint(path):
     return [tree[str(i)] for i in range(len(tree))]
 
 
+def _state_dict(tree):
+    """flax's state dict of a params tree as the JAX package's
+    ``save_network_params`` builds it: dict keys as strings in sorted
+    order (``jax.tree.map`` sorts them), lists and tuples as maps keyed
+    '0', '1', ..., tensors and other leaves as numpy arrays (bfloat16
+    tensors as flax's bfloat16 leaves)."""
+    if isinstance(tree, dict):
+        return {str(k): _state_dict(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().cpu()
+        if tree.dtype == torch.bfloat16:
+            return BF16Array(tree.float().numpy())
+        return tree.numpy()
+    return None if tree is None else np.asarray(tree)
+
+
+def restore_state_dict(template, state, path='.'):
+    """``flax.serialization.from_state_dict`` for the trees params are
+    made of: ``template``'s structure (dicts, lists, tuples) filled with
+    ``state``'s leaves, with flax's errors and their text when a list's
+    length differs or a template key is missing from the state."""
+    if isinstance(template, dict):
+        diff = set(map(str, template.keys())).difference(state.keys())
+        if diff:
+            raise ValueError(
+                'The target dict keys and state dict keys do not match, '
+                f'target dict contains keys {diff} which are not present '
+                f'in state dict at path {path}')
+        return {key: restore_state_dict(value, state[str(key)],
+                                        f'{path}/{key}')
+                for key, value in template.items()}
+    if isinstance(template, (list, tuple)):
+        if len(state) != len(template):
+            raise ValueError(
+                'The size of the list and the state dict do not match, '
+                f'got {len(template)} and {len(state)} at path {path}')
+        out = [restore_state_dict(x, state[str(i)], f'{path}/{i}')
+               for i, x in enumerate(template)]
+        return tuple(out) if isinstance(template, tuple) else out
+    return state
+
+
 def save_jax_checkpoint(params, path):
-    """Write a per-layer param list as the JAX package's network
-    checkpoint (flax's state dict of the list)."""
-    tree = {str(i): p for i, p in enumerate(params)}
+    """Write a params tree (a per-layer param list for a network) as
+    flax's state dict, byte for byte as the JAX package writes the same
+    params."""
     with open(path, 'wb') as f:
-        f.write(packb(tree))
+        f.write(packb(_state_dict(params)))

@@ -3,9 +3,10 @@
 Reference parity: sup3r/models/utilities.py:161 (st_interp),
 sup3r/utilities/interpolation.py:17-233 (Interpolator: level masks,
 linear/log vertical interpolation). The port's copy of
-``sup3r_tpu/ops/interp.py``: ``st_interp`` in torch on the tensor's
-device (``LinearInterp`` serves with it), the vertical interpolation of
-the derivers' level features on numpy arrays.
+``sup3r_tpu/ops/interp.py``: ``st_interp`` and ``bilinear_resize`` in
+torch on the tensor's device (``LinearInterp`` serves with the former),
+the vertical interpolation of the derivers' level features on numpy
+arrays.
 """
 
 import numpy as np
@@ -153,3 +154,17 @@ def interp_to_level(lev_array, var_array, level, method='linear'):
     if method == 'log':
         return _log_vertical(lev0, lev1, var0, var1, level)
     return _lin_vertical(lev0, lev1, var0, var1, level)
+
+
+def bilinear_resize(arr, out_s1, out_s2):
+    """Bilinear resize of the leading two spatial dims with edge
+    extrapolation and cell-centered registration (the convention of
+    ``st_interp``). A tensor stays on its device; a numpy array runs on
+    the CPU. Returns a tensor."""
+    x = torch.as_tensor(arr)
+    s1, s2 = x.shape[:2]
+    for axis, n, n_out in ((0, s1, out_s1), (1, s2, out_s2)):
+        lo, hi, alpha = _interp1d_weights(_axis_points(n),
+                                          _axis_points(n_out))
+        x = _lerp_axis(x, lo, hi, alpha, axis)
+    return x

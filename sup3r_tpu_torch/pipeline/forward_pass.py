@@ -113,8 +113,9 @@ class ForwardPass:
         """Resolve device_batch_size='auto' into an int from the memory
         estimate of one padded chunk (see pipeline/memory.py). When one
         padded chunk alone does not fit the card, switch on spatial
-        sharding over the ranks of the process group; raise when there
-        is no other rank to share it with. In a group of ranks (a CLI
+        sharding over the ranks of the process group, a world of one
+        included, as the JAX package switches over its local devices,
+        even one. In a group of ranks (a CLI
         node run as one, ``utilities.cli.run_node_group``) the ranks take
         the first rank's plan (ranks sharing a card see different free
         memory), and a plan that needs no sharding fans the chunks out
@@ -145,14 +146,6 @@ class ForwardPass:
         if use_spatial and not strategy.use_mesh:
             self.mesh = self.mesh or get_mesh(devices=self.model.device)
             n_dev = self.mesh.size
-            if n_dev == 1:
-                raise ValueError(
-                    f'one padded chunk {padded} does not fit the card, and '
-                    'use_mesh="spatial" needs more than one rank to share '
-                    'it (this process is a world of one): use a smaller '
-                    'fwp_chunk_shape, or run the pass on more ranks (one '
-                    'process per card, e.g. a CLI node with '
-                    'execution_control.ranks_per_node, or torchrun)')
             strategy.use_mesh = 'spatial'
             halo = estimate_halo_bytes(self.model, (*padded, n_feats), n_dev)
             logger.info(

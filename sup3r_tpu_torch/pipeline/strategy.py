@@ -181,7 +181,8 @@ class ForwardPassStrategy:
     #: device each, ``parallel.get_mesh``): True = each rank runs its
     #: share of every batch's chunks; 'spatial' = each rank runs its
     #: block of every chunk's s1 rows, with conv halo exchanges between
-    #: neighbouring ranks (for chunks too large for one card). Without a
+    #: neighbouring ranks (for chunks too large for one card); any other
+    #: truthy value runs as True, as in the JAX package. Without a
     #: process group the mesh is this process alone
     use_mesh: Union[bool, str] = False
     #: stream input per chunk: only coordinates are loaded up front and
@@ -213,9 +214,6 @@ class ForwardPassStrategy:
     node_chunks_plan: Optional[list] = None
 
     def __post_init__(self):
-        if self.use_mesh and self.use_mesh not in (True, 'spatial'):
-            raise ValueError(f'use_mesh must be False, True or "spatial", '
-                             f'got {self.use_mesh!r}')
         self.timer = Timer()
         model = self.get_model()
         self.s_enhance = model.s_enhance

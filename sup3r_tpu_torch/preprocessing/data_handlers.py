@@ -47,6 +47,8 @@ class DataHandler:
     ``mode='lazy'`` dask stores)."""
 
     FEATURE_REGISTRY = RegistryBase
+    #: every handler family here supports mode='lazy'
+    SUPPORTS_LAZY = True
 
     def __init__(self, file_paths, features='all', target=None,
                  shape=None, time_slice=slice(None), threshold=None,

@@ -6,15 +6,15 @@ sup3r/preprocessing/base.py Sup3rDataset) with a minimal eager
 container: one float32 block of shape ``(south_north, west_east, time,
 feature)`` plus coords. No laziness — chunk streaming happens at the
 pipeline layer where it's explicit and double-buffered. The port's copy
-of what the forward pass and the training feed use of
-``sup3r_tpu/preprocessing/grid.py`` (the sampler hot path ``sample``
-and the stats' normalization), with the pandas-free
+of ``sup3r_tpu/preprocessing/grid.py`` (the sampler hot path ``sample``,
+the stats' normalization, ``qa`` and ``flatten``), with the pandas-free
 ``TimeIndex``, and ``PairedDataset``, the (low_res, high_res) pair the
 dual feed trains on.
 """
 
 import numpy as np
 
+from sup3r_tpu_torch.names import Dimension
 from sup3r_tpu_torch.utilities import TimeIndex, nn_fill_array
 
 
@@ -65,6 +65,11 @@ class GridDataset:
         return self.data.shape[:2]
 
     @property
+    def dims(self):
+        """Canonical dim names."""
+        return (*Dimension.dims_3d(), Dimension.VARIABLE)
+
+    @property
     def size(self):
         return self.data.size
 
@@ -97,6 +102,22 @@ class GridDataset:
             rest = tuple(key[1:])
             return base[rest] if rest else base
         return self.data[key]
+
+    def qa(self, stats=('nan_perc', 'mean', 'std', 'min', 'max')):
+        """Per-feature data-quality stats: the NaN percentage and numpy's
+        NaN-ignoring ``mean`` / ``std`` / ``min`` / ``max`` (reference:
+        sup3r/preprocessing/accessor.py:625 ``Sup3rX.qa``)."""
+        out = {}
+        for f in self.features:
+            arr = self[f]
+            info = {}
+            for s in stats:
+                if s == 'nan_perc':
+                    info[s] = float(100 * np.isnan(arr).mean())
+                else:
+                    info[s] = float(getattr(np, 'nan' + s)(arr))
+            out[f] = info
+        return out
 
     def __setitem__(self, feature, values):
         """Overwrite a feature channel (the handler-level bias
@@ -151,6 +172,34 @@ class GridDataset:
             if np.isnan(self.data[..., i]).any():
                 self.data[..., i] = nn_fill_array(self.data[..., i])
         return self
+
+    def compute(self):
+        """No-op (the data is always in memory); returns the dataset."""
+        return self
+
+    def flatten(self):
+        """Collapse (s1, s2) into one space dim: returns the (space, t,
+        f) data and the (space, 2) coords (reference:
+        sup3r/preprocessing/accessor.py:551)."""
+        s1, s2, t, f = self.data.shape
+        flat = self.data.reshape(s1 * s2, t, f)
+        coords = (None if self.lat_lon is None
+                  else self.lat_lon.reshape(-1, 2))
+        return flat, coords
+
+    @classmethod
+    def unflatten(cls, flat_data, grid_shape, features, lat_lon=None,
+                  time_index=None):
+        """Inverse of ``flatten``: (space, t, f) data on a ``grid_shape``
+        grid -> GridDataset (reference:
+        sup3r/preprocessing/accessor.py:566)."""
+        s1, s2 = grid_shape
+        flat_data = np.asarray(flat_data)
+        data = flat_data.reshape(s1, s2, *flat_data.shape[1:])
+        if lat_lon is not None and lat_lon.ndim == 2:
+            lat_lon = lat_lon.reshape(s1, s2, 2)
+        return cls(data, features, lat_lon=lat_lon,
+                   time_index=time_index)
 
     def __repr__(self):
         return (f'GridDataset(shape={self.shape}, '

@@ -1,34 +1,53 @@
 """Fake data for tests and on-card runs of the port (the counterparts
-of ``make_fake_dset`` and ``make_fake_nc_file`` in
-``sup3r_tpu/utilities/test_helpers.py``): an in-memory GridDataset,
-NetCDF3 input through scipy, a NetCDF3 topography source and the NetCDF3
-form of a bias factor file, without pandas or h5py, so a machine without
-them can make its own input; ``spawn_ranks``, which starts a group of
+of the helpers in ``sup3r_tpu/utilities/test_helpers.py``): an
+in-memory GridDataset and its (low_res, high_res) pair, NetCDF3 input
+through scipy, a NetCDF3 topography source and the NetCDF3 form of a
+bias factor file, without pandas or h5py, so a machine without them can
+make its own input; NetCDF4-style, flattened NetCDF4 and rex-style H5
+files through h5py, imported in the function (CPU machines only); ``spawn_ranks``, which starts a group of
 rank processes for the multi-rank tests and runs; and
 ``expected_exchange_bytes``, the analytic count of the rows a dp x sp
 train step's sharded layers exchange."""
 
 import os
+import re
 import subprocess
 import time
 
 import numpy as np
 
-from sup3r_tpu_torch.preprocessing.grid import GridDataset
+from sup3r_tpu_torch.preprocessing.grid import GridDataset, PairedDataset
 from sup3r_tpu_torch.utilities import RANDOM_GENERATOR, safe_serialize
 from sup3r_tpu_torch.utilities.times import (
     date_range,
+    format_timestamps,
     infer_unit,
     seconds_since,
     timestamp,
 )
 
 
+#: pandas frequency units numpy names otherwise
+_PANDAS_UNITS = {'min': 'm', 'T': 'm', 'H': 'h', 'd': 'D', 'S': 's',
+                 'L': 'ms', 'U': 'us', 'N': 'ns'}
+
+
+def _freq_step(freq):
+    """A ``timedelta64`` step from a ``timedelta64``, a numpy unit ('h')
+    or a fixed pandas frequency string ('30min', '2h', 'D')."""
+    if isinstance(freq, np.timedelta64):
+        return freq
+    match = re.fullmatch(r'(\d*)([A-Za-z]+)', str(freq))
+    if match is None:
+        raise ValueError(f'not a fixed frequency: {freq!r}')
+    count, unit = match.groups()
+    return np.timedelta64(int(count or 1), _PANDAS_UNITS.get(unit, unit))
+
+
 def _time_index(start, freq, t):
-    """``t`` timestamps from ``start`` every ``freq`` (a numpy timedelta
-    unit such as 'h', or a ``timedelta64``)."""
-    step = (freq if isinstance(freq, np.timedelta64)
-            else np.timedelta64(1, freq))
+    """``t`` timestamps from ``start`` every ``freq`` (see
+    ``_freq_step``)."""
+    step = _freq_step(freq)
     t0 = timestamp(start)
     return date_range(t0, t0 + (t - 1) * step, step,
                       unit=infer_unit([start]))
@@ -99,6 +118,207 @@ def make_fake_nc_file(path, shape, features, start='2023-01-01',
             var = f.createVariable(feat, 'f4', dims)
             var[:] = np.asarray(arr, dtype=np.float32)
     return path
+
+
+def make_fake_nc4_file(path, shape, features, start='2023-01-01',
+                       freq='h', ascending_lats=False, scale_factor=None,
+                       lat_range=(40.0, 39.0),
+                       lon_range=(-105.5, -104.3), levels=None,
+                       include_time=True, var_attrs=None,
+                       calendar='standard', fill_value=None):
+    """Write an HDF5-backed NetCDF4-style file via h5py (imported here:
+    CPU machines only), with dimension scales attached so
+    DIMENSION_LIST resolves: the JAX package's helper of the same name,
+    drawing the same values from ``RANDOM_GENERATOR``. With ``levels``,
+    variables get a (time, level, lat, lon) shape. ``var_attrs`` maps
+    feature -> extra dataset attrs; ``include_time=False`` writes a
+    time-independent file; ``fill_value`` stamps that PACKED value into
+    the first element of each variable plus a ``_FillValue`` attr."""
+    s1, s2, t = shape
+    lat0, lat1 = lat_range if not ascending_lats else lat_range[::-1]
+    lat = np.linspace(lat0, lat1, s1).astype(np.float32)
+    lon = np.linspace(*lon_range, s2).astype(np.float32)
+    time_index = _time_index(start, freq, t)
+    local = calendar in ('noleap', '365_day', '360_day')
+    if local:
+        # offsets from `start` (the units attr says so for these
+        # calendars), honoring freq
+        step_h = (_freq_step(freq) / np.timedelta64(1, 'h')
+                  if t > 1 else 1.0)
+        hours = np.arange(t, dtype='float64') * step_h
+    else:
+        hours = seconds_since(time_index, '1900-01-01') / 3600
+
+    import h5py
+
+    with h5py.File(path, 'w') as f:
+        tv = None
+        if include_time:
+            tv = f.create_dataset('time', data=hours)
+            tv.attrs['units'] = np.bytes_(
+                f'hours since {start}' if local
+                else 'hours since 1900-01-01')
+            tv.attrs['calendar'] = np.bytes_(calendar)
+            tv.make_scale('time')
+        latv = f.create_dataset('lat', data=lat)
+        lonv = f.create_dataset('lon', data=lon)
+        latv.make_scale('lat')
+        lonv.make_scale('lon')
+        lvlv = None
+        if levels is not None:
+            lvlv = f.create_dataset(
+                'level', data=np.asarray(levels, np.float32))
+            lvlv.make_scale('level')
+        for feat in features:
+            full_shape = (s1, s2)
+            if levels is not None:
+                full_shape = (len(levels), *full_shape)
+            if include_time:
+                full_shape = (t, *full_shape)
+            arr = RANDOM_GENERATOR.random(full_shape).astype(np.float32)
+            if scale_factor is not None:
+                stored = np.round(arr / scale_factor).astype(np.int16)
+                if fill_value is not None:
+                    stored.flat[0] = fill_value
+                v = f.create_dataset(feat, data=stored)
+                v.attrs['scale_factor'] = np.float64(scale_factor)
+                v.attrs['add_offset'] = np.float64(0.0)
+            else:
+                if fill_value is not None:
+                    arr.flat[0] = fill_value
+                v = f.create_dataset(feat, data=arr)
+            if fill_value is not None:
+                v.attrs['_FillValue'] = (
+                    np.int16(fill_value) if scale_factor is not None
+                    else np.float32(fill_value))
+            for k, val in (var_attrs or {}).get(feat, {}).items():
+                v.attrs[k] = val
+            scales = [sc for sc in (tv, lvlv, latv, lonv)
+                      if sc is not None]
+            for i, sc in enumerate(scales):
+                v.dims[i].attach_scale(sc)
+    return path
+
+
+def make_fake_flat_nc_file(path, shape, features, start='2023-01-01',
+                           freq='h', lat_range=(40.0, 39.0),
+                           lon_range=(-105.5, -104.3), data=None,
+                           var_attrs=None, space_first=False,
+                           with_topography=False):
+    """Spatially-flattened NetCDF4-style file via h5py (CPU machines
+    only): 1-D lat/lon over one shared 'points' dim plus (time, points)
+    variables, the sites the row-major flattening of an (s1, s2) grid,
+    as the JAX package's helper writes it. ``data`` maps feature -> (t,
+    s1, s2) values to flatten (``RANDOM_GENERATOR`` draws otherwise);
+    ``space_first`` writes (points, time) variables;
+    ``with_topography`` adds a site-static topography variable."""
+    import h5py
+
+    s1, s2, t = shape
+    lat = np.linspace(*lat_range, s1)
+    lon = np.linspace(*lon_range, s2)
+    lat2d, lon2d = np.meshgrid(lat, lon, indexing='ij')
+    hours = seconds_since(_time_index(start, freq, t), '1900-01-01') / 3600
+    n = s1 * s2
+    with h5py.File(path, 'w') as f:
+        tv = f.create_dataset('time', data=hours)
+        tv.attrs['units'] = np.bytes_('hours since 1900-01-01')
+        tv.make_scale('time')
+        pts = f.create_dataset('points', data=np.arange(n, dtype='f8'))
+        pts.make_scale('points')
+        latv = f.create_dataset(
+            'latitude', data=lat2d.ravel().astype(np.float32))
+        lonv = f.create_dataset(
+            'longitude', data=lon2d.ravel().astype(np.float32))
+        for d in (latv, lonv):
+            d.dims[0].attach_scale(pts)
+        for feat in features:
+            arr = (np.asarray(data[feat], dtype=np.float32)
+                   if data is not None and feat in data
+                   else RANDOM_GENERATOR.random((t, s1, s2)).astype(
+                       np.float32))
+            flat = arr.reshape(t, n)
+            if space_first:
+                ds = f.create_dataset(feat, data=flat.T)
+                ds.dims[0].attach_scale(pts)
+                ds.dims[1].attach_scale(tv)
+            else:
+                ds = f.create_dataset(feat, data=flat)
+                ds.dims[0].attach_scale(tv)
+                ds.dims[1].attach_scale(pts)
+            for k, v in ((var_attrs or {}).get(feat, {})).items():
+                ds.attrs[k] = v
+        if with_topography:
+            topo = f.create_dataset(
+                'topography',
+                data=(RANDOM_GENERATOR.random(n) * 1000).astype(
+                    np.float32))
+            topo.dims[0].attach_scale(pts)
+    return path
+
+
+def make_fake_h5_file(path, shape, features, start='2023-01-01',
+                      freq='h', scale_factor=100.0,
+                      lat_range=(40.0, 39.0), lon_range=(-105.5, -104.3),
+                      value_range=(0, 20)):
+    """Write a rex-style flattened H5 via h5py (CPU machines only):
+    structured 'meta', byte-string 'time_index' in pandas' string form,
+    scaled uint16 (time, sites) datasets, drawn from
+    ``RANDOM_GENERATOR`` as the JAX package's helper draws them."""
+    import h5py
+
+    s1, s2, t = shape
+    lat = np.linspace(*lat_range, s1)
+    lon = np.linspace(*lon_range, s2)
+    lat2d, lon2d = np.meshgrid(lat, lon, indexing='ij')
+    meta = np.zeros(s1 * s2, dtype=[('latitude', 'f4'),
+                                    ('longitude', 'f4'),
+                                    ('elevation', 'f4')])
+    meta['latitude'] = lat2d.ravel()
+    meta['longitude'] = lon2d.ravel()
+    meta['elevation'] = RANDOM_GENERATOR.random(s1 * s2) * 1000
+    time_index = _time_index(start, freq, t)
+
+    with h5py.File(path, 'w') as f:
+        f.create_dataset('meta', data=meta)
+        f.create_dataset('time_index', data=np.array(
+            [ts.encode() for ts in format_timestamps(time_index)]))
+        for feat in features:
+            lo, hi = value_range
+            arr = lo + (hi - lo) * RANDOM_GENERATOR.random((t, s1 * s2))
+            ds = f.create_dataset(
+                feat, data=(arr * scale_factor).astype(np.uint16))
+            ds.attrs['scale_factor'] = scale_factor
+    return path
+
+
+def make_fake_dual(shape_lr, s_enhance, t_enhance, features,
+                   with_obs=False):
+    """(low_res, high_res[, obs]) PairedDataset where low_res is an
+    exact coarsening of high_res (the JAX package's helper)."""
+    from sup3r_tpu_torch.ops.coarsen import (
+        spatial_coarsening,
+        temporal_coarsening,
+    )
+
+    s1, s2, t = shape_lr
+    hr = make_fake_dset((s1 * s_enhance, s2 * s_enhance, t * t_enhance),
+                        features)
+    lr_data = temporal_coarsening(
+        spatial_coarsening(hr.data[None], s_enhance)[0][None],
+        t_enhance, 'average')[0]
+    lr = GridDataset(
+        lr_data, features,
+        lat_lon=hr.lat_lon[::s_enhance, ::s_enhance],
+        time_index=hr.time_index[::t_enhance])
+    if with_obs:
+        obs_data = hr.data.copy()
+        mask = RANDOM_GENERATOR.random(obs_data.shape) > 0.1
+        obs_data[mask] = np.nan
+        obs = GridDataset(obs_data, [f'{f}_obs' for f in features],
+                          lat_lon=hr.lat_lon, time_index=hr.time_index)
+        return PairedDataset(low_res=lr, high_res=hr, obs=obs)
+    return PairedDataset(low_res=lr, high_res=hr)
 
 
 def make_fake_topo_nc_file(path, shape, lat_range=(40.2, 38.8),

@@ -44,7 +44,9 @@ gloo ranks, the blocker active in each, take a data-parallel train step
 (the same losses on both), a dp x sp step on a 1 x 2 mesh (halo
 exchanges, a row-parallel Dense and their backwards; the single-process
 step's losses) and run a ``use_mesh='spatial'`` forward pass
-equal to the parent's single-process pass."""
+equal to the parent's single-process pass. An eighth blocked run drives
+the names the last slice ported (grid, interp, weights and network
+methods, the fake-data helpers) and the world-of-one 'auto' fallback."""
 
 import json
 import os
@@ -768,6 +770,97 @@ print('MESH SPATIAL PASS', len(serial))
 '''
 
 
+_SCRIPT_SURFACE = _BLOCKER + f'''
+import importlib
+import os
+import tempfile
+
+for name in ('preprocessing.grid', 'preprocessing.data_handlers',
+             'ops.interp', 'models.abstract', 'models.gan',
+             'models.network', 'models.weights', 'models.fuse',
+             'pipeline.strategy', 'pipeline.forward_pass',
+             'utilities.test_helpers'):
+    importlib.import_module(f'sup3r_tpu_torch.{{name}}')
+
+from sup3r_tpu_torch.models import Network, Sup3rGan
+from sup3r_tpu_torch.models.abstract import AbstractSingleModel
+from sup3r_tpu_torch.ops.interp import bilinear_resize
+from sup3r_tpu_torch.pipeline import ForwardPass, ForwardPassStrategy
+from sup3r_tpu_torch.utilities import test_helpers
+
+dual = test_helpers.make_fake_dual((4, 4, 3), 2, 2, ['u_100m', 'v_100m'],
+                                   with_obs=True)
+hr = dual.high_res
+flat, coords = hr.flatten()
+back = type(hr).unflatten(flat, hr.grid_shape, hr.features, lat_lon=coords)
+np.testing.assert_array_equal(back.data, hr.data)
+assert hr.compute() is hr and hr.dims[-1] == 'variable'
+assert set(dual.obs.qa()) == {{'u_100m_obs', 'v_100m_obs'}}
+assert bilinear_resize(hr.data, 4, 12).shape == (4, 12, 6, 2)
+tmp = tempfile.mkdtemp()
+try:
+    test_helpers.make_fake_h5_file(os.path.join(tmp, 'x.h5'), (2, 2, 2),
+                                   ['u_100m'])
+except ModuleNotFoundError as e:
+    assert 'h5py' in str(e)
+else:
+    raise AssertionError('make_fake_h5_file ran with h5py blocked')
+print('DATA NAMES')
+
+model = Sup3rGan([{{'class': 'Conv2D', 'filters': 8, 'kernel_size': 3,
+                   'strides': 1, 'padding': 'same'}},
+                  {{'class': 'SkipConnection', 'name': 'a'}},
+                  {{'class': 'Conv2D', 'filters': 8, 'kernel_size': 3,
+                   'strides': 1, 'padding': 'same'}},
+                  {{'class': 'SkipConnection', 'name': 'a'}},
+                  {{'class': 'SpatialExpansion', 'spatial_mult': 2}}],
+                 [{{'class': 'Flatten'}}, {{'class': 'Dense', 'units': 1}}],
+                 device='cpu')
+model.init_weights((1, 4, 4, 2), (1, 8, 8, 2))
+assert len(model.weights['generator']) == len(model.generator_weights)
+fp = os.path.join(tmp, 'gen.msgpack')
+AbstractSingleModel.save_network_params(model.generator, fp)
+loaded = AbstractSingleModel.load_network_params(model.generator, fp)
+assert len(loaded) == len(model.generator.layers)
+prefix = Network(list(model.generator.layers)[:3])
+x = torch.zeros((1, 4, 4, 2))
+assert prefix.apply(x, allow_pending_skips=True).shape == (1, 4, 4, 8)
+cast = Network.dtype_cast(model.generator_weights, 'bfloat16')
+assert all(t.dtype == torch.bfloat16 for t in cast)
+print('MODEL NAMES')
+
+model = Sup3rGan([{{'class': 'Conv3D', 'filters': 2, 'kernel_size': 3,
+                   'strides': 1, 'padding': 'same'}}],
+                 [{{'class': 'Flatten'}}, {{'class': 'Dense', 'units': 1}}],
+                 meta={{'lr_features': ['u_100m', 'v_100m'],
+                       'hr_out_features': ['u_100m', 'v_100m']}},
+                 means={{'u_100m': 0.5, 'v_100m': 0.5}},
+                 stdevs={{'u_100m': 0.3, 'v_100m': 0.3}}, device='cpu')
+model.init_weights((1, 4, 4, 3, 2), (1, 4, 4, 3, 2))
+model.save(os.path.join(tmp, 'model'))
+inp = test_helpers.make_fake_nc_file(os.path.join(tmp, 'in.nc'), (8, 8, 6),
+                                     ['u_100m', 'v_100m'])
+outs = {{}}
+os.environ['SUP3R_TPU_HBM_GB'] = '0.000001'
+for batch, use_mesh in (('auto', False), (1, 1), (1, False)):
+    strategy = ForwardPassStrategy(
+        file_paths=inp, model_kwargs={{'model_dir': os.path.join(
+            tmp, 'model'), 'device': 'cpu'}}, fwp_chunk_shape=(4, 4, 3),
+        spatial_pad=1, temporal_pad=1, device_batch_size=batch,
+        use_mesh=use_mesh, out_pattern=None)
+    outs[(batch, use_mesh)] = ForwardPass.run(strategy, 0)
+    if batch == 'auto':
+        assert (strategy.device_batch_size, strategy.use_mesh) == (
+            1, 'spatial')
+for key in outs:
+    for idx, want in outs[(1, False)].items():
+        np.testing.assert_allclose(outs[key][idx], want, atol=1e-5)
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not loaded, loaded
+print('AUTO AND TRUTHY MESH', len(outs[(1, False)]))
+'''
+
+
 def _run_blocked(script):
     env = dict(os.environ)
     env['PYTHONPATH'] = os.pathsep.join(
@@ -992,6 +1085,21 @@ def test_mesh_slice_runs_with_jax_and_friends_blocked():
     assert 'MESH DP STEP 2' in proc.stdout
     assert 'MESH DPxSP STEP 2' in proc.stdout
     assert 'MESH SPATIAL PASS 8' in proc.stdout
+
+
+def test_last_slice_names_run_with_jax_and_friends_blocked():
+    """The modules the last slice of the port changed import and run with
+    jax, pandas, h5py and PIL blocked: ``GridDataset.qa`` / ``flatten``
+    / ``unflatten``, ``bilinear_resize``, ``make_fake_dual`` (the H5
+    helper raises for want of h5py), the weights properties,
+    ``save_network_params`` / ``load_network_params``, a prefix run with
+    ``allow_pending_skips``, ``dtype_cast``, and the world-of-one 'auto'
+    fallback and ``use_mesh=1`` passes equal to the plain pass."""
+    proc = _run_blocked(_SCRIPT_SURFACE)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'DATA NAMES' in proc.stdout
+    assert 'MODEL NAMES' in proc.stdout
+    assert 'AUTO AND TRUTHY MESH 8' in proc.stdout
 
 
 def test_no_card_without_explicit_cpu_raises(monkeypatch):

@@ -353,20 +353,44 @@ def test_auto_tiny_budget_switches_to_spatial(run):
     _check_pass(ranks, refs, 'auto', rtol=1e-4, atol=1e-4)
 
 
-def test_auto_tiny_budget_world_of_one_raises(run, monkeypatch):
-    """In a world of one rank the same budget raises, naming the ways
-    out: spatial sharding on one rank cannot make the chunk fit, so the
-    plan is left as it was."""
-    _, _, out = run
+def test_auto_tiny_budget_world_of_one_switches_to_spatial(run, monkeypatch,
+                                                          caplog):
+    """In a world of one rank the same budget plans (1, 'spatial'), as
+    the JAX package switches over its one device
+    (tests/pipeline/test_auto_batch.py:136), logs the switch, and gives
+    the serial pass's outputs within 1e-4."""
+    _, refs, out = run
     monkeypatch.setattr(memory, 'resolve_device_batch_size',
                         functools.partial(memory.resolve_device_batch_size,
                                           hbm_bytes=16 * 2 ** 20))
     inp, kw = PASSES['auto']
     strategy = _strategy(out, inp, **kw)
-    with pytest.raises(ValueError, match='world of one') as err:
-        ForwardPass(strategy, 0)
-    assert 'fwp_chunk_shape' in str(err.value)
-    assert not strategy.use_mesh
+    with caplog.at_level('INFO', logger='sup3r_tpu_torch'):
+        got = ForwardPass.run(strategy, 0)
+    assert (strategy.device_batch_size, strategy.use_mesh) == (1, 'spatial')
+    assert 'use_mesh="spatial" over 1 rank' in caplog.text
+    for ref in (refs[('serial', 'auto')], refs[('jax', 'auto')]):
+        assert sorted(got) == sorted(ref) and got
+        for idx in ref:
+            np.testing.assert_allclose(got[idx], ref[idx], rtol=1e-4,
+                                       atol=1e-4)
+
+
+def test_truthy_use_mesh_runs_as_true(run):
+    """Any truthy ``use_mesh`` other than 'spatial' runs as True, as in
+    the JAX package (sup3r_tpu/pipeline/forward_pass.py:513): a world of
+    one's pass with ``use_mesh=1`` equals its ``True`` pass."""
+    _, _, out = run
+    inp, kw = PASSES['fanout']
+    passes = {}
+    for use_mesh in (True, 1):
+        strategy = _strategy(out, inp, **dict(kw, use_mesh=use_mesh))
+        fwp = ForwardPass(strategy, 0)
+        assert fwp.mesh is not None and fwp.mesh.size == 1
+        passes[use_mesh] = ForwardPass.run(strategy, 0)
+    assert sorted(passes[1]) == sorted(passes[True]) and passes[True]
+    for idx, want in passes[True].items():
+        np.testing.assert_array_equal(passes[1][idx], want)
 
 
 @pytest.mark.parametrize('name,quanta', [('spatial', 2), ('fanout', 1)])

@@ -89,7 +89,7 @@ from sup3r_tpu_torch.parallel.mesh import (
     replicate,
     shard_spatial,
 )
-from sup3r_tpu_torch.utilities import exact_fp32, resolve_device
+from sup3r_tpu_torch.utilities import exact_fp32, resolve_device, trace
 
 logger = logging.getLogger(__name__)
 
@@ -313,54 +313,60 @@ class Sup3rGan(AbstractSingleModel):
         disc = self._disc
         space = {} if shard is None else {'spatial': shard}
         gather, gather_d = self._gather_hr, self._gather_disc()
+        device = self.device
         with exact_fp32():
-            exo, state = self._train_exo(hr)
-            with torch.set_grad_enabled(do_gen):
-                out = gen_apply(cast(lr), {k: cast(v) for k, v in
-                                           self._layer_exo(exo).items()},
-                                **self._dropout_kwargs(self._gen, 0),
-                                **space).float()
-            full = (torch.cat([out] + [exo[f] for f in names], dim=-1)
-                    if names else out)
-            with torch.set_grad_enabled(do_gen or do_disc):
-                with torch.set_grad_enabled(do_disc):
-                    d_true = gather_d(disc.apply(
-                        cast(hr), **self._dropout_kwargs(disc, 1),
-                        **space).float())
-                d_gen = gather_d(disc.apply(
-                    cast(full), **self._dropout_kwargs(disc, 2),
-                    **space).float())
-                out_all, hr_all = gather(out), gather(hr)
-                content = apply_loss(self.loss_fun, out_all,
-                                     hr_all[..., slc], generator=generator)
-                extra, details = self._extra_gen_loss(out_all, hr_all,
-                                                      gather(state))
-                advers = relativistic_disc_loss(d_gen, d_true)
-                gen_loss = content + extra + weight_gen_advers * advers
-                if disc.has_dropout:
+            with trace.device_span('train.forward', device):
+                exo, state = self._train_exo(hr)
+                with torch.set_grad_enabled(do_gen):
+                    out = gen_apply(cast(lr), {k: cast(v) for k, v in
+                                               self._layer_exo(exo).items()},
+                                    **self._dropout_kwargs(self._gen, 0),
+                                    **space).float()
+                full = (torch.cat([out] + [exo[f] for f in names], dim=-1)
+                        if names else out)
+                with torch.set_grad_enabled(do_gen or do_disc):
                     with torch.set_grad_enabled(do_disc):
-                        kw = {**self._dropout_kwargs(disc, 3), **space}
-                        disc_loss = relativistic_disc_loss(
-                            gather_d(disc.apply(cast(hr), **kw).float()),
-                            gather_d(disc.apply(cast(full.detach()),
-                                                **kw).float()))
-                else:
-                    # the discriminator's loss reads the same outputs:
-                    # its pre-update params on the generated output's
-                    # value
-                    disc_loss = relativistic_disc_loss(d_true, d_gen)
+                        d_true = gather_d(disc.apply(
+                            cast(hr), **self._dropout_kwargs(disc, 1),
+                            **space).float())
+                    d_gen = gather_d(disc.apply(
+                        cast(full), **self._dropout_kwargs(disc, 2),
+                        **space).float())
+                    out_all, hr_all = gather(out), gather(hr)
+                    content = apply_loss(self.loss_fun, out_all,
+                                         hr_all[..., slc], generator=generator)
+                    extra, details = self._extra_gen_loss(out_all, hr_all,
+                                                          gather(state))
+                    advers = relativistic_disc_loss(d_gen, d_true)
+                    gen_loss = content + extra + weight_gen_advers * advers
+                    if disc.has_dropout:
+                        with torch.set_grad_enabled(do_disc):
+                            kw = {**self._dropout_kwargs(disc, 3), **space}
+                            disc_loss = relativistic_disc_loss(
+                                gather_d(disc.apply(cast(hr), **kw).float()),
+                                gather_d(disc.apply(cast(full.detach()),
+                                                    **kw).float()))
+                    else:
+                        # the discriminator's loss reads the same outputs:
+                        # its pre-update params on the generated output's
+                        # value
+                        disc_loss = relativistic_disc_loss(d_true, d_gen)
             if do_gen:
-                gen_grads = self._reduce_grads(torch.autograd.grad(
-                    gen_loss, gen_params, retain_graph=do_disc), self._gen)
+                with trace.device_span('train.gen_grad', device):
+                    gen_grads = self._reduce_grads(torch.autograd.grad(
+                        gen_loss, gen_params, retain_graph=do_disc),
+                        self._gen)
             if do_disc:
-                disc_grads = self._reduce_grads(torch.autograd.grad(
-                    disc_loss, disc_params), disc)
-            if do_gen:
-                self._gen_tx.update(gen_params, gen_grads,
-                                    self._gen_opt_state)
-            if do_disc:
-                self._disc_tx.update(disc_params, disc_grads,
-                                     self._disc_opt_state)
+                with trace.device_span('train.disc_grad', device):
+                    disc_grads = self._reduce_grads(torch.autograd.grad(
+                        disc_loss, disc_params), disc)
+            with trace.device_span('train.update', device):
+                if do_gen:
+                    self._gen_tx.update(gen_params, gen_grads,
+                                        self._gen_opt_state)
+                if do_disc:
+                    self._disc_tx.update(disc_params, disc_grads,
+                                         self._disc_opt_state)
         return {'loss_gen': gen_loss, 'loss_gen_content': content + extra,
                 'loss_gen_advers': advers, 'loss_disc': disc_loss,
                 **details}
@@ -372,10 +378,20 @@ class Sup3rGan(AbstractSingleModel):
         ``train_gen`` / ``train_disc`` gate which updates apply. Returns
         the loss scalars. With a mesh attached the pair is this rank's
         block (``_place_batch``) and the losses are the global batch's."""
-        details = self._train_step(
+        return self._step_and_fetch(
             self._place_batch(low_res), self._place_batch(hi_res_true),
-            float(weight_gen_advers), bool(train_gen), bool(train_disc))
-        return self._fetch_details(details)
+            weight_gen_advers, train_gen, train_disc)
+
+    def _step_and_fetch(self, lr, hr, weight_gen_advers, train_gen,
+                        train_disc):
+        """``_train_step`` on device tensors, then its losses on the host
+        (the spans ``train.step`` and, the host waiting for the step's
+        end, ``train.fetch``)."""
+        with trace.span('train.step', step=self._step_counter + 1):
+            details = self._train_step(lr, hr, float(weight_gen_advers),
+                                       bool(train_gen), bool(train_disc))
+            with trace.span('train.fetch'):
+                return self._fetch_details(details)
 
     def _split_sample(self, sample):
         """Device-side HR->LR transform of a raw sample batch with the
@@ -397,9 +413,8 @@ class Sup3rGan(AbstractSingleModel):
         the LR input runs on the device (set by ``train`` from a
         ``device_transform`` batch handler)."""
         lr, hr = self._split_sample(self._place_batch(sample))
-        details = self._train_step(lr, hr, float(weight_gen_advers),
-                                   bool(train_gen), bool(train_disc))
-        return self._fetch_details(details)
+        return self._step_and_fetch(lr, hr, weight_gen_advers, train_gen,
+                                    train_disc)
 
     def update_optimizer(self, option='generator', **kwargs):
         """Update an optimizer's config (e.g. learning_rate) mid-training;
@@ -598,6 +613,7 @@ class Sup3rGan(AbstractSingleModel):
             out[k] = v
         return out
 
+    @trace.span('model.generate')
     def generate(self, low_res, norm_in=True, un_norm_out=True,
                  exogenous_data=None, fetch=True, mesh=None):
         """Public inference: (input-exo concat) -> normalize -> generator
@@ -660,7 +676,8 @@ class Sup3rGan(AbstractSingleModel):
         # the JAX package's shard-aligned route bypasses Pallas
         spatial = None if mesh is None else SpatialShard(
             mesh, gather_small=not self.inference_shard_aligned)
-        with torch.inference_mode(), exact_fp32():
+        with torch.inference_mode(), exact_fp32(), trace.device_span(
+                'model.generate', self.device):
             out = net.apply(low_res.to(dtype), {
                 k: v.to(dtype) for k, v in fixed_exo.items()},
                 spatial=spatial).float()
@@ -920,7 +937,10 @@ class Sup3rGan(AbstractSingleModel):
         scalars to ``<out_dir>/../logs`` (a warning and no logs without
         the ``tensorboard`` package); ``tensorboard_profile=True``
         records the first epoch with ``torch.profiler`` into
-        ``<dirname(out_dir)>/profile``. ``multi_gpu`` is accepted for API
+        ``<dirname(out_dir)>/profile`` and logs the table of the
+        program's spans and counters of that epoch (``utilities.trace``:
+        each span's count, total and self ms, e.g. ``train.step``,
+        ``batches.wait`` and the step's device phases). ``multi_gpu`` is accepted for API
         parity, as in the JAX package: data parallelism is a mesh
         (``attach_mesh``), one process per device. The batch handler
         stages its

@@ -6,7 +6,8 @@ through torch's ``SummaryWriter``; without the ``tensorboard`` package
 they warn and training goes on unlogged. ``profile_to_dir`` records a
 ``torch.profiler`` trace of the block into a log directory (a
 ``*.pt.trace.json`` file that chrome://tracing, Perfetto and
-tensorboard's profile plugin read).
+tensorboard's profile plugin read) and logs the program's spans and
+counters of the block (``utilities.trace``) beside it.
 
 Reference parity: sup3r/models/utilities.py:30-133.
 """
@@ -20,6 +21,8 @@ import time
 from warnings import warn
 
 import torch
+
+from sup3r_tpu_torch.utilities import trace
 
 logger = logging.getLogger(__name__)
 
@@ -99,7 +102,9 @@ def tb_log_dict(writer, entry, step):
 def profile_to_dir(log_dir, enabled=True):
     """Record the block with ``torch.profiler`` (host ops, and the
     card's kernels and copies where there is one) and write its trace to
-    ``<log_dir>/<host>_<pid>.<ms>.pt.trace.json``. ``enabled=False`` is a
+    ``<log_dir>/<host>_<pid>.<ms>.pt.trace.json``; log the table of the
+    program's spans and counters that the block added (name, count,
+    total and self ms; ``utilities.trace``). ``enabled=False`` is a
     no-op."""
     if not enabled:
         yield
@@ -110,9 +115,12 @@ def profile_to_dir(log_dir, enabled=True):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    before = trace.snapshot()
     with profile(activities=activities) as prof:
         yield
     path = os.path.join(log_dir, f'{socket.gethostname()}_{os.getpid()}.'
                                  f'{int(time.time() * 1e3)}.pt.trace.json')
     prof.export_chrome_trace(path)
     logger.info('Wrote a torch.profiler trace to %s', path)
+    logger.info('Program spans of the trace:\n%s',
+                '\n'.join(trace.table(trace.snapshot(), before)))

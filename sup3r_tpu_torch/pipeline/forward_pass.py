@@ -27,6 +27,7 @@ returns every chunk's output.
 """
 
 import contextlib
+import itertools
 import logging
 from concurrent.futures import ThreadPoolExecutor
 from warnings import warn
@@ -50,7 +51,7 @@ from sup3r_tpu_torch.postprocessing.writers import (
     OutputHandlerNC,
 )
 from sup3r_tpu_torch.preprocessing.loaders import get_source_type
-from sup3r_tpu_torch.utilities import Timer
+from sup3r_tpu_torch.utilities import Timer, trace
 
 logger = logging.getLogger(__name__)
 
@@ -73,12 +74,14 @@ class ForwardPass:
         'nc': OutputHandlerNC,
         'h5': OutputHandlerH5,
     }
+    #: the number of the next pass of the process (a trace id)
+    _passes = itertools.count()
 
     def __init__(self, strategy, node_index=0):
         self.strategy = strategy
         self.node_index = node_index
         self.model = strategy.get_model()
-        self.timer = Timer()
+        self.timer = Timer('fwp')
         #: per-node accounting for the batched path: device->host MB
         #: actually fetched and how many chunks drained packed vs via
         #: the host float32 transform (benchmark attribution)
@@ -363,7 +366,8 @@ class ForwardPass:
         outputs = {}
 
         def run_batch(batch, drain_pool, drain_futs):
-            dispatched = self.timer(self._dispatch_chunk_batch)(batch)
+            dispatched = self.timer(self._dispatch_chunk_batch,
+                                    span='dispatch')(batch)
             if dispatched is None:  # per-chunk path, this rank's chunks
                 outputs.update({
                     c.index: self.run_chunk(
@@ -372,7 +376,8 @@ class ForwardPass:
                     for c in self._writes(batch)})
                 return
             drain_futs.append(drain_pool.submit(
-                self.timer(self._drain_chunk_batch), dispatched))
+                self.timer(self._drain_chunk_batch, span='drain'),
+                dispatched))
 
         # STREAMING grouping: chunks are prepared with a bounded
         # number in flight and dispatched as soon as a same-shape
@@ -394,14 +399,15 @@ class ForwardPass:
                 if i is None:
                     return False
                 inflight.append(pool.submit(
-                    self.timer(self.get_input_chunk), i))
+                    self.timer(self.get_input_chunk, span='prep'), i))
                 return True
 
             for _ in range(max(2 * batch_size, 4)):
                 if not submit_next():
                     break
             while inflight:
-                chunk = inflight.popleft().result()
+                with trace.span('fwp.prep_wait'):
+                    chunk = inflight.popleft().result()
                 submit_next()
                 key = (chunk.input_data.shape,
                        chunk.exo_data is not None)
@@ -411,8 +417,9 @@ class ForwardPass:
                               drain_futs)
             for batch in buffers.values():  # partial-batch leftovers
                 run_batch(batch, drain_pool, drain_futs)
-            for fut in drain_futs:
-                outputs.update(fut.result())
+            with trace.span('fwp.drain_wait'):
+                for fut in drain_futs:
+                    outputs.update(fut.result())
         return outputs
 
     def _writes(self, batch):
@@ -445,41 +452,50 @@ class ForwardPass:
                             'chunks individually',
                             type(self.model).__name__)
             return None
-        exo_batched = None
-        if any(c.exo_data for c in batch):
-            exo_batched = self._stack_exo(batch)
-            if exo_batched is None or self.model._has_output_exo(
-                    exo_batched):
-                return None
-        stacked = np.stack([c.input_data for c in batch], axis=0)
-        n_real = len(batch)
-        # pad partial batches up to the device batch size by repeating
-        # the last chunk: one batch shape per chunk shape
-        full = self.batch_size
+        with trace.span('fwp.stack'):
+            exo_batched = None
+            if any(c.exo_data for c in batch):
+                exo_batched = self._stack_exo(batch)
+                if exo_batched is None or self.model._has_output_exo(
+                        exo_batched):
+                    return None
+            stacked = np.stack([c.input_data for c in batch], axis=0)
+            n_real = len(batch)
+            # pad partial batches up to the device batch size by
+            # repeating the last chunk: one batch shape per chunk shape
+            full = self.batch_size
 
-        def pad_full(arr):
-            if n_real < full:
-                return np.concatenate(
-                    [arr, np.repeat(arr[-1:], full - n_real, axis=0)],
-                    axis=0)
-            return arr
+            def pad_full(arr):
+                if n_real < full:
+                    return np.concatenate(
+                        [arr, np.repeat(arr[-1:], full - n_real, axis=0)],
+                        axis=0)
+                return arr
 
-        stacked = pad_full(stacked)
-        layer_exo = None
-        if exo_batched is not None:
-            for entry in exo_batched.values():
-                for step in entry['steps']:
-                    step['data'] = pad_full(step['data'])
-            stacked = self.model._combine_fwp_input(
-                np.asarray(stacked, dtype=np.float32), exo_batched)
-            # mid-network rasters, normalized with their own feature
-            # stats (generate skips exo norm when norm_in=False)
-            layer_exo = self.model._norm_layer_exo({
-                feature: step['data']
-                for feature, entry in exo_batched.items()
-                for step in entry['steps']
-                if step.get('combine_type') == 'layer'})
-        lr = self.model.norm_input(stacked)
+            stacked = pad_full(stacked)
+            layer_exo = None
+            if exo_batched is not None:
+                for entry in exo_batched.values():
+                    for step in entry['steps']:
+                        step['data'] = pad_full(step['data'])
+                stacked = self.model._combine_fwp_input(
+                    np.asarray(stacked, dtype=np.float32), exo_batched)
+                # mid-network rasters, normalized with their own feature
+                # stats (generate skips exo norm when norm_in=False)
+                layer_exo = self.model._norm_layer_exo({
+                    feature: step['data']
+                    for feature, entry in exo_batched.items()
+                    for step in entry['steps']
+                    if step.get('combine_type') == 'layer'})
+        with trace.span('fwp.h2d'):
+            lr = self.model.norm_input(stacked)
+            if self.strategy.use_mesh != 'spatial':
+                # the copy generate would make first (a spatial pass
+                # copies each rank's block in shard_spatial)
+                lr = torch.as_tensor(lr, dtype=torch.float32,
+                                     device=self.model.device)
+                trace.count('fwp.h2d_bytes', lr.nbytes)
+        trace.count('fwp.dispatches')
         chunks = list(batch)
         if self.strategy.use_mesh == 'spatial':
             out, chunks = self._generate_spatial(lr, layer_exo, batch)
@@ -654,6 +670,7 @@ class ForwardPass:
                     cropped_host = _to_host(cropped)
                     self.stats['fetch_mb'] += (cropped_host.nbytes
                                                / 2 ** 20)
+                    trace.count('fwp.d2h_bytes', cropped_host.nbytes)
                     self.stats['host_chunks'] += 1
                     self._write(chunk, cropped_host, nn_fill=True)
                 else:
@@ -661,6 +678,8 @@ class ForwardPass:
                         host = [p.cpu().numpy() for p in packed]
                         self.stats['fetch_mb'] += sum(
                             h.nbytes for h in host) / 2 ** 20
+                        trace.count('fwp.d2h_bytes',
+                                    sum(h.nbytes for h in host))
                     self.stats['packed_chunks'] += 1
                     self.output_handler_class._write_packed(
                         [h[j] for h in host], list(names),
@@ -704,19 +723,20 @@ class ForwardPass:
             if self._pack_gate(batch):
                 return self._pack_write(list(zip(batch, crops)))
             # timed apart: the copy waits for the batch's kernels
-            flat = self.timer(_to_host)(
+            flat = self.timer(_to_host, span='d2h')(
                 torch.cat([c.reshape(-1) for c in crops]))
         self.stats['fetch_mb'] += flat.nbytes / 2 ** 20
+        trace.count('fwp.d2h_bytes', flat.nbytes)
         self.stats['host_chunks'] += len(batch)
         outputs, start = {}, 0
         for chunk, crop in zip(batch, crops):
             size = crop.numel()
             out_i = flat[start:start + size].reshape(tuple(crop.shape))
             start += size
-            self.timer(self._output_check)(
+            self.timer(self._output_check, span='check')(
                 out_i, allowed_const=self.strategy.allowed_const)
             if chunk.out_file is not None:
-                self.timer(self._write)(chunk, out_i)
+                self.timer(self._write, span='write')(chunk, out_i)
                 outputs[chunk.index] = None
             else:
                 outputs[chunk.index] = out_i
@@ -727,7 +747,14 @@ class ForwardPass:
     def run(cls, strategy, node_index):
         """Run all this node's chunks (serial, IO-threaded, or
         device-batched; over the ranks of a mesh with ``use_mesh``)."""
-        fwp = cls(strategy, node_index)
+        with trace.span('fwp.run', node=node_index,
+                        pass_index=next(cls._passes)):
+            return cls._run_node(strategy, node_index)
+
+    @classmethod
+    def _run_node(cls, strategy, node_index):
+        with trace.span('fwp.init'):
+            fwp = cls(strategy, node_index)
         finished = strategy.node_finished(node_index)
         chunk_ids = [] if finished else [
             i for i in strategy.node_chunks[node_index]
@@ -747,6 +774,7 @@ class ForwardPass:
             index, n = fwp.mesh.axis_index(fwp.mesh.axis_names[0]), (
                 fwp.mesh.size)
             chunk_ids, batch_size = chunk_ids[index::n], -(-batch_size // n)
+        trace.count('fwp.chunks', len(chunk_ids))
         if batch_size > 1 or strategy.use_mesh == 'spatial':
             outputs = fwp.run_chunks_batched(chunk_ids, batch_size)
         elif strategy.pass_workers > 1:
@@ -771,7 +799,8 @@ class ForwardPass:
 
     @staticmethod
     def _run_one(fwp, strategy, chunk_index):
-        chunk = fwp.timer(fwp.get_input_chunk, log=True)(chunk_index)
+        chunk = fwp.timer(fwp.get_input_chunk, log=True,
+                          span='prep')(chunk_index)
         _, out = fwp.timer(fwp.run_chunk, log=True)(
             chunk, allowed_const=strategy.allowed_const)
         return out

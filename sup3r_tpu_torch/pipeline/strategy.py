@@ -32,7 +32,7 @@ from sup3r_tpu_torch.preprocessing.data_handlers import (
 )
 from sup3r_tpu_torch.preprocessing.exo import ExoData, ExoDataHandler
 from sup3r_tpu_torch.preprocessing.rasterizers import Rasterizer
-from sup3r_tpu_torch.utilities import Timer, TimeIndex
+from sup3r_tpu_torch.utilities import Timer, TimeIndex, trace
 
 logger = logging.getLogger(__name__)
 
@@ -213,9 +213,11 @@ class ForwardPassStrategy:
     #: of this race was found by tests/pipeline/test_chaos.py).
     node_chunks_plan: Optional[list] = None
 
+    @trace.span('strategy.init')
     def __post_init__(self):
-        self.timer = Timer()
-        model = self.get_model()
+        self.timer = Timer('strategy')
+        with trace.span('strategy.model'):
+            model = self.get_model()
         self.s_enhance = model.s_enhance
         self.t_enhance = model.t_enhance
         self.input_features = [
@@ -224,49 +226,50 @@ class ForwardPassStrategy:
         self.exo_features = list(self.exo_handler_kwargs or {})
         self.features = self.input_features
 
-        ihk = dict(self.input_handler_kwargs)
-        self.time_slice = ihk.pop('time_slice', slice(None))
-        HandlerClass = get_input_handler_class(self.input_handler_name)
-        if self.chunked_io:
-            self.input_handler = self._init_chunked_io(ihk)
-        elif self.head_node and ihk.get('hr_spatial_coarsen') in (
-                None, 0, 1) and not any(
-                ihk.get(k) for k in ('nan_method_kwargs', 'time_roll',
-                                     'time_shift')):
-            # planning pass: geometry + time index only — no variable
-            # reads (reference: strategy.py head_node semantics).
-            # hr_spatial_coarsen changes the planning grid shape and
-            # nan-masking/time-remap kwargs can change the time index,
-            # so those fall through to the full handler (planner and
-            # workers MUST agree on chunk geometry).
-            meta_keys = ('target', 'shape', 'threshold', 'raster_file',
-                         'res_kwargs', 'full_grid_shape')
-            self.input_handler = _CoordsOnlyHandler(Rasterizer(
-                self.file_paths, features=[],
-                **{k: ihk[k] for k in meta_keys if k in ihk}))
-        else:
-            load_ihk = dict(ihk)
-            # eager mode with a narrow time_slice: load ONLY the
-            # padded window instead of the file's whole time extent
-            # (the reference passes a padded_time_slice the same way,
-            # strategy.py:312-353); time_roll/time_shift remap the
-            # global axis so they force a full load. All slicer time
-            # slices stay in RAW file coordinates — reads are shifted
-            # by the loaded window's start (self._time_offset).
-            if (isinstance(self.time_slice, slice)
-                    and self.time_slice != slice(None)
-                    and not ihk.get('time_roll')
-                    and not ihk.get('time_shift')):
-                n_full = self._probe_time_len(ihk)
-                if n_full:
-                    start, stop, step = self.time_slice.indices(n_full)
-                    t0 = max(start - self.temporal_pad * step, 0)
-                    t1 = min(stop + self.temporal_pad * step, n_full)
-                    load_ihk['time_slice'] = slice(t0, t1)
-                    self._time_offset = t0
-                    self._n_times_full = n_full
-            self.input_handler = HandlerClass(
-                self.file_paths, features=self.features, **load_ihk)
+        with trace.span('strategy.read'):
+            ihk = dict(self.input_handler_kwargs)
+            self.time_slice = ihk.pop('time_slice', slice(None))
+            HandlerClass = get_input_handler_class(self.input_handler_name)
+            if self.chunked_io:
+                self.input_handler = self._init_chunked_io(ihk)
+            elif self.head_node and ihk.get('hr_spatial_coarsen') in (
+                    None, 0, 1) and not any(
+                    ihk.get(k) for k in ('nan_method_kwargs', 'time_roll',
+                                         'time_shift')):
+                # planning pass: geometry + time index only — no variable
+                # reads (reference: strategy.py head_node semantics).
+                # hr_spatial_coarsen changes the planning grid shape and
+                # nan-masking/time-remap kwargs can change the time index,
+                # so those fall through to the full handler (planner and
+                # workers MUST agree on chunk geometry).
+                meta_keys = ('target', 'shape', 'threshold', 'raster_file',
+                             'res_kwargs', 'full_grid_shape')
+                self.input_handler = _CoordsOnlyHandler(Rasterizer(
+                    self.file_paths, features=[],
+                    **{k: ihk[k] for k in meta_keys if k in ihk}))
+            else:
+                load_ihk = dict(ihk)
+                # eager mode with a narrow time_slice: load ONLY the
+                # padded window instead of the file's whole time extent
+                # (the reference passes a padded_time_slice the same way,
+                # strategy.py:312-353); time_roll/time_shift remap the
+                # global axis so they force a full load. All slicer time
+                # slices stay in RAW file coordinates — reads are shifted
+                # by the loaded window's start (self._time_offset).
+                if (isinstance(self.time_slice, slice)
+                        and self.time_slice != slice(None)
+                        and not ihk.get('time_roll')
+                        and not ihk.get('time_shift')):
+                    n_full = self._probe_time_len(ihk)
+                    if n_full:
+                        start, stop, step = self.time_slice.indices(n_full)
+                        t0 = max(start - self.temporal_pad * step, 0)
+                        t1 = min(stop + self.temporal_pad * step, n_full)
+                        load_ihk['time_slice'] = slice(t0, t1)
+                        self._time_offset = t0
+                        self._n_times_full = n_full
+                self.input_handler = HandlerClass(
+                    self.file_paths, features=self.features, **load_ihk)
 
         grid_shape = self.input_handler.lat_lon.shape[:2]
         n_times = (getattr(self, '_n_times_full', None)
@@ -286,17 +289,19 @@ class ForwardPassStrategy:
         if min_width is not None and len(min_width) == 2:
             min_width = (*min_width, 1)
 
-        self.fwp_slicer = ForwardPassSlicer(
-            coarse_shape=grid_shape, time_steps=n_times,
-            s_enhance=self.s_enhance, t_enhance=self.t_enhance,
-            time_slice=self.time_slice, temporal_pad=self.temporal_pad,
-            spatial_pad=self.spatial_pad, chunk_shape=chunk_shape,
-            min_width=min_width)
+        with trace.span('strategy.plan'):
+            self.fwp_slicer = ForwardPassSlicer(
+                coarse_shape=grid_shape, time_steps=n_times,
+                s_enhance=self.s_enhance, t_enhance=self.t_enhance,
+                time_slice=self.time_slice, temporal_pad=self.temporal_pad,
+                spatial_pad=self.spatial_pad, chunk_shape=chunk_shape,
+                min_width=min_width)
 
         # the head node only plans node_chunks: it skips the exo
         # rasterization, which the worker nodes do themselves
-        self.exo_data = (None if self.head_node
-                         else self.load_exo_data(model))
+        with trace.span('strategy.exo'):
+            self.exo_data = (None if self.head_node
+                             else self.load_exo_data(model))
         self.gids = np.arange(
             grid_shape[0] * self.s_enhance
             * grid_shape[1] * self.s_enhance).reshape(

@@ -44,6 +44,7 @@ from sup3r_tpu_torch.preprocessing.stats import (
     StatsCollection,
     unwrap_container,
 )
+from sup3r_tpu_torch.utilities import trace
 
 logger = logging.getLogger(__name__)
 
@@ -165,6 +166,7 @@ class BaseBatchHandler:
     def __len__(self):
         return self.n_batches
 
+    @trace.span('batches.stage')
     def _stage(self, batch, stream):
         """Start the copy of every array of ``batch`` to the device on
         ``stream``, behind one event."""
@@ -179,22 +181,33 @@ class BaseBatchHandler:
     def __iter__(self):
         """Iterate batches of tensors on ``self.device``, the next
         batch's copy in flight while the current one is used (on a CUDA
-        device)."""
+        device). Each resumption up to its yield is the span
+        ``batches.next``."""
         device = self.device or torch.device('cpu')
+        batches = iter(self._queue)
         if device.type != 'cuda':
-            for batch in self._queue:
-                yield type(batch)(*[torch.as_tensor(m, device=device)
-                                    for m in batch])
-            return
+            while True:
+                with trace.span('batches.next'):
+                    batch = next(batches, None)
+                    if batch is None:
+                        return
+                    batch = type(batch)(*[torch.as_tensor(m, device=device)
+                                          for m in batch])
+                yield batch
         stream = torch.cuda.Stream(device)
         pending = None
-        for batch in self._queue:
-            staged = self._stage(batch, stream)
-            if pending is not None:
-                yield self._ready(pending)
-            pending = staged
-        if pending is not None:
-            yield self._ready(pending)
+        while True:
+            with trace.span('batches.next'):
+                batch = next(batches, None)
+                if pending is None and batch is not None:  # the first
+                    pending = self._stage(batch, stream)
+                    batch = next(batches, None)
+                if pending is None:
+                    return
+                staged = None if batch is None else self._stage(batch,
+                                                                stream)
+                ready, pending = self._ready(pending), staged
+            yield ready
 
     def _ready(self, staged):
         """The staged batch, once the current stream has waited on its

@@ -30,7 +30,7 @@ from sup3r_tpu_torch.ops.coarsen import (
     temporal_simple_enhancing,
 )
 from sup3r_tpu_torch.preprocessing.samplers import _safe_probs
-from sup3r_tpu_torch.utilities import RANDOM_GENERATOR
+from sup3r_tpu_torch.utilities import RANDOM_GENERATOR, trace
 
 logger = logging.getLogger(__name__)
 
@@ -142,7 +142,8 @@ class AbstractBatchQueue:
         """Producer loop: keeps ``max_workers`` batch productions in
         flight on the pool."""
         def produce():
-            return self.post_proc(self.sample_batch())
+            with trace.span('batches.produce'):
+                return self.post_proc(self.sample_batch())
 
         pending = []
         try:
@@ -171,8 +172,10 @@ class AbstractBatchQueue:
 
     @property
     def starvation_rate(self):
-        """Fraction of batch fetches that found the queue empty (0.0 =
-        prefetch fully hides production latency)."""
+        """Fraction of batch fetches that waited through at least one
+        whole 1 s ``queue.get`` timeout (0.0 = no fetch waited that long;
+        the shorter waits are the span ``batches.wait`` and the counter
+        ``batches.waited``, under a profiler)."""
         if self._gets == 0:
             return 0.0
         return self._starved_waits / self._gets
@@ -180,11 +183,23 @@ class AbstractBatchQueue:
     def _get(self):
         """The next batch; None once stopped. Raises when the producer
         died."""
+        with trace.span('batches.wait'):
+            try:
+                batch = self.queue.get_nowait()
+            except Empty:
+                trace.count('batches.waited')
+                batch = self._wait()
+            if batch is not None:
+                self._gets += 1
+                trace.count('batches.gets')
+            return batch
+
+    def _wait(self):
+        """``_get`` once the queue was found empty."""
         starved = False
         while True:
             try:
                 batch = self.queue.get(timeout=1.0)
-                self._gets += 1
                 self._starved_waits += int(starved)
                 return batch
             except Empty:

@@ -17,6 +17,7 @@ import torch
 from scipy import ndimage
 
 from sup3r_tpu_torch.names import get_feature_basename
+from sup3r_tpu_torch.utilities import trace
 
 logger = logging.getLogger(__name__)
 
@@ -308,12 +309,16 @@ class Timer:
     """Accumulating call timer.
 
     ``timer(fn, log=True)(...)`` or ``with timer: ...``; elapsed times
-    accumulate in ``.log`` keyed by function name.
+    accumulate in ``.log`` keyed by function name, always.
 
     Host clock only: time device work after ``torch.cuda.synchronize()``.
+    A timer with a ``scope`` also opens ``trace.span('<scope>.<span>')``
+    around each wrapped call (``span`` defaults to the function's name),
+    which acts only while ``torch.profiler`` records.
     """
 
-    def __init__(self):
+    def __init__(self, scope=None):
+        self.scope = scope
         self.log = {}
         self._start = None
         self.elapsed = 0.0
@@ -342,10 +347,15 @@ class Timer:
     def __exit__(self, *exc):
         self.stop()
 
-    def __call__(self, func, log=False, call_id=None):
+    def __call__(self, func, log=False, call_id=None, span=None):
+        name = (None if self.scope is None
+                else f'{self.scope}.{span or func.__name__}')
+
         def wrapper(*args, **kwargs):
             t0 = time.perf_counter()
-            out = func(*args, **kwargs)
+            with (contextlib.nullcontext() if name is None
+                  else trace.span(name)):
+                out = func(*args, **kwargs)
             dt = time.perf_counter() - t0
             key = f'{func.__name__}' if call_id is None else (
                 f'{call_id}_{func.__name__}')

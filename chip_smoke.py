@@ -24,13 +24,24 @@ exits non-zero:
    ``reflect_conv``'s 2D path at the eight
    block shapes of the Sup3rCC chain's step 0 (``CHAIN_2D_SHAPES``: ci 7
    / 64 / 65, co 64 / 1600 / 6, 14 x 14 and 70 x 70, batch = time 6)
-   and at ragged 2D shapes (``RAGGED_2D_CHECKS``);
+   and at ragged 2D shapes (``RAGGED_2D_CHECKS``); then (2b) both
+   routes of a fused block at ``BODY_ROUTE_SHAPES`` (the benchmark's
+   node cell's four body shapes, the main path's, the chains' 2D, t = 6
+   and tail blocks, a chain chunk at the example's (5, 5, 3) chunks, and
+   shapes past the shipped generators): ``reflect_conv`` held to its
+   plain version, the kernel on weights packed once and the library
+   route (reflect pad, cuDNN, LeakyReLU) each timed twice in turns, and
+   every shape ``models/fuse.py::body_kernel_wins`` sends to the kernel
+   faster there;
 3. the main path: the flagship ``spatiotemporal/gen_3x_4x_2f`` generator
    at full width (64 filters, 16 residual blocks, seeded random
    weights) serves 3 requests of ``Sup3rGan.generate`` on a
    (16, 20, 20, 24, 2) low-res batch; the output must be finite, of
-   shape (16, 60, 60, 96, 2), and ``small_reflect_conv`` must launch
-   once per request. On a small input the served output is held against
+   shape (16, 60, 60, 96, 2), ``small_reflect_conv`` must launch
+   once per request and ``reflect_conv`` 36 times (every body block at
+   these shapes is the gate's). The same requests with every body block
+   forced onto cuDNN: timed, and within 1e-5 of the default route's
+   largest magnitude. On a small input the served output is held against
    the port's unfused generator on the CPU (rtol 1e-4 of the output's
    max, the repository's fp32 parity bar);
 4. the opt-in kernel path (``inference_pallas=True``): 3 more requests,
@@ -63,7 +74,8 @@ exits non-zero:
    (wall seconds, HR voxels/s, the prep / dispatch / drain split, the
    fetched MB, the kernels' launches: ``small_reflect_conv`` once per
    dispatch, ``reflect_conv`` 36 times per dispatch on the opt-in route
-   only). Every output file is read back (finite, the full (192, 192,
+   and once per block the gate sends it on the default route). Every
+   output file is read back (finite, the full (192, 192,
    160) domain tiled); on a small domain the card's per-chunk outputs
    equal the port's CPU forward pass and the batched ones the serial
    ones (the parity bar); one dispatched batch's device pack agrees
@@ -127,8 +139,9 @@ exits non-zero:
    ``fetch=``). The cold exo rasterization, then 3 timed passes to
    NetCDF on each route (wall s, HR voxels/s over the (150, 150, 192)
    HR domain, the stage split, the wrappers' launch counts, the 2D and
-   3D ``reflect_conv`` launches apart: none on the default route, 38 2D
-   and 36 3D per chunk on the opt-in route, as counted from the fused
+   3D ``reflect_conv`` launches apart: the gate's blocks on the default
+   route, 38 2D and 36 3D per chunk on the opt-in route, as counted from
+   the fused
    networks; the last opt-in pass also hooks every fused block and
    checks each 2D call's shape against ``CHAIN_2D_SHAPES`` and the calls
    of each rank against the wrapper's count), one profiled pass per
@@ -148,7 +161,8 @@ exits non-zero:
    [0, 1] beside the six features: 18 chunks chunk by chunk, HR (150, 150,
    192) of clearsky_ratio to NetCDF. 3 timed passes and one profiled pass
    per route (wall s, HR voxels/s, busy / idle, D2H ms); the wrappers'
-   launches by rank (none on the default route; 76 2D and 36 3D blocks
+   launches by rank (the gate's blocks on the default route; 76 2D and
+   36 3D blocks
    per chunk on the opt-in route), equal to the hooked block calls of the
    last opt-in pass, by shape (``CHAIN_2D_SHAPES``, ``SOLAR_2D_SHAPES``,
    ``SOLAR_3D_SHAPES``); the routes, and one chunk of a small domain
@@ -176,7 +190,8 @@ exits non-zero:
    float64 version on the CPU (1e-5 of each field's max) and its device
    ms a padded chunk, 3 timed passes and one profiled pass per route,
    launches equal to the temporal member's hooked block calls by shape
-   (``TRH_3D_SHAPES``; none on the default route, 36 a chunk opt-in), the
+   (``TRH_3D_SHAPES``; the gate's on the default route, 36 a chunk
+   opt-in), the
    routes and a chunk against the port's CPU chain within 1e-4 of each
    feature's max. Then ``Sup3rGanWithObs`` on the flagship with
    ``Sup3rConcatObs`` for u and v before its tail (12 -> 2 on
@@ -425,7 +440,7 @@ from sup3r_tpu_torch.models import (
 )
 from sup3r_tpu_torch import _native
 from sup3r_tpu_torch.models import fuse as fuse_module
-from sup3r_tpu_torch.models.fuse import FusedReflectConv
+from sup3r_tpu_torch.models.fuse import FusedReflectConv, body_kernel_wins
 from sup3r_tpu_torch.ops import build
 from sup3r_tpu_torch.ops.output_pack import (
     fetch_stats,
@@ -561,6 +576,77 @@ SMALL_CHECKS = (
     ((16, 12, 36, 36, 48), 2, None),  # the WithObs training tail, ci 12
     (COND_FWP_TAIL_SHAPE, 2, None),  # a CondMom forward-pass chunk's tail
 )
+#: the fused blocks whose route ``FusedReflectConv`` chooses by shape,
+#: timed on both routes (``body_route_check``): (x shape, co, alpha)
+BODY_ROUTE_SHAPES = (
+    # the benchmark's node cell: padded chunks (20, 20, 56), batches of 8
+    ((8, 2, 20, 20, 56), 64, 0.2),
+    ((8, 64, 20, 20, 112), 64, 0.2),
+    ((8, 64, 20, 20, 224), 64, 0.2),
+    ((8, 64, 20, 20, 224), 64, None),
+    ((8, 64, 20, 20, 224), 72, 0.2),
+    # phase 3's requests, phase 6 / 14's batches, a chunk-by-chunk pass
+    ((16, 2, 20, 20, 24), 64, 0.2),
+    ((16, 64, 20, 20, 48), 64, 0.2),
+    ((16, 64, 20, 20, 96), 64, 0.2),
+    ((16, 64, 20, 20, 96), 72, 0.2),
+    ((8, 64, 20, 20, 96), 64, None),
+    ((1, 64, 20, 20, 96), 64, 0.2),
+    ((1, 2, 20, 20, 24), 64, 0.2),
+    # phase 7's validation batches (LR (12, 12, 12))
+    ((16, 2, 12, 12, 12), 64, 0.2),
+    ((16, 64, 12, 12, 24), 64, 0.2),
+    ((16, 64, 12, 12, 48), 72, 0.2),
+    # the temporal members of the solar and trh chains: t = 6, the
+    # blocks before depth_to_time, the narrow tails
+    ((1, 3, 70, 70, 6), 64, 0.2),
+    ((1, 2, 70, 70, 6), 64, 0.2),
+    ((1, 64, 70, 70, 6), 64, 0.2),
+    ((1, 64, 70, 70, 6), 512, 0.2),
+    ((1, 64, 70, 70, 6), 768, 0.2),
+    ((1, 64, 70, 70, 48), 1, None),
+    ((1, 32, 70, 70, 144), 2, None),
+    # the spatial members' 2D blocks (phase 10's chunk)
+    ((6, 7, 14, 14), 64, 0.2),
+    ((6, 1, 14, 14), 64, 0.2),
+    ((6, 64, 14, 14), 64, 0.2),
+    ((6, 64, 14, 14), 1600, 0.2),
+    ((6, 65, 70, 70), 64, 0.2),
+    ((6, 64, 70, 70), 64, 0.2),
+    ((6, 64, 70, 70), 6, None),
+    ((6, 64, 70, 70), 1, None),
+    # one chunk of the Sup3rCC wind chain at the example's (5, 5, 3)
+    # chunks padded by 1: (7, 7, 5)
+    ((5, 7, 7, 7), 64, 0.2),
+    ((5, 64, 7, 7), 64, 0.2),
+    ((5, 64, 7, 7), 1600, 0.2),
+    ((5, 65, 35, 35), 64, 0.2),
+    ((5, 64, 35, 35), 64, 0.2),
+    ((5, 64, 35, 35), 6, None),
+    ((1, 6, 35, 35, 5), 64, 0.2),
+    ((1, 64, 35, 35, 5), 64, 0.2),
+    ((1, 64, 35, 35, 5), 768, 0.2),
+    ((1, 32, 35, 35, 120), 6, None),
+    # beyond the shipped generators: the smallest dims that reflect, wide
+    # inputs and outputs, large batches, long and short last dims
+    ((1, 64, 2, 2, 2), 64, 0.2),
+    ((4, 64, 3, 3, 3), 64, None),
+    ((8, 64, 4, 4, 4), 64, 0.2),
+    ((2, 64, 2, 2), 64, 0.2),
+    ((16, 8, 2, 2, 40), 8, None),
+    ((8, 128, 20, 20, 56), 64, 0.2),
+    ((8, 256, 20, 20, 56), 64, 0.2),
+    ((1, 512, 12, 12, 12), 64, 0.2),
+    ((1, 1024, 8, 8, 8), 64, None),
+    ((4, 64, 20, 20, 56), 2048, 0.2),
+    ((1, 64, 10, 10, 10), 4096, None),
+    ((32, 64, 20, 20, 56), 64, 0.2),
+    ((256, 64, 14, 14), 64, 0.2),
+    ((1, 64, 8, 8, 1024), 64, 0.2),
+    ((2, 64, 9, 11, 13), 64, None),
+    ((1, 64, 100, 100, 2), 64, 0.2),
+    ((1, 64, 100, 2, 100), 64, 0.2),
+)
 
 
 def emit(**record):
@@ -665,6 +751,84 @@ def check_kernel(name, fn, x, w, b, alpha):
                              f'{tuple(x.shape)}: {err} > '
                              f'{KERNEL_RTOL} * {scale}')
     return err
+
+
+def route_ms(fn):
+    """``cuda_ms`` of ``fn`` over about 60 ms of calls (10 to 300)."""
+    est = cuda_ms(fn, 3)
+    return cuda_ms(fn, int(min(300, max(10, 60 / max(est, 1e-3)))))
+
+
+def body_route_check(gen):
+    """Each of ``BODY_ROUTE_SHAPES`` on both of a fused block's routes on
+    the card: ``reflect_conv`` held to its plain version (1e-5 of max),
+    then the kernel on weights packed once (the block's cache) against
+    the library route (``reflect_conv_ad``: reflect pad, cuDNN's fp32
+    conv, LeakyReLU), each timed twice in turns (CUDA events). Returns
+    the records."""
+    records = []
+    for x_shape, co, alpha in BODY_ROUTE_SHAPES:
+        x, w, b = conv_inputs(gen, x_shape, co)
+        err = check_kernel('reflect_conv', reflect_conv_cf, x, w, b, alpha)
+        n_spatial = x.ndim - 2
+        n_tile = reflect_conv_n_tile(co)
+        with torch.inference_mode(), exact_fp32():
+            packed = pack_weights(w, n_tile)
+
+            def kernel():
+                reflect_conv_packed(x, packed, b, co, n_tile, alpha)
+
+            def library():
+                reflect_conv_ad(x, w, b, n_spatial, alpha)
+
+            times = [route_ms(f) for f in (kernel, library, library, kernel)]
+            pack_ms = route_ms(lambda: pack_weights(w, n_tile))
+        kernel_ms = (times[0] + times[3]) / 2
+        library_ms = (times[1] + times[2]) / 2
+        bound_ms, _, _ = bound(torch.cuda.get_device_name(0), x_shape, co,
+                               w.numel())
+        rec = {'shape': list(x_shape), 'co': co, 'alpha': alpha,
+               'kernel_ms': kernel_ms, 'library_ms': library_ms,
+               'kernel_runs_ms': [times[0], times[3]],
+               'library_runs_ms': [times[1], times[2]],
+               'speedup': library_ms / kernel_ms, 'pack_ms': pack_ms,
+               'bound_ms': bound_ms, 'share_of_bound': bound_ms / kernel_ms,
+               'max_abs_err': err}
+        emit(phase='body_route', **rec)
+        records.append(rec)
+    return records
+
+
+def check_gate(records):
+    """Every timed shape the gate (``body_kernel_wins``) sends to the
+    kernel was faster there; prints the gate's choices."""
+    wrong = []
+    for rec in records:
+        rec['gate'] = ('reflect_conv' if body_kernel_wins(tuple(rec['shape']))
+                       else 'cudnn')
+        if rec['gate'] == 'reflect_conv' and rec['speedup'] <= 1:
+            wrong.append(rec)
+    emit(phase='body_route_gate', shapes=len(records),
+         to_kernel=sum(r['gate'] == 'reflect_conv' for r in records),
+         kept_on_cudnn=[[r['shape'], r['co'], r['speedup']]
+                        for r in records if r['gate'] == 'cudnn'],
+         slower_on_kernel=[[r['shape'], r['co'], r['speedup']]
+                           for r in wrong], ok=not wrong)
+    if wrong:
+        raise AssertionError(f'the gate sends {len(wrong)} shapes to a '
+                             f'slower kernel: {wrong}')
+
+
+@contextlib.contextmanager
+def library_route():
+    """Every fused block the small kernel does not take on cuDNN, as
+    ``inference_pallas = False`` ran them before the gate."""
+    real = FusedReflectConv._body_ok
+    FusedReflectConv._body_ok = lambda self, x, weight, ctx: False
+    try:
+        yield
+    finally:
+        FusedReflectConv._body_ok = real
 
 
 def flagship(device):
@@ -797,10 +961,12 @@ def check_fwp_files(strategy, out_dir, keep=False, domain=FWP_DOMAIN,
 
 def check_fwp_launches(route, launches, n_dispatch):
     """``small_reflect_conv`` once per dispatch on both routes,
-    ``reflect_conv`` 36 times per dispatch on the opt-in route only."""
+    ``reflect_conv`` 36 times per dispatch on the opt-in route and once
+    for each block the gate sent to it on the default route
+    (``GATED``)."""
     want = {'small_reflect_conv': n_dispatch,
             'reflect_conv': (N_BODY_BLOCKS * n_dispatch
-                             if route == 'opt_in' else 0)}
+                             if route == 'opt_in' else gated())}
     if launches != want:
         raise AssertionError(f'forward pass ({route}): launches '
                              f'{launches}, expected {want}')
@@ -809,7 +975,7 @@ def check_fwp_launches(route, launches, n_dispatch):
 def fwp_pass(input_file, model_dir, out_dir, route, index):
     """One timed ``ForwardPass.run`` to NetCDF chunk files; the wall
     time includes planning (input read, strategy) and every drain."""
-    small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     strategy = fwp_strategy(input_file, model_dir,
@@ -1247,7 +1413,7 @@ def train_step_phase(name, model, phase='train_step',
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+    zero_counts()
     times, losses = [], None
     for _ in range(N_TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1408,7 +1574,7 @@ def train_loop(step_ms):
         model = Sup3rGan(get_config('spatiotemporal/gen_3x_4x_2f'),
                          get_config('spatiotemporal/disc_test'),
                          learning_rate=TRAIN_LR_RATE)
-        small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model.train(handler, input_resolution={'spatial': '3km',
@@ -1418,9 +1584,11 @@ def train_loop(step_ms):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         # the tail launches once per forward: 8 train batches and 8
-        # validation batches (4 of each per epoch)
+        # validation batches (4 of each per epoch); the validation
+        # batches' body blocks (no gradients) are the gate's
         launches = {'small_reflect_conv': small_reflect_conv_cf.launches,
                     'reflect_conv': reflect_conv_cf.launches}
+        want_body = gated()
         t0 = time.perf_counter()
         model.calc_val_loss(handler, W_ADV)
         val_s = time.perf_counter() - t0
@@ -1440,7 +1608,7 @@ def train_loop(step_ms):
               and loaded._gen_opt_state['count']
               == model._gen_opt_state['count'])
         ok = ok and launches == {'small_reflect_conv': 16,
-                                 'reflect_conv': 0}
+                                 'reflect_conv': want_body}
         # the epochs' seconds from the history (init and the checkpoint
         # save fall outside them); a batch's share without validation
         epoch_s = np.diff([0.0] + list(history['elapsed_time']))
@@ -1453,8 +1621,8 @@ def train_loop(step_ms):
                                for k in ('gen', 'disc')},
              starvation_rate=handler._queue.starvation_rate,
              history={c: list(history[c]) for c in history.columns},
-             launches=launches, reloaded_generate_shape=list(out.shape),
-             ok=ok)
+             launches=launches, gated=want_body,
+             reloaded_generate_shape=list(out.shape), ok=ok)
         if not ok:
             raise AssertionError('train loop: history, launches, reload or '
                                  'generate failed')
@@ -1496,6 +1664,26 @@ FAST_BUDGET = 0.04
 FWP_FAST_BUDGET = 0.05
 
 
+#: the fused blocks ``FusedReflectConv._body_ok`` sent to ``reflect_conv``
+#: (its default route) since ``zero_counts``, in all and by spatial rank:
+#: ``tally_gated``, a forward pre-hook on every module, counts them in
+#: this process (``main`` registers it)
+GATED = Counter()
+
+
+def tally_gated(module, args):
+    if isinstance(module, FusedReflectConv) and module._body_ok(
+            args[0], module.weight, args[1]):
+        GATED['reflect_conv'] += 1
+        GATED[f'reflect_conv_{module.n_spatial}d'] += 1
+
+
+def gated():
+    """The blocks the gate sent to ``reflect_conv`` since
+    ``zero_counts``."""
+    return GATED['reflect_conv']
+
+
 def launch_counts():
     return {'small_reflect_conv': small_reflect_conv_cf.launches,
             'reflect_conv': reflect_conv_cf.launches}
@@ -1504,6 +1692,7 @@ def launch_counts():
 def zero_counts():
     small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
     reflect_conv_cf.launches_by_rank.update({2: 0, 3: 0})
+    GATED.clear()
 
 
 def chain_counts():
@@ -2062,8 +2251,9 @@ def chain_pass(make_strategy, out_dir, route, index, want,
                features=CHAIN_FEATURES, phase='chain_pass'):
     """One timed ``ForwardPass.run`` of a chain to NetCDF (the strategy
     from ``make_strategy(out_pattern)``); checks the wrappers' launch
-    counts against ``want`` and returns (wall s, tiled output, launch
-    counts)."""
+    counts against ``want`` (on the default route, ``reflect_conv``'s
+    against the blocks the gate sent to it) and returns (wall s, tiled
+    output, launch counts)."""
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2073,6 +2263,9 @@ def chain_pass(make_strategy, out_dir, route, index, want,
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = chain_counts()
+    if route == 'default':
+        want = {**want, **{k: GATED[k] for k in (
+            'reflect_conv', 'reflect_conv_2d', 'reflect_conv_3d')}}
     fwp = ChainForwardPass.last
     _, full = check_fwp_files(strategy, out_dir, keep=True,
                               domain=CHAIN_DOMAIN, features=features)
@@ -3006,7 +3199,7 @@ def obs_fwp_check(model, tmp):
     ok = (len(outs) == 4 and all(np.isfinite(o).all() and o.shape == (
         30, 30, 48, 2) for o in outs.values()) and 0 < observed < 0.5
         and launches == {'small_reflect_conv': fwp.dispatches + fwp.chunk_runs,
-                         'reflect_conv': 0})
+                         'reflect_conv': gated()})
     emit(phase='obs_forward_pass', chunks=len(outs),
          raster_shape=list(raster.shape), observed_share=observed,
          batched_dispatches=fwp.dispatches, chunk_runs=fwp.chunk_runs,
@@ -3053,7 +3246,7 @@ def obs_phase(name, gen):
     launches = launch_counts()
     ok = (ok and out.shape == (1,) + TRAIN_HR and bool(np.isfinite(
         out).all()) and launches == {'small_reflect_conv': 1,
-                                     'reflect_conv': 0})
+                                     'reflect_conv': gated()})
     emit(phase='obs_generate', hr_shape=list(out.shape), launches=launches,
          obs_frac=losses['obs_frac'], ok=ok)
     if not ok:
@@ -3091,6 +3284,7 @@ def dc_phase(name):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
+    body = gated()
     # one more validation pass alone: its seconds come off each epoch's
     t0 = time.perf_counter()
     model.calc_val_loss(handler, W_ADV)
@@ -3103,7 +3297,7 @@ def dc_phase(name):
     n_val = n_s * n_t
     ok = (len(history) == 2 and np.isfinite(history['val_loss_gen']).all()
           and launches == {'small_reflect_conv': 2 * (4 + n_val),
-                           'reflect_conv': 0}
+                           'reflect_conv': body}
           and abs(s_w.sum() - 1) < 1e-5 and abs(t_w.sum() - 1) < 1e-5
           and (s_w >= 0).all() and (t_w >= 0).all()
           and not np.allclose(s_w, 1 / n_s) and not np.allclose(t_w, 1 / n_t))
@@ -3280,6 +3474,7 @@ def cond_mom1_loop(name, tmp):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
+    body = gated()
     t0 = time.perf_counter()
     model.calc_val_loss(handler)
     val_s = time.perf_counter() - t0
@@ -3292,7 +3487,7 @@ def cond_mom1_loop(name, tmp):
     ok = bool(len(history) == 2 and all(
         np.isfinite(history[c]).all()
         for c in ('train_loss_gen', 'val_loss_gen'))
-        and launches == {'small_reflect_conv': 16, 'reflect_conv': 0}
+        and launches == {'small_reflect_conv': 16, 'reflect_conv': body}
         and (tb_warned or len(events) == 1)
         and loaded._gen_opt_state['count'] == 8)
     emit(phase='cond_mom1_loop', epochs=2, batches_per_epoch=4,
@@ -3473,9 +3668,11 @@ def cond_fwp(name, tmp, model_dir):
         launches = launch_counts()
         n_chunks = st.fwp_slicer.n_chunks
         hr_shape = check_fwp_files(st, out_dir)
-        if launches != {'small_reflect_conv': n_chunks, 'reflect_conv': 0}:
+        want = {'small_reflect_conv': n_chunks, 'reflect_conv': gated()}
+        if launches != want:
             raise AssertionError(f'cond mom forward pass: launches '
-                                 f'{launches} for {n_chunks} chunks')
+                                 f'{launches} for {n_chunks} chunks, '
+                                 f'expected {want}')
         emit(phase='cond_mom_forward_pass', pass_index=i, chunks=n_chunks,
              hr_shape=hr_shape, wall_s=walls[-1],
              hr_voxels_per_s=int(np.prod(hr_shape)) / walls[-1],
@@ -3634,7 +3831,8 @@ def fused_calls(model):
         x = args[0]
         if m.small_channel_kernel and m._small_ok(x, m.weight):
             kname = 'small_reflect_conv'
-        elif m.use_pallas and not torch.is_grad_enabled():
+        elif m._body_ok(x, m.weight, args[1]) or (
+                m.use_pallas and not torch.is_grad_enabled()):
             kname = 'reflect_conv'
         else:
             kname = 'cudnn'
@@ -3933,6 +4131,7 @@ def lazy_train_loops(name, tmp):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = launch_counts()
+        body = gated()
         t0 = time.perf_counter()
         model.calc_val_loss(handler, W_ADV)
         val_s = time.perf_counter() - t0
@@ -3942,7 +4141,7 @@ def lazy_train_loops(name, tmp):
         ok = (len(history) == 2 and all(
             np.isfinite(history[c]).all()
             for c in ('train_loss_gen', 'val_loss_gen'))
-            and launches == {'small_reflect_conv': 16, 'reflect_conv': 0})
+            and launches == {'small_reflect_conv': 16, 'reflect_conv': body})
         out[mode] = float(np.mean(epoch_s - val_s)) / 4
         emit(phase='lazy_train_loop', feed=mode, io='netcdf3',
              domain=list(LAZY_TRAIN_DOMAIN), epochs=2, batches_per_epoch=4,
@@ -4106,23 +4305,24 @@ def kernel_calls():
     from sup3r_tpu_torch.models import fuse
 
     calls = Counter()
-    names = {'small_reflect_conv': 'small_reflect_conv_cf',
-             'reflect_conv': 'reflect_conv_cf'}
-    originals = {k: getattr(fuse, v) for k, v in names.items()}
+    small, packed = fuse.small_reflect_conv_cf, fuse.reflect_conv_packed
 
-    def recorder(kname, fn):
-        def call(x, weight, bias, alpha=None):
-            calls[(kname, tuple(x.shape), weight.shape[0], alpha)] += 1
-            return fn(x, weight, bias, alpha)
-        return call
+    def small_call(x, weight, bias, alpha=None):
+        calls[('small_reflect_conv', tuple(x.shape), weight.shape[0],
+               alpha)] += 1
+        return small(x, weight, bias, alpha)
 
-    for kname, attr in names.items():
-        setattr(fuse, attr, recorder(kname, originals[kname]))
+    def packed_call(x, weights, bias, co, n_tile, alpha=None):
+        calls[('reflect_conv', tuple(x.shape), co, alpha)] += 1
+        return packed(x, weights, bias, co, n_tile, alpha)
+
+    fuse.small_reflect_conv_cf = small_call
+    fuse.reflect_conv_packed = packed_call
     try:
         yield calls
     finally:
-        for kname, attr in names.items():
-            setattr(fuse, attr, originals[kname])
+        fuse.small_reflect_conv_cf = small
+        fuse.reflect_conv_packed = packed
 
 
 def bias_kwargs(fps):
@@ -4305,6 +4505,7 @@ def bias_train_loop(name, tmp, fps, phase13):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     launches = launch_counts()
+    body = gated()
     t0 = time.perf_counter()
     model.calc_val_loss(handler)
     val_s = time.perf_counter() - t0
@@ -4317,7 +4518,7 @@ def bias_train_loop(name, tmp, fps, phase13):
     ok = bool(len(history) == 2 and all(
         np.isfinite(history[c]).all()
         for c in ('train_loss_gen', 'val_loss_gen'))
-        and launches == {'small_reflect_conv': 16, 'reflect_conv': 0}
+        and launches == {'small_reflect_conv': 16, 'reflect_conv': body}
         and dict(hooked) == {k: v for k, v in launches.items() if v})
     emit(phase='bias_train_loop', feed='BatchHandlerMom1 over '
          'DataHandlerNCforCCwithPowerLaw corrected by qdm_bc', epochs=2,
@@ -4537,22 +4738,27 @@ def pipeline_phase(name, stream_routes, request_ms):
 
         plan = make(None)
         per_node = [node_dispatches(plan, i) for i in range(PIPE_NODES)]
-        for i, node in enumerate(nodes):
-            want = {'small_reflect_conv': per_node[i], 'reflect_conv': 0}
-            if node['launches'] != want or not per_node[i]:
-                raise AssertionError(f'pipeline node {i}: launches '
-                                     f'{node["launches"]}, expected {want}')
         out_dir = os.path.join(tmp, 'in_process')
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         strategy = make(os.path.join(out_dir, 'chunk_{file_id}.nc'))
+        # the blocks the gate sends to reflect_conv in each node's share
+        per_node_gated = []
         for i in range(PIPE_NODES):
+            before = gated()
             ForwardPass.run(strategy, i)
+            per_node_gated.append(gated() - before)
         torch.cuda.synchronize()
         in_process_s = time.perf_counter() - t0
         launches = launch_counts()
         check_fwp_launches('default', launches, sum(per_node))
+        for i, node in enumerate(nodes):
+            want = {'small_reflect_conv': per_node[i],
+                    'reflect_conv': per_node_gated[i]}
+            if node['launches'] != want or not per_node[i]:
+                raise AssertionError(f'pipeline node {i}: launches '
+                                     f'{node["launches"]}, expected {want}')
         hr_shape, full = check_fwp_files(strategy, out_dir, keep=True,
                                          domain=STREAM_DOMAIN)
         collected = read_collected(os.path.join(run_dir, 'collected.nc'))
@@ -4787,7 +4993,7 @@ def mesh_world_of_one_passes(name, tmp, model_dir, input_file):
             out_dir = os.path.join(tmp, f'pass_{mode}_{i}')
             wall, launches, strategy, _ = mesh_pass(make(mode), out_dir)
             walls.append(wall)
-        rec[mode] = dict(wall_s=walls, launches=launches,
+        rec[mode] = dict(wall_s=walls, launches=launches, gated=gated(),
                          full=stitched(strategy, out_dir))
     # a world of one is below the shard-aligned gate: the spatial pass
     # gathers the tail's input over its one rank and launches the kernel
@@ -4797,8 +5003,9 @@ def mesh_world_of_one_passes(name, tmp, model_dir, input_file):
             for mode in (True, 'spatial')}
     ok = bool(errs['True'] == 0.0 and errs['spatial'] <= MESH_SPATIAL_ATOL
               and all(rec[m]['launches']['small_reflect_conv'] == want[m]
-                      and rec[m]['launches']['reflect_conv'] == 0
-                      for m in rec))
+                      and rec[m]['launches']['reflect_conv']
+                      == rec[m]['gated'] for m in rec)
+              and rec['spatial']['gated'] == 0)
     emit(phase='mesh_world_of_one_pass', io=STREAM_IO,
          backend=dist.get_backend(), dispatches=n_dispatch,
          wall_s={str(m): rec[m]['wall_s'] for m in rec},
@@ -5214,11 +5421,15 @@ def mesh2d_phase(name):
                         and s['counters'].get('rows_bytes', 0)
                         == s['want_bytes']['rows'] for s in steps),
                     # below the gate the small kernel's launches are
-                    # the reference step's; at it, none on a block
+                    # the reference step's; at it, none on a block. No
+                    # sharded block takes reflect_conv, which the
+                    # reference's generator does in its 'disc' step
+                    # (run without gradients)
                     'launches_of_the_route': all(
                         s['launches'] == (
                             {k: 0 for k in s['launches']} if sp >= 4
-                            else ref_launches[gate]) for s in steps),
+                            else {**ref_launches[gate], 'reflect_conv': 0})
+                        for s in steps),
                     'reference_launches': ref_launches[gate]}
             ok = all(c['same_losses'] and c['same_exchange_order']
                      and c['within_bar'] and c['bytes']
@@ -5280,20 +5491,38 @@ GROUP_TIMEOUT_S = 300
 GROUP_TOL = {True: 1e-6, 'spatial': 1e-4}
 
 
+def flagship_gated(n, s1, s2, t):
+    """How many of the flagship's 36 body blocks the gate sends to
+    ``reflect_conv`` in a batch of ``n`` LR chunks of (s1, s2, t): the
+    2 -> 64 block at t, the 64 -> 64 block at 2t, 34 blocks at 4t."""
+    shapes = ([(n, 2, s1, s2, t), (n, 64, s1, s2, 2 * t)]
+              + [(n, 64, s1, s2, 4 * t)] * (N_BODY_BLOCKS - 2))
+    return sum(map(body_kernel_wins, shapes))
+
+
 def group_dispatches(strategy, use_mesh):
     """Each rank's device batches in the group's pass: its share of the
     chunks (every n-th) in batches of ``STREAM_BATCH / n`` under True,
-    every chunk in batches of ``STREAM_BATCH`` under 'spatial'."""
+    every chunk in batches of ``STREAM_BATCH`` under 'spatial'; and the
+    body blocks the gate sends to ``reflect_conv`` in them (none on a
+    spatial mesh, whose blocks are sharded)."""
     fwp = ForwardPass(strategy, 0)
     shapes = [fwp.get_input_chunk(int(i)).input_data.shape
               for i in strategy.node_chunks[0]]
     if use_mesh == 'spatial':
         counts = Counter(shapes)
         return [sum(-(-n // STREAM_BATCH) for n in counts.values())] * (
-            GROUP_RANKS)
+            GROUP_RANKS), [0] * GROUP_RANKS
     batch = -(-STREAM_BATCH // GROUP_RANKS)
-    return [sum(-(-n // batch) for n in Counter(
-        shapes[r::GROUP_RANKS]).values()) for r in range(GROUP_RANKS)]
+    dispatches, body = [], []
+    for r in range(GROUP_RANKS):
+        counts = Counter(shapes[r::GROUP_RANKS])
+        dispatches.append(sum(-(-n // batch) for n in counts.values()))
+        body.append(sum(
+            (n // batch) * flagship_gated(batch, *shape[:3])
+            + (flagship_gated(n % batch, *shape[:3]) if n % batch else 0)
+            for shape, n in counts.items()))
+    return dispatches, body
 
 
 def pipeline_group_run(tmp, input_file, model_dir, use_mesh, rerun):
@@ -5384,7 +5613,7 @@ def pipeline_group_phase(name, one_process):
         for use_mesh in (True, 'spatial'):
             plan = stream_strategy(input_file, model_dir, None,
                                    chunked_io=True)
-            want = group_dispatches(plan, use_mesh)
+            want, want_body = group_dispatches(plan, use_mesh)
             run_dir, rec = pipeline_group_run(tmp, input_file, model_dir,
                                               use_mesh, rerun=use_mesh is True)
             strategy = stream_strategy(
@@ -5395,8 +5624,8 @@ def pipeline_group_phase(name, one_process):
             err = float(np.abs(full - one_process).max())
             tol = GROUP_TOL[use_mesh] * float(np.abs(one_process).max())
             got = [r['launches'] for r in rec['ranks']]
-            launches_ok = got == [{'small_reflect_conv': n, 'reflect_conv': 0}
-                                  for n in want]
+            launches_ok = got == [{'small_reflect_conv': n, 'reflect_conv': k}
+                                  for n, k in zip(want, want_body)]
             ok = bool(
                 err <= tol and launches_ok and rec['status_ok']
                 and rec['rerun_ok'] is not False
@@ -5601,6 +5830,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device: '
                          'torch.cuda.is_available() is False')
+    torch.nn.modules.module.register_module_forward_pre_hook(tally_gated)
     # seconds of each phase, printed before the kernels line
     seconds, last = {}, [time.perf_counter()]
 
@@ -5660,22 +5890,28 @@ def main():
     for x_shape, co, alpha in RAGGED_2D_CHECKS:
         check_kernel('reflect_conv', reflect_conv_cf,
                      *conv_inputs(gen, x_shape, co), alpha)
-
     mark('2_kernel_checks')
+    # 2b. both routes of a fused block, and the gate between them (on a
+    # generator of its own: the later phases draw what they drew before)
+    check_gate(body_route_check(
+        torch.Generator(device='cuda').manual_seed(22)))
+    mark('2b_body_routes')
     # 3. the main path
     model = flagship('cuda')
     lr = np.random.default_rng(0).standard_normal(LR_SHAPE).astype(
         np.float32) * 0.3 + 0.5
     torch.cuda.reset_peak_memory_stats()
-    small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+    zero_counts()
     out, times = serve(model, lr, 'main path')
     launches = {'small_reflect_conv': small_reflect_conv_cf.launches}
     if launches['small_reflect_conv'] != N_REQUESTS or (
-            reflect_conv_cf.launches):
+            reflect_conv_cf.launches != N_BODY_BLOCKS * N_REQUESTS
+            or gated() != reflect_conv_cf.launches):
         raise AssertionError(
             f'main path launches: small_reflect_conv '
             f'{small_reflect_conv_cf.launches}, reflect_conv '
-            f'{reflect_conv_cf.launches}; expected {N_REQUESTS} and 0')
+            f'{reflect_conv_cf.launches} (gated {gated()}); expected '
+            f'{N_REQUESTS} and {N_BODY_BLOCKS * N_REQUESTS}')
     hr_voxels = int(np.prod(HR_SHAPE[:-1]))
     emit(phase='main_path', model='spatiotemporal/gen_3x_4x_2f',
          filters=64, n_resblocks=16, lr_shape=list(LR_SHAPE),
@@ -5684,6 +5920,24 @@ def main():
          peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
          launches={'small_reflect_conv': small_reflect_conv_cf.launches,
                    'reflect_conv': reflect_conv_cf.launches})
+    # the same requests with every body block forced onto cuDNN
+    with library_route():
+        zero_counts()
+        out_c, times_c = serve(model, lr, 'library route')
+        library_launches = launch_counts()
+    err = float(np.abs(out - out_c).max())
+    tol = KERNEL_RTOL * float(np.abs(out_c).max())
+    ok = err <= tol and library_launches == {
+        'small_reflect_conv': N_REQUESTS, 'reflect_conv': 0}
+    emit(phase='main_path_library_route', request_ms=times_c,
+         hr_voxels_per_s=hr_voxels / (float(np.median(times_c)) / 1e3),
+         default_route_speedup=float(np.median(times_c) / np.median(times)),
+         launches=library_launches, max_abs_err_vs_default=err, tol=tol,
+         ok=ok)
+    if not ok:
+        raise AssertionError(f'default route differs from the library '
+                             f'route by {err} > {tol}, or launches '
+                             f'{library_launches}')
 
     # the served output against the port's unfused generator on the CPU
     small = np.random.default_rng(1).standard_normal(
@@ -5704,7 +5958,7 @@ def main():
 
     # 4. the opt-in kernel path
     model.inference_pallas = True
-    small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+    zero_counts()
     out_k, times_k = serve(model, lr, 'kernel path')
     launches['reflect_conv'] = reflect_conv_cf.launches
     if (reflect_conv_cf.launches != N_BODY_BLOCKS * N_REQUESTS

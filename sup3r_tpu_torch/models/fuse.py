@@ -22,11 +22,17 @@ tensor:
   * ``small_channel_kernel`` (on by default): 3D, fp32, ``ci * co <=
     32`` blocks (the flagship's HR 8 -> 2 tail) launch the hand-written
     ``small_reflect_conv`` kernel;
-  * ``use_pallas`` (``Sup3rGan.inference_pallas``): EVERY other fused
-    block launches the hand-written ``reflect_conv`` kernel, but only
-    while gradients are off: that kernel has no backward. The JAX
-    package also gated this on ``_fits_vmem``, a TPU VMEM-residency
-    rule with no counterpart here;
+  * every other fp32 block run without gradients launches the
+    hand-written ``reflect_conv`` kernel where it was timed faster than
+    cuDNN's fp32 conv on an H100 (``body_kernel_wins``: every block of
+    the shipped generators at their serving shapes), on weights it
+    packs once per weight version (``_packed``). ``use_pallas``
+    (``Sup3rGan.inference_pallas``) sends EVERY such block to it,
+    whatever its shape. That kernel has no backward, so a training step
+    never takes it; it takes float32 only, so a bf16 body stays on
+    cuDNN. The JAX package gated its Pallas kernel on ``_fits_vmem``, a
+    TPU VMEM-residency rule with no counterpart here, and left it
+    opt-in because XLA's conv emitter won on the TPU;
   * otherwise the block runs ``reflect_conv_ad``: ``F.pad`` + cuDNN,
     with the custom backward.
 On a CPU tensor every block runs ``reflect_conv_ad``, the kernels'
@@ -53,6 +59,10 @@ bias are cast to it (differentiably).
 A bf16 block is never the small kernel's (it takes float32 only, as the
 JAX package's does), so a bf16 tail runs ``reflect_conv_ad`` on cuDNN;
 ``reflect_conv`` refuses bf16, as the JAX package's Pallas kernel does.
+While a profiler records, each block the small kernel does not take
+counts ``fuse.body_kernel`` or ``fuse.body_cudnn`` by the route it ran
+(``utilities/trace.py``; ``body_cudnn`` is the library route on either
+device), and each packing of a block's weights ``fuse.body_pack``.
 
 ``fuse_subpixel_tail`` (fast mode, ``Sup3rGan.inference_subpixel_tail``)
 folds the generator's ``expansion -> tail conv`` ending into one
@@ -61,6 +71,7 @@ folds the generator's ``expansion -> tail conv`` ending into one
 """
 
 import logging
+import math
 
 import torch
 
@@ -84,10 +95,47 @@ from sup3r_tpu_torch.ops.conv_ad import (
     reflect_conv_halo,
     reflect_conv_shard_aligned,
 )
-from sup3r_tpu_torch.ops.kernels import reflect_conv_cf, small_reflect_conv_cf
+from sup3r_tpu_torch.ops.kernels import (
+    REFLECT_CONV_K_STEP,
+    pack_weights,
+    reflect_conv_check,
+    reflect_conv_n_tile,
+    reflect_conv_packed,
+    small_reflect_conv_cf,
+)
 from sup3r_tpu_torch.ops.subpixel import subpixel_tail_conv
+from sup3r_tpu_torch.utilities import trace
 
 logger = logging.getLogger(__name__)
+
+#: the widest block input ``reflect_conv`` was timed on; its K loop runs
+#: serially in each thread block, and at 512 and 1024 input channels it
+#: lost to cuDNN
+BODY_KERNEL_MAX_CI = 256
+#: output cells (batch times spatial volume) from which the kernel's
+#: thread blocks hide its serial K-steps
+BODY_KERNEL_MIN_CELLS = 4096
+#: K-steps the kernel runs within cuDNN's ~0.05 ms floor (three
+#: launches: pad, conv, LeakyReLU) at any number of output cells
+BODY_KERNEL_MAX_SHORT_STEPS = 9
+#: the kernel's grid takes the batch as its z dimension
+BODY_KERNEL_MAX_BATCH = 65535
+
+
+def body_kernel_wins(x_shape):
+    """Whether ``reflect_conv`` was timed faster than the library route
+    (reflect pad, cuDNN's fp32 conv, LeakyReLU) for a block on an input
+    of ``x_shape`` (n, ci, *spatial) on an H100 (PERF.md, kernel
+    table). Each thread block of the kernel runs ``ceil(ci / 8)`` K-steps
+    per plane of taps (3 planes in 3D, 1 in 2D) one after another, so a
+    block with few output cells and many steps is quicker on cuDNN, as
+    (2, 64, 9, 11, 13) and (8, 64, 4, 4, 4) were; every timed shape that
+    this sends to the kernel was faster there."""
+    n, ci, *spatial = x_shape
+    steps = -(-ci // REFLECT_CONV_K_STEP) * (3 if len(spatial) == 3 else 1)
+    return n <= BODY_KERNEL_MAX_BATCH and ci <= BODY_KERNEL_MAX_CI and (
+        steps <= BODY_KERNEL_MAX_SHORT_STEPS
+        or n * math.prod(spatial) >= BODY_KERNEL_MIN_CELLS)
 
 
 class FusedReflectConv(Layer):
@@ -101,8 +149,8 @@ class FusedReflectConv(Layer):
     ``fused_weight``) and bias at each call."""
 
     #: route every fused block the small kernel does not take to the
-    #: hand-written ``reflect_conv`` kernel (set from
-    #: ``Sup3rGan.inference_pallas``)
+    #: hand-written ``reflect_conv`` kernel, whatever its shape (set from
+    #: ``Sup3rGan.inference_pallas``); off, ``_body_ok`` decides
     use_pallas = False
 
     #: route tiny-channel 3D convs (ci*co <= 32, e.g. the flagship
@@ -124,6 +172,9 @@ class FusedReflectConv(Layer):
         self.n_spatial = n_spatial
         self.alpha = alpha
         self.conv = conv
+        # (param, (its version, its storage, the stream), n_tile, packed
+        # weights) of the last packing
+        self._pack = None
 
     @property
     def weight(self):
@@ -145,13 +196,53 @@ class FusedReflectConv(Layer):
         return (self.n_spatial == 3 and x.ndim == 5
                 and x.dtype == torch.float32 and ci * co <= 32)
 
+    def _body_ok(self, x, weight, ctx):
+        """Whether the block runs on ``reflect_conv`` by default: an fp32
+        CUDA input without gradients, unsharded, that the small kernel
+        does not take, at a shape where the kernel was timed faster
+        (``body_kernel_wins``)."""
+        return (x.is_cuda and x.dtype == torch.float32
+                and not torch.is_grad_enabled()
+                and ctx.get('spatial') is None
+                and not (self.small_channel_kernel
+                         and self._small_ok(x, weight))
+                and min(x.shape[2:]) >= 2
+                and body_kernel_wins(tuple(x.shape)))
+
+    def _packed(self, weight):
+        """(n_tile, ``pack_weights(weight, n_tile)``), packed again only
+        when the conv's parameter, its version (training updates it in
+        place), its storage or the current stream changes; at every call
+        for a parameter made under ``torch.inference_mode``, which keeps
+        no version."""
+        param = self.conv.weight
+        stream = (torch.cuda.current_stream(weight.device).cuda_stream
+                  if weight.is_cuda else None)
+        version = None if param.is_inference() else param._version
+        key = (version, param.data_ptr(), stream)
+        pack = self._pack
+        if (pack is None or pack[0] is not param or version is None
+                or pack[1] != key):
+            n_tile = reflect_conv_n_tile(weight.shape[0])
+            pack = self._pack = (param, key, n_tile,
+                                 pack_weights(weight, n_tile))
+            trace.count('fuse.body_pack')
+        return pack[2:]
+
+    def _library(self, x, weight, bias):
+        if self.shard_aligned:
+            return reflect_conv_shard_aligned(x, weight, bias,
+                                              self.n_spatial, self.alpha)
+        return reflect_conv_ad(x, weight, bias, self.n_spatial, self.alpha)
+
     def forward(self, x, ctx):
-        on_cuda = x.is_cuda
         weight = self.conv.fused_weight(x.dtype)
         bias = self.bias.to(x.dtype)
         small = self.small_channel_kernel and self._small_ok(x, weight)
         shard = ctx.get('spatial')
         if shard is not None and not (small and shard.gather_small):
+            if not small:
+                trace.count('fuse.body_cudnn')
             return reflect_conv_halo(x, weight, bias, self.n_spatial,
                                      self.alpha, *shard.halo(x))
         if shard is not None:
@@ -160,14 +251,20 @@ class FusedReflectConv(Layer):
             y = small_reflect_conv_cf(shard.gather(x, ctx['s1']), weight,
                                       bias, self.alpha)
             return y.narrow(2, start, count)
-        if small and on_cuda:
-            return small_reflect_conv_cf(x, weight, bias, self.alpha)
-        if self.use_pallas and on_cuda and not torch.is_grad_enabled():
-            return reflect_conv_cf(x, weight, bias, self.alpha)
-        if self.shard_aligned:
-            return reflect_conv_shard_aligned(x, weight, bias,
-                                              self.n_spatial, self.alpha)
-        return reflect_conv_ad(x, weight, bias, self.n_spatial, self.alpha)
+        if small:
+            if x.is_cuda:
+                return small_reflect_conv_cf(x, weight, bias, self.alpha)
+            return self._library(x, weight, bias)
+        if self._body_ok(x, weight, ctx) or (
+                self.use_pallas and x.is_cuda
+                and not torch.is_grad_enabled()):
+            trace.count('fuse.body_kernel')
+            reflect_conv_check(x, weight, bias)
+            n_tile, packed = self._packed(weight)
+            return reflect_conv_packed(x, packed, bias, weight.shape[0],
+                                       n_tile, self.alpha)
+        trace.count('fuse.body_cudnn')
+        return self._library(x, weight, bias)
 
 
 def _inner_pads(pad_layer):

@@ -506,9 +506,11 @@ class Sup3rGan(AbstractSingleModel):
     #: halo ring that is immediately cropped
     inference_fuse = True
     #: route every fused block the small kernel does not take to the
-    #: hand-written ``reflect_conv`` CUDA kernel (opt-in; float32 only,
-    #: so it refuses a bf16 body on the card, as the JAX package's Pallas
-    #: kernel does)
+    #: hand-written ``reflect_conv`` CUDA kernel, whatever its shape
+    #: (float32 only, so it refuses a bf16 body on the card, as the JAX
+    #: package's Pallas kernel does). Off, each fp32 block served on the
+    #: card takes the kernel where it was timed faster than cuDNN
+    #: (``models/fuse.py::body_kernel_wins``), and cuDNN elsewhere
     inference_pallas = False
     #: fold the final SpatioTemporalExpansion + tail conv to the
     #: pre-expansion resolution (``ops/subpixel.py``): one conv at

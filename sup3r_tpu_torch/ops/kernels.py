@@ -21,8 +21,12 @@ convolution, the bias and an optional LeakyReLU.
   accuracy (the dropped lo*lo is ~2^-22 relative), not bit equality
   with cuDNN. Bound by operations: ~0.82 ms per flagship body conv at
   an H100 SXM's dense TF32 rate, against ~2.0 ms for fp32 on the CUDA
-  cores. The wrapper splits and lays out the weights once per launch
-  (``pack_weights``).
+  cores. The serving path takes it by default at the block shapes where
+  it was timed faster than cuDNN's fp32 conv (``models/fuse.py``). The
+  wrapper splits and lays out the weights at each launch
+  (``pack_weights``); a fused block keeps its packing until its weight
+  changes and launches ``reflect_conv_packed`` after
+  ``reflect_conv_check``.
 
 The source files carry each kernel's bound and design in full.
 
@@ -278,10 +282,10 @@ def pack_weights(weight, n_tile):
     return w.permute(1, 3, 6, 7, 0, 4, 2, 5).contiguous()
 
 
-def reflect_conv_cf(x, weight, bias, alpha=None):
-    """Reflect-pad-1 + k3/s1 conv + bias (+LeakyReLU), 2D or 3D.
-    x: (n, ci, *spatial) float32; weight: (co, ci, 3, 3[, 3]);
-    bias: (co,). Returns (n, co, *spatial)."""
+def reflect_conv_check(x, weight, bias):
+    """Raise where ``reflect_conv_cf`` refuses its arguments; returns
+    True when the kernel should launch (a CUDA tensor), False for the
+    plain version (a CPU tensor)."""
     n_spatial = x.ndim - 2
     if n_spatial not in (2, 3):
         raise ValueError(f'reflect_conv: bad input rank {x.ndim}')
@@ -294,7 +298,14 @@ def reflect_conv_cf(x, weight, bias, alpha=None):
             'torch.no_grad().')
     if x.is_cuda and x.dtype != torch.float32:
         raise ValueError(f'{REFLECT_CONV_FP32_ONLY}; got {x.dtype}')
-    if not _check_args('reflect_conv', x, weight, bias, n_spatial):
+    return _check_args('reflect_conv', x, weight, bias, n_spatial)
+
+
+def reflect_conv_cf(x, weight, bias, alpha=None):
+    """Reflect-pad-1 + k3/s1 conv + bias (+LeakyReLU), 2D or 3D.
+    x: (n, ci, *spatial) float32; weight: (co, ci, 3, 3[, 3]);
+    bias: (co,). Returns (n, co, *spatial)."""
+    if not reflect_conv_check(x, weight, bias):
         return reflect_conv_reference(x, weight, bias, alpha)
     co = weight.shape[0]
     n_tile = reflect_conv_n_tile(co)

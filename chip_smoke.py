@@ -32,7 +32,19 @@ exits non-zero:
    plain version, the kernel on weights packed once and the library
    route (reflect pad, cuDNN, LeakyReLU) each timed twice in turns, and
    every shape ``models/fuse.py::body_kernel_wins`` sends to the kernel
-   faster there;
+   faster there; then (2c) both routes of a fused 3D block's weight
+   gradient at ``WGRAD_ROUTE_SHAPES`` (the train cell's five blocks, phase
+   7's, the WithObs tail, the SolarCC member's, and shapes past the
+   shipped generators): ``reflect_conv_wgrad`` (dy's packing, the GEMM
+   and the reduction) and the library route (reflect pad, cuDNN's fp32
+   ``conv3d_weight``, TF32 off) each held to a float64 weight gradient
+   (largest error over max |dW|), the kernel bit-equal on a second call,
+   each timed twice in turns (CUDA events), and every shape
+   ``ops/conv_ad.py::wgrad_kernel_wins`` sends to the kernel faster
+   there and within ``WGRAD_ERR_RATIO`` times cuDNN's error. Every
+   training path after it holds ``reflect_conv_wgrad``'s launches to the
+   fused blocks' weight gradients that gate passes (``GATED``,
+   ``check_wgrad``);
 3. the main path: the flagship ``spatiotemporal/gen_3x_4x_2f`` generator
    at full width (64 filters, 16 residual blocks, seeded random
    weights) serves 3 requests of ``Sup3rGan.generate`` on a
@@ -64,7 +76,11 @@ exits non-zero:
    calls in phase 10's last opt-in pass (``library_ms`` there is one
    ``F.conv2d`` on a
    4-sided reflect pad; the bound counts 9 taps), ``small_reflect_conv``
-   at the 8 -> 1, 2 and 3 tails.
+   at the 8 -> 1, 2 and 3 tails. ``reflect_conv_wgrad``'s record, last,
+   has phase 2c's times, bound and errors at the train cell's five
+   blocks (``train_cell_shapes``; ``plain_ms`` is the library route,
+   the body's at the top level) and its launches per step of every
+   training path.
 6. the chunked forward pass (printed before the ``kernels`` line): a
    NetCDF3 input of (64, 64, 40) low-res cells written with the port's
    helper, the full-width flagship saved and loaded through
@@ -413,6 +429,7 @@ import sys
 import tempfile
 import threading
 import time
+from types import SimpleNamespace
 import warnings
 from collections import Counter
 
@@ -470,6 +487,9 @@ from sup3r_tpu_torch.ops.conv_ad import (
     _fold_reflect_halos,
     reflect_conv_ad,
     reflect_conv_halo,
+    reflect_conv_wgrad,
+    reflect_conv_wgrad_reference,
+    wgrad_kernel_wins,
 )
 from sup3r_tpu_torch.models.utilities import TrainingSession
 from sup3r_tpu_torch.preprocessing import (
@@ -525,10 +545,13 @@ PEAKS = (('H200', 4.8e12, 67e12, 495e12),
 REPLACES = {
     'small_reflect_conv': 'sup3r_tpu/ops/pallas_kernels.py:206',
     'reflect_conv': 'sup3r_tpu/ops/pallas_kernels.py:87',
+    'reflect_conv_wgrad': 'none: the JAX package leaves the weight '
+                          'gradient to XLA (sup3r_tpu/ops/conv_ad.py:15)',
 }
 SOURCES = {
     'small_reflect_conv': 'sup3r_tpu_torch/csrc/small_reflect_conv.cu',
     'reflect_conv': 'sup3r_tpu_torch/csrc/reflect_conv.cu',
+    'reflect_conv_wgrad': 'sup3r_tpu_torch/csrc/reflect_conv_wgrad.cu',
 }
 #: each kernel's CUDA function name (held by its device events)
 KERNEL_NAMES = {
@@ -647,6 +670,144 @@ BODY_ROUTE_SHAPES = (
     ((1, 64, 100, 100, 2), 64, 0.2),
     ((1, 64, 100, 2, 100), 64, 0.2),
 )
+
+
+#: the benchmark's train cell's fused generator blocks, batch 16 of HR
+#: (72, 72, 72): the flagship's head, its two body lengths, the block
+#: before the expansion and the HR tail: (x shape, co)
+TRAIN_CELL_BLOCKS = (
+    ((16, 2, 24, 24, 18), 64),
+    ((16, 64, 24, 24, 36), 64),
+    ((16, 64, 24, 24, 72), 64),
+    ((16, 64, 24, 24, 72), 72),
+    ((16, 8, 72, 72, 72), 2),
+)
+#: the fused 3D blocks whose weight gradient ``reflect_conv_backward``
+#: routes by shape, timed on both routes (``wgrad_route_check``): (x
+#: shape, co)
+WGRAD_ROUTE_SHAPES = TRAIN_CELL_BLOCKS + (
+    # phase 7's step (bench.py's cell; the CondMom, WithObs and DC steps
+    # train the flagship at these shapes), and its batch-2 card check
+    ((16, 2, 12, 12, 12), 64),
+    ((16, 64, 12, 12, 24), 64),
+    ((16, 64, 12, 12, 48), 64),
+    ((16, 64, 12, 12, 48), 72),
+    ((16, 8, 36, 36, 48), 2),
+    ((16, 12, 36, 36, 48), 2),
+    ((2, 64, 12, 12, 48), 64),
+    ((2, 8, 36, 36, 48), 2),
+    # the SolarCC temporal member's step (phase 11): batch 8 of LR
+    # (20, 20, 9), 64 x 8 channels before depth_to_time, its 64 -> 1 tail
+    ((8, 3, 20, 20, 9), 64),
+    ((8, 64, 20, 20, 9), 64),
+    ((8, 64, 20, 20, 9), 512),
+    ((8, 64, 20, 20, 72), 1),
+    # beyond the shipped generators: the smallest dims that reflect,
+    # ragged dims, a t past one tile, wider channels, and few input
+    # channels on both sides of the gate's cut (16,384 cells)
+    ((1, 64, 2, 2, 2), 64),
+    ((2, 64, 9, 11, 13), 64),
+    ((3, 5, 7, 9, 11), 6),
+    ((4, 32, 10, 10, 130), 16),
+    ((2, 128, 16, 16, 16), 128),
+    ((3, 8, 20, 20, 9), 2),
+    ((3, 4, 16, 16, 16), 32),
+    ((4, 3, 16, 16, 16), 6),
+    ((4, 8, 16, 16, 16), 2),
+)
+#: the kernel's largest error over max |dW| may be this many times cuDNN
+#: fp32's (both against float64)
+WGRAD_ERR_RATIO = 2.0
+
+
+def wgrad_float64(x, dy):
+    """dW of the reflect-pad-1 k3 3D conv in float64, one GEMM a tap."""
+    xp = F.pad(x.double(), (1,) * 6, mode='reflect')
+    n, ci, s0, s1, s2 = x.shape
+    co = dy.shape[1]
+    d = dy.double().transpose(0, 1).reshape(co, -1)
+    dw = torch.empty((co, ci, 3, 3, 3), dtype=torch.float64,
+                     device=x.device)
+    for a in range(3):
+        for b in range(3):
+            for c in range(3):
+                xs = xp[:, :, a:a + s0, b:b + s1, c:c + s2]
+                dw[:, :, a, b, c] = d @ xs.transpose(0, 1).reshape(
+                    ci, -1).T
+    return dw
+
+
+def wgrad_route_check(gen):
+    """Each of ``WGRAD_ROUTE_SHAPES`` on both routes of a fused block's
+    weight gradient on the card: the kernel (``reflect_conv_wgrad``:
+    packing, GEMM and reduction) and the library route (reflect pad, then
+    cuDNN's fp32 ``conv3d_weight``, TF32 off), each held to a float64
+    ``wgrad_float64`` (largest error over max |dW|), the kernel finite and
+    bit-equal on a second call, each timed twice in turns (CUDA events),
+    with the gate's choice (``wgrad_kernel_wins``). Returns the
+    records."""
+    records = []
+    for x_shape, co in WGRAD_ROUTE_SHAPES:
+        x = torch.randn(x_shape, device='cuda', generator=gen)
+        dy = torch.randn((x_shape[0], co) + x_shape[2:], device='cuda',
+                         generator=gen)
+        with exact_fp32():
+            ref = wgrad_float64(x, dy)
+            got = reflect_conv_wgrad(x, dy)
+            again = reflect_conv_wgrad(x, dy)
+            lib = reflect_conv_wgrad_reference(x, dy)
+            torch.cuda.synchronize()
+            scale = ref.abs().max().item()
+            err = (got.double() - ref).abs().max().item() / scale
+            lib_err = (lib.double() - ref).abs().max().item() / scale
+            times = [route_ms(f) for f in (
+                lambda: reflect_conv_wgrad(x, dy),
+                lambda: reflect_conv_wgrad_reference(x, dy),
+                lambda: reflect_conv_wgrad_reference(x, dy),
+                lambda: reflect_conv_wgrad(x, dy))]
+        kernel_ms = (times[0] + times[3]) / 2
+        library_ms = (times[1] + times[2]) / 2
+        bound_ms, bound_by, _ = bound(torch.cuda.get_device_name(0),
+                                      (x_shape[0], co) + x_shape[2:],
+                                      x_shape[1], co * x_shape[1] * 27)
+        rec = {'shape': list(x_shape), 'co': co, 'kernel_ms': kernel_ms,
+               'library_ms': library_ms,
+               'kernel_runs_ms': [times[0], times[3]],
+               'library_runs_ms': [times[1], times[2]],
+               'speedup': library_ms / kernel_ms, 'bound_ms': bound_ms,
+               'bound_by': bound_by, 'share_of_bound': bound_ms / kernel_ms,
+               'rel_err': err, 'library_rel_err': lib_err,
+               'err_ratio': err / lib_err if lib_err else None,
+               'deterministic': bool(torch.equal(got, again)),
+               'finite': bool(torch.isfinite(got).all()),
+               'accurate': err <= WGRAD_ERR_RATIO * lib_err,
+               'gate': ('reflect_conv_wgrad' if wgrad_kernel_wins(x, dy)
+                        else 'cudnn')}
+        emit(phase='wgrad_route', **rec)
+        if not (rec['finite'] and rec['deterministic']):
+            raise AssertionError(f'reflect_conv_wgrad at {x_shape} -> {co}: '
+                                 f'finite {rec["finite"]}, bit-equal on a '
+                                 f'second call {rec["deterministic"]}')
+        records.append(rec)
+    return records
+
+
+def check_wgrad_gate(records):
+    """Every timed shape the gate (``wgrad_kernel_wins``) sends to the
+    kernel was faster there and within ``WGRAD_ERR_RATIO`` times cuDNN's
+    error; prints the gate's choices."""
+    wrong = [r for r in records if r['gate'] != 'cudnn'
+             and not (r['speedup'] > 1 and r['accurate'])]
+    emit(phase='wgrad_route_gate', shapes=len(records),
+         to_kernel=sum(r['gate'] != 'cudnn' for r in records),
+         kept_on_cudnn=[[r['shape'], r['co'], r['speedup'], r['err_ratio']]
+                        for r in records if r['gate'] == 'cudnn'],
+         wrong=[[r['shape'], r['co'], r['speedup'], r['err_ratio']]
+                for r in wrong], ok=not wrong)
+    if wrong:
+        raise AssertionError(f'the wgrad gate sends {len(wrong)} shapes to '
+                             f'a kernel slower or less accurate than cuDNN '
+                             f'there: {wrong}')
 
 
 def emit(**record):
@@ -966,7 +1127,8 @@ def check_fwp_launches(route, launches, n_dispatch):
     (``GATED``)."""
     want = {'small_reflect_conv': n_dispatch,
             'reflect_conv': (N_BODY_BLOCKS * n_dispatch
-                             if route == 'opt_in' else gated())}
+                             if route == 'opt_in' else gated()),
+            'reflect_conv_wgrad': 0}
     if launches != want:
         raise AssertionError(f'forward pass ({route}): launches '
                              f'{launches}, expected {want}')
@@ -984,8 +1146,7 @@ def fwp_pass(input_file, model_dir, out_dir, route, index):
     RecordedForwardPass.run(strategy, 0)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {'small_reflect_conv': small_reflect_conv_cf.launches,
-                'reflect_conv': reflect_conv_cf.launches}
+    launches = launch_counts()
     fwp = RecordedForwardPass.last
     n_dispatch = -(-strategy.fwp_slicer.n_chunks // FWP_BATCH)
     check_fwp_launches(route, launches, n_dispatch)
@@ -1419,10 +1580,11 @@ def train_step_phase(name, model, phase='train_step',
         t0 = time.perf_counter()
         losses = model.run_gradient_descent(lr, hr, W_ADV, True, True)
         times.append(1e3 * (time.perf_counter() - t0))
-    launches = {'small_reflect_conv': small_reflect_conv_cf.launches,
-                'reflect_conv': reflect_conv_cf.launches}
-    per_step = {k: v / N_TRAIN_STEPS for k, v in launches.items()}
-    ok = per_step == dict(want) and all(
+    # the fused blocks' weight gradients the gate sent to the kernel
+    want = dict(want, reflect_conv_wgrad=wgrad_gated(
+        model.train_remat) / N_TRAIN_STEPS)
+    per_step = {k: v / N_TRAIN_STEPS for k, v in launch_counts().items()}
+    ok = per_step == want and all(
         np.isfinite(v) for v in losses.values())
     median = float(np.median(times))
     peak = torch.cuda.max_memory_allocated()
@@ -1440,7 +1602,7 @@ def train_step_phase(name, model, phase='train_step',
          step_peak_gb=memory['step_peak_gb'], nvidia_smi=name, ok=ok)
     if not ok:
         raise AssertionError(f'{phase}: launches per step {per_step}, '
-                             f'expected {dict(want)}; losses {losses}')
+                             f'expected {want}; losses {losses}')
     return lr, hr, median, per_step, memory
 
 
@@ -1481,13 +1643,14 @@ def train_phase_times(model, lr, hr):
 
 def pads_and_folds_ms(model, lr):
     """Device ms per step of the fused blocks' reflect pads (one in the
-    forward, one in the wgrad of the backward) and halo folds (one per
-    block that needs its input's gradient), each timed alone (CUDA
+    forward, and one in the wgrad of the backward where cuDNN takes it:
+    ``reflect_conv_wgrad`` reads the input unpadded) and halo folds (one
+    per block that needs its input's gradient), each timed alone (CUDA
     events) at the input shapes a step gives the blocks."""
     shapes = []
 
     def hook(module, args):
-        shapes.append(tuple(args[0].shape))
+        shapes.append((tuple(args[0].shape), module.weight.shape[0]))
 
     net = model._train_gen_net()
     hooks = [m.register_forward_pre_hook(hook) for m in net.layers
@@ -1499,11 +1662,14 @@ def pads_and_folds_ms(model, lr):
         for h in hooks:
             h.remove()
     pads = folds = 0.0
-    for i, shape in enumerate(shapes):
+    for i, (shape, co) in enumerate(shapes):
         x = torch.empty(shape, device='cuda')
         padded = torch.empty(shape[:2] + tuple(d + 2 for d in shape[2:]),
                              device='cuda')
-        pads += 2 * cuda_ms(lambda: F.pad(x, (1,) * 6, mode='reflect'), 5)
+        dy = torch.empty((shape[0], co) + shape[2:], device='cuda')
+        n_pads = 1 if wgrad_kernel_wins(x, dy) else 2
+        pads += n_pads * cuda_ms(
+            lambda: F.pad(x, (1,) * 6, mode='reflect'), 5)
         if i:  # the first block's input (the LR batch) needs no gradient
             folds += cuda_ms(lambda: _fold_reflect_halos(padded, 3), 5)
     return pads, folds, len(shapes)
@@ -1512,8 +1678,9 @@ def pads_and_folds_ms(model, lr):
 def tail_backward_ms():
     """The small kernel's backward convs at the training tail (co 2,
     alpha None), each timed alone (CUDA events, TF32 off): the
-    full-padding dgrad with the flipped kernel and cuDNN's wgrad on the
-    padded input."""
+    full-padding dgrad with the flipped kernel, cuDNN's wgrad on the
+    padded input and the ``reflect_conv_wgrad`` kernel that takes its
+    place."""
     gen = torch.Generator(device='cuda').manual_seed(5)
     x, w, _ = conv_inputs(gen, TRAIN_TAIL_SHAPE, 2)
     dy = torch.randn((TRAIN_BATCH, 2) + TRAIN_TAIL_SHAPE[2:],
@@ -1524,7 +1691,8 @@ def tail_backward_ms():
         dgrad = cuda_ms(lambda: F.conv3d(dy, kf, padding=2), 20)
         wgrad = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
             xp, w.shape, dy), 20)
-    return {'dgrad_ms': dgrad, 'wgrad_ms': wgrad}
+        kernel = cuda_ms(lambda: reflect_conv_wgrad(x, dy), 20)
+    return {'dgrad_ms': dgrad, 'wgrad_ms': wgrad, 'wgrad_kernel_ms': kernel}
 
 
 def train_profile(model, lr, hr, step=None):
@@ -1585,10 +1753,10 @@ def train_loop(step_ms):
         wall_s = time.perf_counter() - t0
         # the tail launches once per forward: 8 train batches and 8
         # validation batches (4 of each per epoch); the validation
-        # batches' body blocks (no gradients) are the gate's
-        launches = {'small_reflect_conv': small_reflect_conv_cf.launches,
-                    'reflect_conv': reflect_conv_cf.launches}
-        want_body = gated()
+        # batches' body blocks (no gradients) are the gate's, the train
+        # batches' weight gradients the wgrad gate's
+        launches = launch_counts()
+        want_body, want_wgrad = gated(), wgrad_gated()
         t0 = time.perf_counter()
         model.calc_val_loss(handler, W_ADV)
         val_s = time.perf_counter() - t0
@@ -1608,7 +1776,8 @@ def train_loop(step_ms):
               and loaded._gen_opt_state['count']
               == model._gen_opt_state['count'])
         ok = ok and launches == {'small_reflect_conv': 16,
-                                 'reflect_conv': want_body}
+                                 'reflect_conv': want_body,
+                                 'reflect_conv_wgrad': want_wgrad}
         # the epochs' seconds from the history (init and the checkpoint
         # save fall outside them); a batch's share without validation
         epoch_s = np.diff([0.0] + list(history['elapsed_time']))
@@ -1621,7 +1790,7 @@ def train_loop(step_ms):
                                for k in ('gen', 'disc')},
              starvation_rate=handler._queue.starvation_rate,
              history={c: list(history[c]) for c in history.columns},
-             launches=launches, gated=want_body,
+             launches=launches, gated=want_body, wgrad_gated=want_wgrad,
              reloaded_generate_shape=list(out.shape), ok=ok)
         if not ok:
             raise AssertionError('train loop: history, launches, reload or '
@@ -1649,6 +1818,7 @@ def training_phase(name, gen):
     train_loop(step_ms)
     return {'fp32': {'step_ms': step_ms, **memory},
             'launches_per_train_step': per_step['small_reflect_conv'],
+            'wgrad_launches_per_train_step': per_step['reflect_conv_wgrad'],
             'train_backward_library_ms': backward,
             'grad_max_abs_err': grad_errs['small_reflect_conv'],
             'train_check_rel_err': check_err,
@@ -1665,17 +1835,51 @@ FWP_FAST_BUDGET = 0.05
 
 
 #: the fused blocks ``FusedReflectConv._body_ok`` sent to ``reflect_conv``
-#: (its default route) since ``zero_counts``, in all and by spatial rank:
+#: (its default route) since ``zero_counts``, in all and by spatial rank,
+#: and the fused blocks' forwards with gradients whose weight gradient
+#: ``wgrad_kernel_wins`` sends to ``reflect_conv_wgrad``:
 #: ``tally_gated``, a forward pre-hook on every module, counts them in
-#: this process (``main`` registers it)
+#: this process (registered where the script starts, in the parent and
+#: in every rank)
 GATED = Counter()
 
 
+def wgrad_block(module, x, ctx):
+    """What ``wgrad_kernel_wins`` reads of the input whose weight
+    gradient a fused block's forward leaves to ``reflect_conv_backward``
+    (a float32 3D block on the card with gradients on, on the routes that
+    share that backward: the library route and the small kernel, on the
+    gathered tensor where a shard gathers the small kernel's input), or
+    None: the sharded and shard-aligned formulations have backwards of
+    their own."""
+    if not (torch.is_grad_enabled() and x.is_cuda
+            and x.dtype == torch.float32 and module.n_spatial == 3
+            and module.weight.requires_grad):
+        return None
+    small = module.small_channel_kernel and module._small_ok(
+        x, module.weight)
+    shape = tuple(x.shape)
+    shard = ctx.get('spatial')
+    if shard is not None:
+        if not (small and shard.gather_small):
+            return None
+        shape = shape[:2] + (ctx['s1'],) + shape[3:]
+    elif not small and module.shard_aligned:
+        return None
+    return SimpleNamespace(shape=torch.Size(shape), dtype=x.dtype,
+                           is_cuda=True)
+
+
 def tally_gated(module, args):
-    if isinstance(module, FusedReflectConv) and module._body_ok(
-            args[0], module.weight, args[1]):
+    if not isinstance(module, FusedReflectConv):
+        return
+    if module._body_ok(args[0], module.weight, args[1]):
         GATED['reflect_conv'] += 1
         GATED[f'reflect_conv_{module.n_spatial}d'] += 1
+    block = wgrad_block(module, *args)
+    # dy, the block's output gradient, is in its input's dtype
+    if block is not None and wgrad_kernel_wins(block, block):
+        GATED['reflect_conv_wgrad'] += 1
 
 
 def gated():
@@ -1684,13 +1888,35 @@ def gated():
     return GATED['reflect_conv']
 
 
+def wgrad_gated(recomputed=False):
+    """The fused blocks' weight gradients the gate sends to
+    ``reflect_conv_wgrad`` since ``zero_counts``: one a forward with
+    gradients through such a block, each of whose outputs is
+    differentiated once; with ``recomputed`` (``train_remat``), each
+    block's forward ran twice, the second time in the backward."""
+    n = GATED['reflect_conv_wgrad']
+    return n // 2 if recomputed else n
+
+
+def check_wgrad(where, launches, recomputed=False):
+    """``reflect_conv_wgrad`` launched once for each weight gradient the
+    gate sent it since ``zero_counts`` (``wgrad_gated``)."""
+    want = wgrad_gated(recomputed)
+    if launches['reflect_conv_wgrad'] != want:
+        raise AssertionError(f'{where}: reflect_conv_wgrad launched '
+                             f'{launches["reflect_conv_wgrad"]} times; the '
+                             f'gate sent it {want} weight gradients')
+
+
 def launch_counts():
     return {'small_reflect_conv': small_reflect_conv_cf.launches,
-            'reflect_conv': reflect_conv_cf.launches}
+            'reflect_conv': reflect_conv_cf.launches,
+            'reflect_conv_wgrad': reflect_conv_wgrad.launches}
 
 
 def zero_counts():
     small_reflect_conv_cf.launches = reflect_conv_cf.launches = 0
+    reflect_conv_wgrad.launches = 0
     reflect_conv_cf.launches_by_rank.update({2: 0, 3: 0})
     GATED.clear()
 
@@ -1759,7 +1985,8 @@ def fast_forward_pass(name):
             hr_shape, full = check_fwp_files(strategy, out_dir, keep=True)
             err = float(np.abs(full - exact).max())
             ok = err <= tol and launches == {'small_reflect_conv': 0,
-                                             'reflect_conv': 0}
+                                             'reflect_conv': 0,
+                                             'reflect_conv_wgrad': 0}
             walls.append(wall_s)
             errs.append(err)
             emit(phase='fast_forward_pass', pass_index=i,
@@ -1807,7 +2034,7 @@ def fast_serving_phase(name):
     wall_ms, busy_ms, top, _, d2h_ms = profile_request(model, lr)
     median = float(np.median(times))
     ok = err <= FAST_BUDGET and per_request['fast'] == {
-        'small_reflect_conv': 0, 'reflect_conv': 0}
+        'small_reflect_conv': 0, 'reflect_conv': 0, 'reflect_conv_wgrad': 0}
     emit(phase='fast_serving', mode=model.inference_mode,
          lr_shape=list(LR_SHAPE), hr_shape=list(out.shape),
          requests=N_FAST_REQUESTS, request_ms=times,
@@ -1835,7 +2062,8 @@ def fast_serving_phase(name):
                              for k, v in launch_counts().items()}
     err = float(np.abs(out - exact).max()) / scale
     ok = err <= PARITY_RTOL and per_request['custom'] == {
-        'small_reflect_conv': 0, 'reflect_conv': N_BODY_BLOCKS}
+        'small_reflect_conv': 0, 'reflect_conv': N_BODY_BLOCKS,
+        'reflect_conv_wgrad': 0}
     emit(phase='custom_serving', mode=model.inference_mode,
          inference_subpixel_tail=True, inference_dtype=None,
          inference_pallas=True, request_ms=times,
@@ -1950,10 +2178,12 @@ def remat_cell(name, fp32):
     zero_counts()
     remat = step_grads(model, lr, hr)
     launches_remat = launch_counts()
+    check_wgrad('remat gradients', launches_remat, recomputed=True)
     model.train_remat = False
     zero_counts()
     plain = step_grads(model, lr, hr)
     launches_plain = launch_counts()
+    check_wgrad('plain gradients', launches_plain)
     errs = {'gen': rel_err(remat[0], plain[0]),
             'disc': rel_err(remat[1], plain[1])}
     ok = (max(errs.values()) <= REMAT_RTOL
@@ -2013,7 +2243,8 @@ def dual_train_loop(name):
         ok = (len(history) == 2 and all(
             np.isfinite(history[c]).all()
             for c in ('train_loss_gen', 'train_loss_disc'))
-            and launches == {'small_reflect_conv': 0, 'reflect_conv': 0}
+            and launches == {'small_reflect_conv': 0, 'reflect_conv': 0,
+                             'reflect_conv_wgrad': 0}
             and dual.lr_data.shape == (24, 24, 60, 2)
             and not np.isnan(dual.lr_data.data).any())
         emit(phase='train_loop_dual_bf16', epochs=2, batches_per_epoch=4,
@@ -2263,6 +2494,7 @@ def chain_pass(make_strategy, out_dir, route, index, want,
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = chain_counts()
+    want = {**want, 'reflect_conv_wgrad': 0}
     if route == 'default':
         want = {**want, **{k: GATED[k] for k in (
             'reflect_conv', 'reflect_conv_2d', 'reflect_conv_3d')}}
@@ -2679,10 +2911,12 @@ def solar_train_step(name):
         losses = model.run_gradient_descent(lr, hr, W_ADV, True, True)
         times.append(1e3 * (time.perf_counter() - t0))
     per_step = {k: v / N_TRAIN_STEPS for k, v in launch_counts().items()}
+    wgrad = wgrad_gated() / N_TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
     median = float(np.median(times))
     profile_rec = train_profile(model, lr, hr)
-    ok = (per_step == {'small_reflect_conv': 0, 'reflect_conv': 0}
+    ok = (per_step == {'small_reflect_conv': 0, 'reflect_conv': 0,
+                       'reflect_conv_wgrad': wgrad}
           and all(np.isfinite(v) for v in losses.values()))
     emit(phase='solar_cc_train_step', model='sup3rcc/gen_solar_1x_8x_1f',
          disc='spatiotemporal/disc_test', batch=SOLAR_TRAIN_BATCH,
@@ -3199,7 +3433,7 @@ def obs_fwp_check(model, tmp):
     ok = (len(outs) == 4 and all(np.isfinite(o).all() and o.shape == (
         30, 30, 48, 2) for o in outs.values()) and 0 < observed < 0.5
         and launches == {'small_reflect_conv': fwp.dispatches + fwp.chunk_runs,
-                         'reflect_conv': gated()})
+                         'reflect_conv': gated(), 'reflect_conv_wgrad': 0})
     emit(phase='obs_forward_pass', chunks=len(outs),
          raster_shape=list(raster.shape), observed_share=observed,
          batched_dispatches=fwp.dispatches, chunk_runs=fwp.chunk_runs,
@@ -3246,7 +3480,8 @@ def obs_phase(name, gen):
     launches = launch_counts()
     ok = (ok and out.shape == (1,) + TRAIN_HR and bool(np.isfinite(
         out).all()) and launches == {'small_reflect_conv': 1,
-                                     'reflect_conv': gated()})
+                                     'reflect_conv': gated(),
+                                     'reflect_conv_wgrad': 0})
     emit(phase='obs_generate', hr_shape=list(out.shape), launches=launches,
          obs_frac=losses['obs_frac'], ok=ok)
     if not ok:
@@ -3284,7 +3519,7 @@ def dc_phase(name):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
-    body = gated()
+    body, wgrad = gated(), wgrad_gated()
     # one more validation pass alone: its seconds come off each epoch's
     t0 = time.perf_counter()
     model.calc_val_loss(handler, W_ADV)
@@ -3297,7 +3532,7 @@ def dc_phase(name):
     n_val = n_s * n_t
     ok = (len(history) == 2 and np.isfinite(history['val_loss_gen']).all()
           and launches == {'small_reflect_conv': 2 * (4 + n_val),
-                           'reflect_conv': body}
+                           'reflect_conv': body, 'reflect_conv_wgrad': wgrad}
           and abs(s_w.sum() - 1) < 1e-5 and abs(t_w.sum() - 1) < 1e-5
           and (s_w >= 0).all() and (t_w >= 0).all()
           and not np.allclose(s_w, 1 / n_s) and not np.allclose(t_w, 1 / n_t))
@@ -3425,11 +3660,13 @@ def cond_step_cell(name):
         losses = model.run_gradient_descent(batch)
         times.append(1e3 * (time.perf_counter() - t0))
     per_step = {k: v / N_TRAIN_STEPS for k, v in launch_counts().items()}
+    wgrad = wgrad_gated() / N_TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
     median = float(np.median(times))
     prof = train_profile(model, None, None,
                          step=lambda: model.run_gradient_descent(batch))
-    ok = bool(per_step == {'small_reflect_conv': 1, 'reflect_conv': 0}
+    ok = bool(per_step == {'small_reflect_conv': 1, 'reflect_conv': 0,
+                           'reflect_conv_wgrad': wgrad}
               and np.isfinite(losses['loss_gen']))
     emit(phase='cond_mom_train_step', model='spatiotemporal/gen_3x_4x_2f',
          queue='QueueMom1', padding=COND_PADDING, batch=TRAIN_BATCH,
@@ -3474,7 +3711,7 @@ def cond_mom1_loop(name, tmp):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
-    body = gated()
+    body, wgrad = gated(), wgrad_gated()
     t0 = time.perf_counter()
     model.calc_val_loss(handler)
     val_s = time.perf_counter() - t0
@@ -3487,7 +3724,8 @@ def cond_mom1_loop(name, tmp):
     ok = bool(len(history) == 2 and all(
         np.isfinite(history[c]).all()
         for c in ('train_loss_gen', 'val_loss_gen'))
-        and launches == {'small_reflect_conv': 16, 'reflect_conv': body}
+        and launches == {'small_reflect_conv': 16, 'reflect_conv': body,
+                         'reflect_conv_wgrad': wgrad}
         and (tb_warned or len(events) == 1)
         and loaded._gen_opt_state['count'] == 8)
     emit(phase='cond_mom1_loop', epochs=2, batches_per_epoch=4,
@@ -3668,7 +3906,8 @@ def cond_fwp(name, tmp, model_dir):
         launches = launch_counts()
         n_chunks = st.fwp_slicer.n_chunks
         hr_shape = check_fwp_files(st, out_dir)
-        want = {'small_reflect_conv': n_chunks, 'reflect_conv': gated()}
+        want = {'small_reflect_conv': n_chunks, 'reflect_conv': gated(),
+                'reflect_conv_wgrad': 0}
         if launches != want:
             raise AssertionError(f'cond mom forward pass: launches '
                                  f'{launches} for {n_chunks} chunks, '
@@ -4131,7 +4370,7 @@ def lazy_train_loops(name, tmp):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = launch_counts()
-        body = gated()
+        body, wgrad = gated(), wgrad_gated()
         t0 = time.perf_counter()
         model.calc_val_loss(handler, W_ADV)
         val_s = time.perf_counter() - t0
@@ -4141,7 +4380,8 @@ def lazy_train_loops(name, tmp):
         ok = (len(history) == 2 and all(
             np.isfinite(history[c]).all()
             for c in ('train_loss_gen', 'val_loss_gen'))
-            and launches == {'small_reflect_conv': 16, 'reflect_conv': body})
+            and launches == {'small_reflect_conv': 16, 'reflect_conv': body,
+                             'reflect_conv_wgrad': wgrad})
         out[mode] = float(np.mean(epoch_s - val_s)) / 4
         emit(phase='lazy_train_loop', feed=mode, io='netcdf3',
              domain=list(LAZY_TRAIN_DOMAIN), epochs=2, batches_per_epoch=4,
@@ -4505,7 +4745,7 @@ def bias_train_loop(name, tmp, fps, phase13):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     launches = launch_counts()
-    body = gated()
+    body, wgrad = gated(), wgrad_gated()
     t0 = time.perf_counter()
     model.calc_val_loss(handler)
     val_s = time.perf_counter() - t0
@@ -4518,8 +4758,10 @@ def bias_train_loop(name, tmp, fps, phase13):
     ok = bool(len(history) == 2 and all(
         np.isfinite(history[c]).all()
         for c in ('train_loss_gen', 'val_loss_gen'))
-        and launches == {'small_reflect_conv': 16, 'reflect_conv': body}
-        and dict(hooked) == {k: v for k, v in launches.items() if v})
+        and launches == {'small_reflect_conv': 16, 'reflect_conv': body,
+                         'reflect_conv_wgrad': wgrad}
+        and dict(hooked) == {k: v for k, v in launches.items()
+                             if v and k != 'reflect_conv_wgrad'})
     emit(phase='bias_train_loop', feed='BatchHandlerMom1 over '
          'DataHandlerNCforCCwithPowerLaw corrected by qdm_bc', epochs=2,
          batches_per_epoch=4, batch=TRAIN_BATCH, wall_s=wall_s,
@@ -4854,7 +5096,9 @@ def mesh_step(model, lr, hr):
     t0 = time.perf_counter()
     losses = model.run_gradient_descent(lr, hr, W_ADV, True, True)
     ms = 1e3 * (time.perf_counter() - t0)
-    return losses, launch_counts(), ms
+    launches = launch_counts()
+    check_wgrad('mesh step', launches)
+    return losses, launches, ms
 
 
 def step_params(model):
@@ -5325,6 +5569,7 @@ def mesh2d_rank_steps(rank, world, out):
                                                     do_disc)
             ms = 1e3 * (time.perf_counter() - t0)
             launches = launch_counts()
+            check_wgrad(f'{dp} x {sp} mesh, {gate} step', launches)
             counters = dict(mesh.counters)
             with open(os.path.join(out, f'ref_{gate}.json')) as f:
                 ref = {'losses': json.load(f),
@@ -5385,6 +5630,7 @@ def mesh2d_phase(name):
                                                 do_disc)
             ref_ms[gate] = 1e3 * (time.perf_counter() - t0)
             ref_launches[gate] = launch_counts()
+            check_wgrad(f'unmeshed {gate} step', ref_launches[gate])
             np.save(os.path.join(tmp, f'ref_{gate}.npy'), flat_params(model))
             with open(os.path.join(tmp, f'ref_{gate}.json'), 'w') as f:
                 json.dump(losses, f)
@@ -5428,7 +5674,9 @@ def mesh2d_phase(name):
                     'launches_of_the_route': all(
                         s['launches'] == (
                             {k: 0 for k in s['launches']} if sp >= 4
-                            else {**ref_launches[gate], 'reflect_conv': 0})
+                            else {**ref_launches[gate], 'reflect_conv': 0,
+                                  'reflect_conv_wgrad': s['launches'][
+                                      'reflect_conv_wgrad']})
                         for s in steps),
                     'reference_launches': ref_launches[gate]}
             ok = all(c['same_losses'] and c['same_exchange_order']
@@ -5742,7 +5990,8 @@ def auto_fallback_pass(name, tmp, model_dir, input_file):
     for key, e, _ in errs:
         n, worst = by_shape.get(key, (0, 0.0))
         by_shape[key] = (n + 1, max(worst, e))
-    want = {'small_reflect_conv': n_dispatch, 'reflect_conv': 0}
+    want = {'small_reflect_conv': n_dispatch, 'reflect_conv': 0,
+            'reflect_conv_wgrad': 0}
     ok = bool(plan == (1, 'spatial') and launches == want
               and checked == want and len(errs) == n_dispatch
               and kernel_ok and err <= MESH_SPATIAL_ATOL)
@@ -5830,7 +6079,6 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device: '
                          'torch.cuda.is_available() is False')
-    torch.nn.modules.module.register_module_forward_pre_hook(tally_gated)
     # seconds of each phase, printed before the kernels line
     seconds, last = {}, [time.perf_counter()]
 
@@ -5896,6 +6144,11 @@ def main():
     check_gate(body_route_check(
         torch.Generator(device='cuda').manual_seed(22)))
     mark('2b_body_routes')
+    # 2c. both routes of a fused block's weight gradient, and the gate
+    wgrad_records = wgrad_route_check(
+        torch.Generator(device='cuda').manual_seed(25))
+    check_wgrad_gate(wgrad_records)
+    mark('2c_wgrad_routes')
     # 3. the main path
     model = flagship('cuda')
     lr = np.random.default_rng(0).standard_normal(LR_SHAPE).astype(
@@ -5903,15 +6156,18 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     out, times = serve(model, lr, 'main path')
-    launches = {'small_reflect_conv': small_reflect_conv_cf.launches}
+    launches = {'small_reflect_conv': small_reflect_conv_cf.launches,
+                'reflect_conv_wgrad': reflect_conv_wgrad.launches}
     if launches['small_reflect_conv'] != N_REQUESTS or (
             reflect_conv_cf.launches != N_BODY_BLOCKS * N_REQUESTS
-            or gated() != reflect_conv_cf.launches):
+            or gated() != reflect_conv_cf.launches
+            or launches['reflect_conv_wgrad']):
         raise AssertionError(
             f'main path launches: small_reflect_conv '
             f'{small_reflect_conv_cf.launches}, reflect_conv '
-            f'{reflect_conv_cf.launches} (gated {gated()}); expected '
-            f'{N_REQUESTS} and {N_BODY_BLOCKS * N_REQUESTS}')
+            f'{reflect_conv_cf.launches} (gated {gated()}), '
+            f'reflect_conv_wgrad {launches["reflect_conv_wgrad"]}; '
+            f'expected {N_REQUESTS}, {N_BODY_BLOCKS * N_REQUESTS} and 0')
     hr_voxels = int(np.prod(HR_SHAPE[:-1]))
     emit(phase='main_path', model='spatiotemporal/gen_3x_4x_2f',
          filters=64, n_resblocks=16, lr_shape=list(LR_SHAPE),
@@ -5928,7 +6184,8 @@ def main():
     err = float(np.abs(out - out_c).max())
     tol = KERNEL_RTOL * float(np.abs(out_c).max())
     ok = err <= tol and library_launches == {
-        'small_reflect_conv': N_REQUESTS, 'reflect_conv': 0}
+        'small_reflect_conv': N_REQUESTS, 'reflect_conv': 0,
+        'reflect_conv_wgrad': 0}
     emit(phase='main_path_library_route', request_ms=times_c,
          hr_voxels_per_s=hr_voxels / (float(np.median(times_c)) / 1e3),
          default_route_speedup=float(np.median(times_c) / np.median(times)),
@@ -6368,6 +6625,49 @@ def main():
                       **per_mesh('reflect_conv'),
                       launches_per_train_step=0,
                       **per_mode('reflect_conv'))]
+
+    def wgrad_of(counts):
+        """A path's weight-gradient launches; None where it counts none
+        (the pipeline group's ranks report the forward kernels only)."""
+        if isinstance(counts, list):
+            return [c.get('reflect_conv_wgrad') for c in counts]
+        return counts.get('reflect_conv_wgrad')
+
+    # the weight-gradient kernel: phase 2c's times, bound and errors at
+    # the train cell's five blocks (the body first), its launches on
+    # every training path
+    train_cell = [r for r in wgrad_records
+                  if (tuple(r['shape']), r['co']) in TRAIN_CELL_BLOCKS]
+    body = next(r for r in train_cell
+                if (tuple(r['shape']), r['co']) == TRAIN_CELL_BLOCKS[2])
+    kernels.append({
+        'name': 'reflect_conv_wgrad', 'route': 'cuda',
+        'source': SOURCES['reflect_conv_wgrad'],
+        'replaces': REPLACES['reflect_conv_wgrad'],
+        'launches': launches['reflect_conv_wgrad'],
+        'launches_per_request': launches['reflect_conv_wgrad'] // N_REQUESTS,
+        'shape': body['shape'], 'co': body['co'],
+        'kernel_ms': body['kernel_ms'], 'kernel_ms_by': 'cuda_events',
+        'plain_ms': body['library_ms'], 'library_ms': body['library_ms'],
+        'bound_ms': body['bound_ms'], 'bound_by': body['bound_by'],
+        'share_of_bound': body['share_of_bound'],
+        'max_rel_err': body['rel_err'],
+        'library_max_rel_err': body['library_rel_err'],
+        'train_cell_shapes': train_cell,
+        'launches_per_train_step': train['wgrad_launches_per_train_step'],
+        'launches_per_bf16_train_step': per_step['bf16'][
+            'reflect_conv_wgrad'],
+        'launches_per_remat_train_step': per_step['remat'][
+            'reflect_conv_wgrad'],
+        'launches_per_solar_cc_train_step': per_solar_step[
+            'reflect_conv_wgrad'],
+        'launches_per_obs_train_step': obs['per_step']['reflect_conv_wgrad'],
+        'launches_per_dc_train_step': per_dc_step['reflect_conv_wgrad'],
+        'launches_per_cond_mom_train_step': cond['per_step'][
+            'reflect_conv_wgrad'],
+        'launches_in_mesh_paths': {path: wgrad_of(counts)
+                                   for path, counts in mesh_launches.items()},
+        'small_reflect_conv_backward_ms': train['train_backward_library_ms']})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
@@ -6375,6 +6675,7 @@ def main():
 
 
 if __name__ == '__main__':
+    torch.nn.modules.module.register_module_forward_pre_hook(tally_gated)
     if sys.argv[1:2] == ['--mesh-rank']:
         # a rank of phase 17b (spawn_ranks: out_dir rank world store)
         sys.exit(run_rank_scenarios(MESH_RANK_SCENARIOS, *sys.argv[2:]))

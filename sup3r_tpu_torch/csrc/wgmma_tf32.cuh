@@ -1,7 +1,7 @@
 // wgmma.mma_async m64nNk8 with fp32 accumulators and tf32 operands: A
 // (64 x 8) from registers, B (N x 8, K-major) from shared memory through
 // a matrix descriptor; D = A * B + (scale_d ? D : 0). One specialisation
-// per N the reflect-conv kernel is instantiated for; each thread holds
+// per N the reflect-conv kernels are instantiated for; each thread holds
 // N / 2 accumulators.
 #pragma once
 
@@ -9,6 +9,39 @@
 
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+    static __device__ __forceinline__ void run(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+            "%0, %1, %2, %3"
+            "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+              "r"(scale_d));
+    }
+};
+
+template <>
+struct Wgmma<16> {
+    static __device__ __forceinline__ void run(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7"
+            "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+              "r"(scale_d));
+    }
+};
 
 template <>
 struct Wgmma<32> {

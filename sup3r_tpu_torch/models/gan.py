@@ -9,7 +9,9 @@ whole step, backward included):
 - the generator runs fused (``train_fuse``): its HR tail launches the
   hand-written ``small_reflect_conv`` kernel on the card under autograd,
   its body convs run ``reflect_conv_ad`` (cuDNN with the custom
-  backward);
+  backward); every fp32 fused 3D block's weight gradient runs on the
+  hand-written ``reflect_conv_wgrad`` kernel on the card where it was
+  timed faster (``ops/conv_ad.py::wgrad_kernel_wins``);
 - gen loss = content + ``weight_gen_advers`` * relativistic(d_gen,
   d_true); its gradients go to the generator's params through
   ``torch.autograd.grad``;

@@ -18,12 +18,13 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
-KERNEL_SOURCES = ('small_reflect_conv', 'reflect_conv')
+KERNEL_SOURCES = ('small_reflect_conv', 'reflect_conv', 'reflect_conv_wgrad')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _LOCK = threading.Lock()
 _LIBS = {}
+_FUNCTIONS = {}
 
 
 def _nvcc():
@@ -103,3 +104,16 @@ def load(name):
     if lib is None:
         lib = _load_many((name,))[name]
     return lib
+
+
+def c_function(lib_name, fn_name, argtypes):
+    """The C entry point ``fn_name`` (arguments ``argtypes``, an int
+    error code returned) of ``csrc/<lib_name>.cu``, built and loaded at
+    first use."""
+    fn = _FUNCTIONS.get(fn_name)
+    if fn is None:
+        fn = getattr(load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[fn_name] = fn
+    return fn

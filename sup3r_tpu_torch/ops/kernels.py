@@ -28,6 +28,10 @@ convolution, the bias and an optional LeakyReLU.
   changes and launches ``reflect_conv_packed`` after
   ``reflect_conv_check``.
 
+The weight gradient of these blocks in training has a kernel of its own,
+``reflect_conv_wgrad`` (``csrc/reflect_conv_wgrad.cu``); it lives in
+``ops/conv_ad.py`` with the backward that routes to it.
+
 The source files carry each kernel's bound and design in full.
 
 Wrappers take channels-first tensors (``(n, c, *spatial)``, OI.. weights):
@@ -46,7 +50,8 @@ tests and callers holding JAX layouts.
 ``torch.autograd.Function`` whose backward is ``ops/conv_ad.py``'s
 ``reflect_conv_backward`` (the LeakyReLU mask, ``dbias``, a full-padding
 dgrad with the flipped kernel plus the reflect-halo fold, and cuDNN's
-native wgrad). ``reflect_conv_cf`` has no backward in the JAX package and
+native wgrad, or ``reflect_conv_wgrad`` on the card where it won).
+``reflect_conv_cf`` has no backward in the JAX package and
 is not on the training path: it raises on inputs that need gradients.
 Both kernels take float32 only, as the JAX package's do: a bf16 block
 never routes to the small kernel, and ``reflect_conv_cf`` refuses a bf16
@@ -84,8 +89,6 @@ _SIGNATURES = {
 }
 
 
-_FUNCTIONS = {}
-
 #: why ``reflect_conv_cf`` refuses a bf16 input on the card
 REFLECT_CONV_FP32_ONLY = (
     'reflect_conv takes float32 only, as the JAX package\'s Pallas '
@@ -99,13 +102,7 @@ REFLECT_CONV_FP32_ONLY = (
 def _c_function(lib_name, fn_name):
     """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``, built
     and loaded at first use."""
-    fn = _FUNCTIONS.get(fn_name)
-    if fn is None:
-        fn = getattr(build.load(lib_name), fn_name)
-        fn.argtypes = _SIGNATURES[fn_name]
-        fn.restype = ctypes.c_int
-        _FUNCTIONS[fn_name] = fn
-    return fn
+    return build.c_function(lib_name, fn_name, _SIGNATURES[fn_name])
 
 
 def reflect_conv_reference(x, weight, bias, alpha=None):

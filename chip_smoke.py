@@ -457,8 +457,9 @@ from sup3r_tpu_torch.models import (
 )
 from sup3r_tpu_torch import _native
 from sup3r_tpu_torch.models import fuse as fuse_module
-from sup3r_tpu_torch.models.fuse import FusedReflectConv, body_kernel_wins
+from sup3r_tpu_torch.models.fuse import FusedReflectConv
 from sup3r_tpu_torch.ops import build
+from sup3r_tpu_torch.ops import kernels as kernels_module
 from sup3r_tpu_torch.ops.output_pack import (
     fetch_stats,
     pack_chunks,
@@ -483,14 +484,7 @@ from sup3r_tpu_torch.models.gan import relativistic_disc_loss
 from sup3r_tpu_torch.models.abstract import AbstractSingleModel
 from sup3r_tpu_torch.models.weights import params_from_jax, params_to_jax
 from sup3r_tpu_torch.ops.interp import bilinear_resize
-from sup3r_tpu_torch.ops.conv_ad import (
-    _fold_reflect_halos,
-    reflect_conv_ad,
-    reflect_conv_halo,
-    reflect_conv_wgrad,
-    reflect_conv_wgrad_reference,
-    wgrad_kernel_wins,
-)
+from sup3r_tpu_torch.ops.conv_ad import reflect_conv_ad, reflect_conv_halo
 from sup3r_tpu_torch.models.utilities import TrainingSession
 from sup3r_tpu_torch.preprocessing import (
     BatchHandler,
@@ -519,14 +513,19 @@ from sup3r_tpu_torch.utilities.test_helpers import (
     write_nc_factor_file,
 )
 from sup3r_tpu_torch.ops.kernels import (
+    _fold_reflect_halos,
+    body_kernel_wins,
     pack_weights,
     reflect_conv_cf,
     reflect_conv_n_tile,
     reflect_conv_packed,
     reflect_conv_reference,
+    reflect_conv_wgrad,
+    reflect_conv_wgrad_reference,
     small_conv_pack_weights,
     small_reflect_conv_cf,
     small_reflect_conv_packed,
+    wgrad_kernel_wins,
 )
 from sup3r_tpu_torch.utilities import Timer, exact_fp32
 from sup3r_tpu_torch.utilities.flops import estimate_flops
@@ -534,14 +533,8 @@ from sup3r_tpu_torch.utilities.port import (
     export_reference_gan,
     load_reference_gan,
 )
+from portbench.reference.peaks import bound, peaks
 
-#: (memory bytes/s, fp32 CUDA-core FLOP/s, dense TF32 tensor-core
-#: FLOP/s) from NVIDIA's data sheets, by a substring of the card's name;
-#: the H100 SXM's when none matches
-PEAKS = (('H200', 4.8e12, 67e12, 495e12),
-         ('H100 NVL', 3.9e12, 60e12, 417.5e12),
-         ('H100 PCIe', 2.0e12, 51e12, 378e12),
-         ('H100', 3.35e12, 67e12, 495e12))
 REPLACES = {
     'small_reflect_conv': 'sup3r_tpu/ops/pallas_kernels.py:206',
     'reflect_conv': 'sup3r_tpu/ops/pallas_kernels.py:87',
@@ -814,30 +807,20 @@ def emit(**record):
     print(json.dumps(record), flush=True)
 
 
-def peaks(name):
-    for key, *rates in PEAKS:
-        if key in name:
-            return rates
-    return PEAKS[-1][1:]
+def on_card(shape, dtype=torch.float32):
+    """A stand-in for a tensor of ``shape`` on the card: what the kernel
+    rules (``ops/kernels.py``) and ``FusedReflectConv.route`` read of
+    it."""
+    return SimpleNamespace(shape=torch.Size(shape), dtype=dtype,
+                           is_cuda=True)
 
 
-def bound(name, x_shape, co, n_weights):
-    """(bound_ms, bound_by, peak) of one reflect conv: each input read
-    once, the output written once; 2 * taps * ci FLOP per output value.
-    The lesser of two ways to do that work in fp32 accuracy: on the
-    CUDA cores in fp32, or on the tensor cores as 3xTF32 (three times
-    the operations at the dense TF32 rate). So the bound reads the same
-    work whichever implementation runs; ``peak`` names the one that
-    binds ('fp32' or 'tf32x3')."""
-    bw, fp32, tf32 = peaks(name)
-    n, ci, *spatial = x_shape
-    cells = n * int(np.prod(spatial))
-    nbytes = 4 * (cells * ci + cells * co + n_weights + co)
-    ops = 2 * cells * co * ci * 3 ** len(spatial)
-    t_bytes = nbytes / bw
-    t, peak = min((max(t_bytes, ops / fp32), 'fp32'),
-                  (max(t_bytes, 3 * ops / tf32), 'tf32x3'))
-    return 1e3 * t, 'bytes' if t_bytes >= t else 'operations', peak
+def takes_small(lyr):
+    """Whether a fused block's route is the small kernel's on a float32
+    input on the card."""
+    x = on_card((1, lyr.weight.shape[1]) + (2,) * lyr.n_spatial)
+    with torch.no_grad():
+        return lyr.route(x, {}) == 'small'
 
 
 def cuda_ms(fn, iters):
@@ -965,8 +948,8 @@ def check_gate(records):
     kernel was faster there; prints the gate's choices."""
     wrong = []
     for rec in records:
-        rec['gate'] = ('reflect_conv' if body_kernel_wins(tuple(rec['shape']))
-                       else 'cudnn')
+        rec['gate'] = ('reflect_conv' if body_kernel_wins(
+            on_card(rec['shape'])) else 'cudnn')
         if rec['gate'] == 'reflect_conv' and rec['speedup'] <= 1:
             wrong.append(rec)
     emit(phase='body_route_gate', shapes=len(records),
@@ -983,13 +966,14 @@ def check_gate(records):
 @contextlib.contextmanager
 def library_route():
     """Every fused block the small kernel does not take on cuDNN, as
-    ``inference_pallas = False`` ran them before the gate."""
-    real = FusedReflectConv._body_ok
-    FusedReflectConv._body_ok = lambda self, x, weight, ctx: False
+    ``inference_pallas = False`` ran them before the gate: the body rule
+    (``kernels.body_kernel_wins``) declines every shape."""
+    real = kernels_module.body_kernel_wins
+    kernels_module.body_kernel_wins = lambda x: False
     try:
         yield
     finally:
-        FusedReflectConv._body_ok = real
+        kernels_module.body_kernel_wins = real
 
 
 def flagship(device):
@@ -1834,13 +1818,13 @@ FAST_BUDGET = 0.04
 FWP_FAST_BUDGET = 0.05
 
 
-#: the fused blocks ``FusedReflectConv._body_ok`` sent to ``reflect_conv``
-#: (its default route) since ``zero_counts``, in all and by spatial rank,
-#: and the fused blocks' forwards with gradients whose weight gradient
-#: ``wgrad_kernel_wins`` sends to ``reflect_conv_wgrad``:
-#: ``tally_gated``, a forward pre-hook on every module, counts them in
-#: this process (registered where the script starts, in the parent and
-#: in every rank)
+#: the fused blocks the body rule (``kernels.body_kernel_wins``) sent to
+#: ``reflect_conv`` (the default 'body' route) since ``zero_counts``, in
+#: all and by spatial rank, and the fused blocks' forwards with gradients
+#: whose weight gradient ``wgrad_kernel_wins`` sends to
+#: ``reflect_conv_wgrad``: ``tally_gated``, a forward pre-hook on every
+#: module, counts them in this process (registered where the script
+#: starts, in the parent and in every rank)
 GATED = Counter()
 
 
@@ -1856,27 +1840,25 @@ def wgrad_block(module, x, ctx):
             and x.dtype == torch.float32 and module.n_spatial == 3
             and module.weight.requires_grad):
         return None
-    small = module.small_channel_kernel and module._small_ok(
-        x, module.weight)
-    shape = tuple(x.shape)
-    shard = ctx.get('spatial')
-    if shard is not None:
-        if not (small and shard.gather_small):
-            return None
-        shape = shape[:2] + (ctx['s1'],) + shape[3:]
-    elif not small and module.shard_aligned:
+    route = module.route(x, ctx)
+    if route not in ('small', 'gather_small', 'library') or (
+            route == 'library' and module.shard_aligned):
         return None
-    return SimpleNamespace(shape=torch.Size(shape), dtype=x.dtype,
-                           is_cuda=True)
+    shape = tuple(x.shape)
+    if route == 'gather_small':
+        shape = shape[:2] + (ctx['s1'],) + shape[3:]
+    return on_card(shape, x.dtype)
 
 
 def tally_gated(module, args):
     if not isinstance(module, FusedReflectConv):
         return
-    if module._body_ok(args[0], module.weight, args[1]):
+    x, ctx = args
+    # the 'body' route by the rule, not by ``use_pallas`` alone
+    if module.route(x, ctx) == 'body' and kernels_module.body_kernel_wins(x):
         GATED['reflect_conv'] += 1
         GATED[f'reflect_conv_{module.n_spatial}d'] += 1
-    block = wgrad_block(module, *args)
+    block = wgrad_block(module, x, ctx)
     # dy, the block's output gradient, is in its input's dtype
     if block is not None and wgrad_kernel_wins(block, block):
         GATED['reflect_conv_wgrad'] += 1
@@ -2629,12 +2611,10 @@ def chain_phase(name):
         n_chunks = strategy.fwp_slicer.n_chunks
         # launches per chunk on the opt-in route, counted from the fused
         # networks: every fused block the small kernel does not take
-        # (3D with ci * co <= 32)
         blocks = [lyr.n_spatial for m in chain.models
                   for lyr in m._get_fused_apply().layers
-                  if isinstance(lyr, FusedReflectConv) and not (
-                      lyr.n_spatial == 3
-                      and lyr.weight.shape[:2].numel() <= 32)]
+                  if isinstance(lyr, FusedReflectConv)
+                  and not takes_small(lyr)]
         per_chunk = {'2d': blocks.count(2), '3d': blocks.count(3)}
         want = {'default': dict.fromkeys(
                     ('small_reflect_conv', 'reflect_conv', 'reflect_conv_2d',
@@ -3030,9 +3010,8 @@ def solar_phase(name):
         # kernel does not take
         blocks = [lyr.n_spatial for m in chain.all_models
                   for lyr in m._get_fused_apply().layers
-                  if isinstance(lyr, FusedReflectConv) and not (
-                      lyr.n_spatial == 3
-                      and lyr.weight.shape[:2].numel() <= 32)]
+                  if isinstance(lyr, FusedReflectConv)
+                  and not takes_small(lyr)]
         per_chunk = {'2d': blocks.count(2), '3d': blocks.count(3)}
         want = {'default': dict.fromkeys(
                     ('small_reflect_conv', 'reflect_conv', 'reflect_conv_2d',
@@ -3268,9 +3247,8 @@ def trh_phase(name):
         n_chunks = strategy.fwp_slicer.n_chunks
         blocks = [lyr.n_spatial for m in temporal
                   for lyr in m._get_fused_apply().layers
-                  if isinstance(lyr, FusedReflectConv) and not (
-                      lyr.n_spatial == 3
-                      and lyr.weight.shape[:2].numel() <= 32)]
+                  if isinstance(lyr, FusedReflectConv)
+                  and not takes_small(lyr)]
         per_chunk = {'2d': blocks.count(2), '3d': blocks.count(3)}
         want = {'default': dict.fromkeys(
                     ('small_reflect_conv', 'reflect_conv', 'reflect_conv_2d',
@@ -3826,7 +3804,7 @@ def small_tail_calls(net):
     calls = Counter()
 
     def hook(m, args):
-        if m.small_channel_kernel and m._small_ok(args[0], m.weight):
+        if m.route(*args) == 'small':
             calls[(tuple(args[0].shape), m.conv.bias.shape[0],
                    m.alpha)] += 1
 
@@ -4068,13 +4046,9 @@ def fused_calls(model):
 
     def hook(m, args):
         x = args[0]
-        if m.small_channel_kernel and m._small_ok(x, m.weight):
-            kname = 'small_reflect_conv'
-        elif m._body_ok(x, m.weight, args[1]) or (
-                m.use_pallas and not torch.is_grad_enabled()):
-            kname = 'reflect_conv'
-        else:
-            kname = 'cudnn'
+        kname = {'small': 'small_reflect_conv',
+                 'gather_small': 'small_reflect_conv',
+                 'body': 'reflect_conv'}.get(m.route(*args), 'cudnn')
         calls[(kname, tuple(x.shape), m.conv.bias.shape[0], m.alpha)] += 1
 
     hooks = [lyr.register_forward_pre_hook(hook)
@@ -4542,10 +4516,9 @@ def kernel_calls():
     """Record each call the fused blocks make of the kernels' wrappers by
     (kernel, input shape, co, alpha) while the block runs; on the card
     each call is one launch."""
-    from sup3r_tpu_torch.models import fuse
-
     calls = Counter()
-    small, packed = fuse.small_reflect_conv_cf, fuse.reflect_conv_packed
+    small, packed = (fuse_module.small_reflect_conv_cf,
+                     kernels_module.reflect_conv_packed)
 
     def small_call(x, weight, bias, alpha=None):
         calls[('small_reflect_conv', tuple(x.shape), weight.shape[0],
@@ -4556,13 +4529,13 @@ def kernel_calls():
         calls[('reflect_conv', tuple(x.shape), co, alpha)] += 1
         return packed(x, weights, bias, co, n_tile, alpha)
 
-    fuse.small_reflect_conv_cf = small_call
-    fuse.reflect_conv_packed = packed_call
+    fuse_module.small_reflect_conv_cf = small_call
+    kernels_module.reflect_conv_packed = packed_call
     try:
         yield calls
     finally:
-        fuse.small_reflect_conv_cf = small
-        fuse.reflect_conv_packed = packed
+        fuse_module.small_reflect_conv_cf = small
+        kernels_module.reflect_conv_packed = packed
 
 
 def bias_kwargs(fps):
@@ -5745,7 +5718,7 @@ def flagship_gated(n, s1, s2, t):
     2 -> 64 block at t, the 64 -> 64 block at 2t, 34 blocks at 4t."""
     shapes = ([(n, 2, s1, s2, t), (n, 64, s1, s2, 2 * t)]
               + [(n, 64, s1, s2, 4 * t)] * (N_BODY_BLOCKS - 2))
-    return sum(map(body_kernel_wins, shapes))
+    return sum(body_kernel_wins(on_card(shape)) for shape in shapes)
 
 
 def group_dispatches(strategy, use_mesh):

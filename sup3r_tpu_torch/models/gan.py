@@ -11,7 +11,7 @@ whole step, backward included):
   its body convs run ``reflect_conv_ad`` (cuDNN with the custom
   backward); every fp32 fused 3D block's weight gradient runs on the
   hand-written ``reflect_conv_wgrad`` kernel on the card where it was
-  timed faster (``ops/conv_ad.py::wgrad_kernel_wins``);
+  timed faster (``ops/kernels.py::wgrad_kernel_wins``);
 - gen loss = content + ``weight_gen_advers`` * relativistic(d_gen,
   d_true); its gradients go to the generator's params through
   ``torch.autograd.grad``;
@@ -512,7 +512,7 @@ class Sup3rGan(AbstractSingleModel):
     #: (float32 only, so it refuses a bf16 body on the card, as the JAX
     #: package's Pallas kernel does). Off, each fp32 block served on the
     #: card takes the kernel where it was timed faster than cuDNN
-    #: (``models/fuse.py::body_kernel_wins``), and cuDNN elsewhere
+    #: (``ops/kernels.py::body_kernel_wins``), and cuDNN elsewhere
     inference_pallas = False
     #: fold the final SpatioTemporalExpansion + tail conv to the
     #: pre-expansion resolution (``ops/subpixel.py``): one conv at

@@ -470,28 +470,34 @@ def rank_results(out_dir, world):
     return out
 
 
-def _exchanges(layers, in_shape, gather_small=False):
+def _exchanges(layers, in_shape, gather_small=False, dtype=None):
     """[(kind, geometry, channels-last input shape, whether the input
     needs a gradient)] of a network's layers (a fused layer list, as
     ``train_fuse`` runs the generator) that move rows between ranks on a
     block of s1 rows: 'halo' ((before, after) rows) for a fused reflect
     block or a stride-1 'same' conv, 'rows' ((k, stride, padding)) for
-    any other conv, and ('rows', 'whole') for a fused block that the
-    small kernel takes under ``gather_small`` (the gather of
-    ``SpatialShard.gather``). Stops at the row-parallel head
+    any other conv, and ('rows', 'whole') for a fused block whose route
+    (``FusedReflectConv.route``, on an input of ``dtype``, float32 by
+    default) under a shard with ``gather_small`` is the small kernel's
+    gather (``SpatialShard.gather``). Stops at the row-parallel head
     (``Network.row_parallel_index``): the layers from it on run whole."""
+    from types import SimpleNamespace
+
+    import torch
+
     from sup3r_tpu_torch.models.fuse import FusedReflectConv
     from sup3r_tpu_torch.models.layers import Conv2D, Conv3D
     from sup3r_tpu_torch.models.network import Network
 
+    ctx = {'spatial': SimpleNamespace(gather_small=gather_small)}
     head = Network(layers).row_parallel_index()
     out, shape, grad = [], tuple(in_shape), False
     for lyr in layers[:None if head is None else head - 1]:
         if isinstance(lyr, FusedReflectConv):
-            small = (gather_small and lyr.small_channel_kernel
-                     and lyr.n_spatial == 3 and len(shape) == 5
-                     and shape[-1] * lyr.conv.filters <= 32)
-            out.append(('rows', 'whole', shape, grad) if small
+            x = SimpleNamespace(shape=(shape[0], shape[-1], *shape[1:-1]),
+                                dtype=dtype or torch.float32)
+            gathered = lyr.route(x, ctx) == 'gather_small'
+            out.append(('rows', 'whole', shape, grad) if gathered
                        else ('halo', (1, 1), shape, grad))
             nxt = (*shape[:-1], lyr.conv.filters)
         else:
@@ -572,6 +578,8 @@ def expected_exchange_bytes(model, lr_shape, hr_shape, dp, sp, index,
                          'Dropout')
     lr_shape, hr_shape = (dp * (lr_shape[0] // dp), *lr_shape[1:]), (
         dp * (hr_shape[0] // dp), *hr_shape[1:])
+    import torch
+
     from sup3r_tpu_torch.models.fuse import fuse_network
     from sup3r_tpu_torch.ops.conv_ad import shard_aligned_worthwhile
 
@@ -580,8 +588,8 @@ def expected_exchange_bytes(model, lr_shape, hr_shape, dp, sp, index,
         aligned = shard_aligned_worthwhile(sp)
     gen_layers = list(model.generator.layers)
     gen = _exchanges(fuse_network(gen_layers) if model.train_fuse
-                     else gen_layers, lr_shape,
-                     gather_small=not aligned and itemsize == 4)
+                     else gen_layers, lr_shape, gather_small=not aligned,
+                     dtype=torch.float32 if itemsize == 4 else torch.bfloat16)
     disc = _exchanges(model.discriminator.layers, hr_shape)
     calls = [  # (exchanges, backward passes through each one's input)
         (gen, lambda e: int(do_gen and e[3])),

@@ -191,7 +191,8 @@ def run(tmp_path_factory):
             use_mesh='spatial', **PASS_KW), 0),
         'n_small': sum(
             isinstance(lyr, FusedReflectConv)
-            and lyr._small_ok(torch.zeros(1, 1, 1, 1, 1), lyr.weight)
+            and lyr.route(torch.zeros(1, lyr.weight.shape[1], 2, 2, 2),
+                          {}) == 'small'
             for lyr in port._get_fused_apply().layers),
     }
     return ranks, refs, out

@@ -1,4 +1,4 @@
-"""The route of a fused block's weight gradient (``ops/conv_ad.py``
+"""The route of a fused block's weight gradient (``ops/kernels.py``
 ``reflect_conv_backward``), on the CPU: the plain twin of the
 hand-written ``reflect_conv_wgrad`` kernel is autograd's weight gradient
 of ``F.pad(reflect) -> conv3d``; the gate (``wgrad_kernel_wins``) routes
@@ -16,14 +16,13 @@ from torch.profiler import ProfilerActivity, profile
 from sup3r_tpu_torch.configs import generator_st
 from sup3r_tpu_torch.models import Sup3rGan
 from sup3r_tpu_torch.models.fuse import FusedReflectConv
-from sup3r_tpu_torch.ops import conv_ad
+from sup3r_tpu_torch.ops import kernels
 from sup3r_tpu_torch.ops.conv_ad import (
     reflect_conv_ad,
     reflect_conv_halo,
     reflect_conv_shard_aligned,
-    reflect_conv_wgrad,
-    wgrad_kernel_wins,
 )
+from sup3r_tpu_torch.ops.kernels import reflect_conv_wgrad, wgrad_kernel_wins
 from sup3r_tpu_torch.utilities import trace
 
 torch.set_num_threads(1)
@@ -125,7 +124,7 @@ def test_sharded_blocks_keep_their_own_backward(monkeypatch, route):
     """The sharded formulations' backwards take their weight gradient on
     the library and never ask the kernel route."""
     asked = []
-    monkeypatch.setattr(conv_ad, 'wgrad_kernel_wins',
+    monkeypatch.setattr(kernels, 'wgrad_kernel_wins',
                         lambda *args: asked.append(args) or True)
     rng = np.random.default_rng(5)
     x = torch.as_tensor(rng.standard_normal((2, 4, 6, 5, 7)),
@@ -189,7 +188,7 @@ def test_route_counters_once_per_fused_blocks_weight_gradient(monkeypatch):
     # the kernel's route, its launch the plain twin on the CPU: the same
     # step, counted on the other counter
     model = _model()
-    monkeypatch.setattr(conv_ad, 'wgrad_kernel_wins', lambda *args: True)
+    monkeypatch.setattr(kernels, 'wgrad_kernel_wins', lambda *args: True)
     launches = reflect_conv_wgrad.launches
     _step(model)
     trace.reset()
